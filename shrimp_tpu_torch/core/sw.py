@@ -1,0 +1,151 @@
+"""The device step of the fused stats flow, on torch tensors.
+
+Port of `shrimp_tpu/core/sw_jax.py`: `_unpack_rtab_nib`, `_unpack_args4`,
+`fast_window_gather`, `_vec_full_gather_packed`, `_pack_stats3` and the
+fused phase of `sw_vec_full_stats_packed`. Packed arguments go up
+(16 B per window, 4-bit reads), both kernels run on windows gathered
+from the device-resident genome plane, and [B, 3] int32 rows come back
+in the reference's bit layout, so the host's `_unpack_stats3` reads
+them unchanged. The gather is plain tensor indexing; the two DP
+kernels are `sw_vector.sw_vector_batch` and `sw_full.sw_full_stats`
+(CUDA kernels for CUDA tensors, plain versions for CPU tensors).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .sw_full import sw_full_stats
+from .sw_vector import sw_vector_batch
+
+# bytes between the forward and reverse-complement planes of the
+# concatenated word plane
+PAD = 96
+
+
+def cat_word_plane(fp: np.ndarray, rp: np.ndarray) -> Optional[np.ndarray]:
+    """The concatenated (fwd, pad, rc, pad2) plane of two equal-length
+    uint8 genome planes, as int32 words, for fast_window_gather. The pads
+    repeat each plane's last byte. None when its offsets would overflow
+    int32 (planes over ~1 Gbp)."""
+    n = len(fp)
+    if len(rp) != n:
+        raise ValueError("forward and reverse-complement planes differ "
+                         "in length")
+    pad2 = PAD + (-(2 * n + PAD) % 4)
+    if 2 * n + PAD + pad2 >= 2 ** 31:
+        return None
+    cat = np.empty(2 * n + PAD + pad2, np.uint8)
+    cat[:n] = fp
+    cat[n:n + PAD] = fp[-1]
+    cat[n + PAD:2 * n + PAD] = rp
+    cat[2 * n + PAD:] = rp[-1]
+    return cat.view(np.int32)
+
+
+def _unpack_rtab_nib(rtab_pk: torch.Tensor) -> torch.Tensor:
+    """[B, W] uint8 nibble-packed read codes -> [B, 2W] uint8 codes.
+    Byte k holds code[2k] in the low nibble, code[2k+1] in the high."""
+    B, W = rtab_pk.shape
+    return torch.stack([rtab_pk & 0x0F, rtab_pk >> 4], dim=2).reshape(B,
+                                                                     2 * W)
+
+
+def _unpack_args4(args4: torch.Tensor):
+    """Decode the [B, 4] int32 packed argument rows
+    (fastpath._pack_args4):
+
+    w0 = gstart (absolute genome offset)
+    w1 = ri | rc<<16 | rev<<17 | glen<<18    (ri < 2^16, glen < 2^14)
+    w2 = (rx & 0xffff) | ry<<16              (both signed int16)
+    w3 = (rl & 0xffff) | rw<<16
+    """
+    w0, w1, w2, w3 = args4.unbind(1)
+    ri = w1 & 0xFFFF
+    rc = (w1 >> 16) & 1
+    rev = (w1 >> 17) & 1
+    glen = (w1 >> 18) & 0x3FFF
+    rx = ((w2 & 0xFFFF) ^ 0x8000) - 0x8000    # sign-extend the low half
+    ry = w2 >> 16
+    rl_ = w3 & 0xFFFF
+    rw_ = (w3 >> 16) & 0xFFFF
+    return w0, glen, ri, rc, rx, ry, rl_, rw_, rev
+
+
+def fast_window_gather(cat_words: torch.Tensor, n_gen: int,
+                       gstart: torch.Tensor, rc: torch.Tensor,
+                       G: int) -> torch.Tensor:
+    """[B, G] uint8 genome windows from the concatenated (fwd, pad, rc,
+    pad2) plane of `n_gen`-byte planes (cat_word_plane). gstart is
+    clipped to [0, n_gen-1] first; the pads repeat each plane's last
+    byte, which reproduces a per-element clip for the tails of windows
+    that overrun a plane (those cells are glen-masked in both kernels).
+    Bytes past the end of the word plane clip to its last byte."""
+    if G % 4:
+        raise ValueError(f"fast_window_gather: G={G} is not a multiple "
+                         "of 4 (the packed flow pads G to 32)")
+    cat = cat_words.view(torch.uint8)
+    eff = (gstart.clamp(0, n_gen - 1)
+           + torch.where(rc != 0, n_gen + PAD, 0)).long()
+    pos = eff[:, None] + torch.arange(G, device=eff.device)[None, :]
+    return cat[pos.clamp_(max=cat.numel() - 1)]
+
+
+def _vec_full_gather_packed(codes_fwd, args4, rtab_pk, G: int, L: int,
+                            cat_words):
+    """Windows, read rows and per-pair arguments for both kernels. rlen
+    is the uniform batch read length L (pad rows score a 1-cell window
+    whose result the host discards)."""
+    gstart, glen, ri, rc, rx, ry, rl_, rw_, rev = _unpack_args4(args4)
+    gwin = fast_window_gather(cat_words, codes_fwd.shape[0], gstart, rc, G)
+    rB = rtab_pk.shape[0]
+    rwin = _unpack_rtab_nib(rtab_pk[ri.clamp(0, rB - 1).long()])
+    rlen = torch.full_like(glen, L)
+    return gwin, rwin, glen, rlen, rx, ry, rl_, rw_, rev
+
+
+def _pack_stats3(vec: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """Pack (vec score, full-SW stats [B, 8]) into [B, 3] int32:
+
+    w0 = vec | score<<16       (both >= 0 and < 2^15: sw-vector.c:393)
+    w1 = mi | mj<<12 | plane<<24 | (term!=0)<<26    (mi, mj < 4096)
+    w2 = matches | run<<16     (matches = deq - base along the chain)
+
+    Fields of rows with score == 0 are junk the host never reads."""
+    score, mi, mj, plane, run, term = stats[:, :6].unbind(1)
+    matches = stats[:, 6] - stats[:, 7]
+    w0 = (score << 16) | (vec & 0xFFFF)
+    w1 = ((mi & 4095) | ((mj & 4095) << 12) | ((plane & 3) << 24)
+          | ((term != 0).to(torch.int32) << 26))
+    w2 = (matches & 0xFFFF) | ((run & 0x7FFF) << 16)
+    return torch.stack([w0, w1, w2], dim=1).to(torch.int32)
+
+
+def sw_vec_full_stats_packed(codes_fwd: torch.Tensor,
+                             codes_rc: torch.Tensor, args4: torch.Tensor,
+                             rtab_pk: torch.Tensor,
+                             cat_words: Optional[torch.Tensor], *, G: int,
+                             L: int, match: int, mismatch: int,
+                             a_gap_open: int, a_gap_ext: int,
+                             b_gap_open: int, b_gap_ext: int,
+                             local_alignment: bool = False) -> torch.Tensor:
+    """Fused filter 2 + speculative filter 3 on packed IO: [B, 4] int32
+    args and the nibble-packed read table in, [B, 3] int32
+    `_pack_stats3` rows out, all on the device of `args4`. `codes_fwd`
+    gives the padded plane length; `codes_rc` is kept for the
+    reference's signature (the word plane holds both strands)."""
+    if cat_words is None:
+        raise NotImplementedError(
+            "the concatenated word plane overflows int32 offsets (genome "
+            "planes over ~1 Gbp); the byte-gather flow is not ported")
+    gwin, rwin, glen, rlen, rx, ry, rl_, rw_, rev = \
+        _vec_full_gather_packed(codes_fwd, args4, rtab_pk, G, L, cat_words)
+    kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+              b_gap_ext=b_gap_ext)
+    vec = sw_vector_batch(gwin, glen, rwin, rlen, **kw)
+    stats = sw_full_stats(gwin, glen, rwin, rlen, rx, ry, rl_, rw_, rev,
+                          local_alignment=local_alignment, **kw)
+    return _pack_stats3(vec, stats)

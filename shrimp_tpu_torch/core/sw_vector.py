@@ -1,0 +1,116 @@
+"""Vector Smith-Waterman (filter 2): the plain PyTorch version and the
+wrapper of the CUDA kernel `csrc/sw_vector.cu`.
+
+Port of the Pallas kernel `shrimp_tpu/core/sw_pallas.py::
+sw_vector_batch_pallas` in letter-space mode, whose scores equal the XLA
+formulation `sw_jax.sw_vector_batch`: score-only local affine SW per
+(window, read) pair, gap open charged as open + extend, H clamped at 0,
+cells with i >= rlen or j >= glen contribute 0. Colour-space mode
+(`g_row0`) comes with the colour-space slice.
+
+`sw_vector_batch` takes the plain version for CPU tensors only; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ._args import check_cuda_shape, check_tensor
+
+NEG = -(2 ** 30)
+FILL = -(2 ** 28)
+
+# launches of the CUDA kernel (the plain version is not counted)
+LAUNCHES = _build.LaunchCount()
+
+
+def _costs(a_gap_open, a_gap_ext, b_gap_open, b_gap_ext):
+    """Positive penalties: (open + extend, extend) per gap direction."""
+    return (-a_gap_open - a_gap_ext, -a_gap_ext,
+            -b_gap_open - b_gap_ext, -b_gap_ext)
+
+
+def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
+                        read: torch.Tensor, rlen: torch.Tensor, *,
+                        match: int, mismatch: int, a_gap_open: int,
+                        a_gap_ext: int, b_gap_open: int,
+                        b_gap_ext: int) -> torch.Tensor:
+    """Plain int32 version, on any device: genome [B, G] uint8, glen [B],
+    read [B, R] uint8, rlen [B] -> [B] int32 best local scores. A row
+    loop over i; the E-gap chain along j is a cummax of h0[k] + k*ext
+    (h0 is the row value without E, which is exact because a gap
+    re-opened from an E cell never beats extending it)."""
+    goa, gea, gob, geb = _costs(a_gap_open, a_gap_ext, b_gap_open,
+                                b_gap_ext)
+    B, G = genome.shape
+    R = read.shape[1]
+    dev = genome.device
+    g = genome.to(torch.int32)
+    r = read.to(torch.int32)
+    glen = glen.to(torch.int32)
+    rlen = rlen.to(torch.int32)
+    jidx = torch.arange(G, dtype=torch.int32, device=dev)
+    jvalid = jidx[None, :] < glen[:, None]
+    jg = jidx * gea
+    h = torch.zeros((B, G + 1), dtype=torch.int32, device=dev)
+    f = torch.full((B, G), NEG, dtype=torch.int32, device=dev)
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    fill = torch.full((B, 1), FILL, dtype=torch.int32, device=dev)
+    m, mm = (torch.tensor(v, dtype=torch.int32, device=dev)
+             for v in (match, mismatch))
+    for i in range(R):
+        valid = (rlen > i)[:, None] & jvalid
+        s = torch.where(g == r[:, i:i + 1], m, mm)
+        f = torch.maximum(h[:, 1:] - gob, f - geb)
+        h0 = torch.maximum((h[:, :-1] + s).clamp(min=0), f)
+        h0 = torch.where(valid, h0, 0)
+        f = torch.where(valid, f, NEG)
+        # max over k <= j of h0[k] + k*ext (h0 >= 0, so the FILL floor
+        # of the reference's shifted cummax never wins)
+        c = torch.cummax(h0 + jg, dim=1).values
+        e = torch.cat([fill, c[:, :-1]], dim=1) - (goa - gea) - jg
+        hn = torch.maximum(h0, torch.where(valid, e, NEG))
+        best = torch.maximum(best, hn.max(dim=1).values)
+        h = torch.cat([h[:, :1], hn], dim=1)
+    return best
+
+
+def _launch(genome, glen, read, rlen, *, match, mismatch, a_gap_open,
+            a_gap_ext, b_gap_open, b_gap_ext) -> torch.Tensor:
+    check_cuda_shape(genome, "sw_vector_batch")
+    B, G = genome.shape
+    R = read.shape[1]
+    dev = genome.device
+    check_tensor("genome", genome, torch.uint8, (B, G), dev)
+    check_tensor("glen", glen, torch.int32, (B,), dev)
+    check_tensor("read", read, torch.uint8, (B, R), dev)
+    check_tensor("rlen", rlen, torch.int32, (B,), dev)
+    lib = _build.load().lib
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    goa, gea, gob, geb = _costs(a_gap_open, a_gap_ext, b_gap_open,
+                                b_gap_ext)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sw_vector_launch(
+            genome.data_ptr(), glen.data_ptr(), read.data_ptr(),
+            rlen.data_ptr(), out.data_ptr(), B, G, R, match, mismatch,
+            goa, gea, gob, geb, stream)
+    _build.check(rc, "sw_vector_launch")
+    LAUNCHES.add()
+    return out
+
+
+def sw_vector_batch(genome: torch.Tensor, glen: torch.Tensor,
+                    read: torch.Tensor, rlen: torch.Tensor, *, match: int,
+                    mismatch: int, a_gap_open: int, a_gap_ext: int,
+                    b_gap_open: int, b_gap_ext: int) -> torch.Tensor:
+    """[B] int32 vector-SW scores. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (uint8 windows and reads, int32
+    lengths, contiguous, G <= 256) or raise."""
+    kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+              b_gap_ext=b_gap_ext)
+    if genome.device.type == "cpu":
+        return sw_vector_batch_ref(genome, glen, read, rlen, **kw)
+    return _launch(genome, glen, read, rlen, **kw)

@@ -1,0 +1,110 @@
+// Vector Smith-Waterman (filter 2), hand-written for Hopper (sm_90a).
+//
+// Replaces: the Pallas TPU kernel shrimp_tpu/core/sw_pallas.py::_kernel,
+// reached through sw_vector_batch_pallas (letter-space mode). Scores are
+// bit-equal to it and to the XLA formulation sw_jax.sw_vector_batch:
+// local affine SW, gap open charged as open + extend, H clamped at 0,
+// cells with i >= rlen or j >= glen contribute 0.
+//
+// What bounds it on an H100: integer ALU. A DP cell costs about ten
+// int32 operations (compare, adds, maxes) and a launch computes B*R*G
+// cells, while device memory supplies only the window and read bytes of
+// each pair: a few bytes per cell at most, and L1/L2 serve the repeats.
+//
+// What the simple design does about it: one thread per (window, read)
+// pair, the inter-task layout the TPU kernel used with one lane per
+// pair, so no thread waits on another. The thread walks rows i and,
+// inside a row, columns j in order; the E-gap chain that the TPU kernel
+// resolves with a log-doubling cummax is then a scalar carried along j.
+// The previous row's H and F live in per-thread arrays sized by the G
+// bucket (a template parameter), in local memory that L1 caches. Rows
+// i >= rlen and columns j >= glen score 0 in the reference, so the
+// loops stop there. Blocks are small (64 threads) so that the main
+// path's 8192-pair launches spread over all 132 SMs.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NEG = -(1 << 30);
+constexpr int FILL = -(1 << 28);
+constexpr int BLOCK = 64;
+
+template <int GMAX>
+__global__ void __launch_bounds__(BLOCK)
+sw_vector_kernel(const uint8_t* __restrict__ genome,
+                 const int32_t* __restrict__ glen,
+                 const uint8_t* __restrict__ read,
+                 const int32_t* __restrict__ rlen,
+                 int32_t* __restrict__ out, int B, int G, int R, int m,
+                 int mm, int goa, int gea, int gob, int geb) {
+  const int b = blockIdx.x * BLOCK + threadIdx.x;
+  if (b >= B) return;
+  const uint8_t* g = genome + (size_t)b * G;
+  const uint8_t* r = read + (size_t)b * R;
+  const int nj = min(glen[b], G);
+  const int ni = min(rlen[b], R);
+  int h[GMAX];   // H of the previous row, columns 0..nj-1
+  int f[GMAX];   // F (vertical gap) of the previous row
+  for (int j = 0; j < nj; ++j) {
+    h[j] = 0;
+    f[j] = NEG;
+  }
+  int best = 0;
+  for (int i = 0; i < ni; ++i) {
+    const int rch = r[i];
+    int hdiag = 0;   // H[i-1][j-1]; the j = -1 pad column is always 0
+    int c = FILL;    // running max of h0[k] + k*gea over k < j
+    for (int j = 0; j < nj; ++j) {
+      const int hp = h[j];
+      const int fj = max(hp - gob, f[j] - geb);
+      const int s = (g[j] == rch) ? m : mm;
+      const int h0 = max(max(0, hdiag + s), fj);
+      const int e = c - (goa - gea) - j * gea;
+      const int hj = max(h0, e);
+      c = max(c, h0 + j * gea);
+      best = max(best, hj);
+      hdiag = hp;
+      h[j] = hj;
+      f[j] = fj;
+    }
+  }
+  out[b] = best;
+}
+
+template <int GMAX>
+void launch(const void* genome, const void* glen, const void* read,
+            const void* rlen, void* out, int B, int G, int R, int m, int mm,
+            int goa, int gea, int gob, int geb, cudaStream_t stream) {
+  sw_vector_kernel<GMAX><<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+      static_cast<const uint8_t*>(genome), static_cast<const int32_t*>(glen),
+      static_cast<const uint8_t*>(read), static_cast<const int32_t*>(rlen),
+      static_cast<int32_t*>(out), B, G, R, m, mm, goa, gea, gob, geb);
+}
+
+}  // namespace
+
+// genome [B, G] u8, glen [B] i32, read [B, R] u8, rlen [B] i32 ->
+// out [B] i32. goa/gob are open + extend costs and gea/geb extend costs,
+// all as positive penalties. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for G > 256).
+extern "C" int sw_vector_launch(const void* genome, const void* glen,
+                                const void* read, const void* rlen,
+                                void* out, int B, int G, int R, int m,
+                                int mm, int goa, int gea, int gob, int geb,
+                                void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G <= 64)
+    launch<64>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea, gob,
+               geb, st);
+  else if (G <= 128)
+    launch<128>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea,
+                gob, geb, st);
+  else if (G <= 256)
+    launch<256>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea,
+                gob, geb, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -39,6 +39,9 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute e2e/dist case; excluded from the default "
         "fast subset (run with --runslow)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips inside the test without one")
 
 
 def pytest_collection_modifyitems(config, items):

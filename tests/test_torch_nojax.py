@@ -1,0 +1,119 @@
+"""shrimp_tpu_torch runs where there is no JAX (the GPU machines have
+none): it imports none, reuses only shrimp_tpu's jax-free host modules,
+and never hands a batch it cannot take to a JAX or CPU fallback."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
+import pytest
+import torch
+
+from shrimp_tpu.config import MapperConfig
+from shrimp_tpu.core import encode
+from shrimp_tpu.index.build import build_index
+from shrimp_tpu.index.seeds import default_seeds
+from shrimp_tpu.io.fasta import SeqRecord
+from shrimp_tpu.native import get_lib
+from shrimp_tpu_torch import fastpath
+from shrimp_tpu_torch.mapper import Mapper
+
+from .test_e2e_unpaired import make_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "shrimp_tpu_torch")
+# the jax-free host modules of shrimp_tpu that the port may import
+HOST_MODULES = {"config", "constants", "index.build", "index.seeds",
+                "core.encode", "core.batch_pipeline", "native",
+                "native.filter1_py", "io.fasta", "utils.stats"}
+
+needs_native = pytest.mark.skipif(get_lib() is None,
+                                  reason="native library unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_no_jax():
+    srcs = list(_port_sources())
+    assert len(srcs) >= 10
+    for path in srcs:
+        with open(path) as f:
+            text = f.read()
+        assert "import jax" not in text and "from jax" not in text, path
+        for mod in re.findall(r"^\s*(?:from|import) shrimp_tpu\.([\w.]+)",
+                              text, re.M):
+            assert mod in HOST_MODULES, (path, mod)
+
+
+@needs_native
+def test_maps_to_sam_with_jax_blocked(tmp_path):
+    """The GPU machine's situation, rehearsed: `import jax` fails, and the
+    port still maps a small dataset to SAM on the CPU."""
+    gpath, rpath, _, _ = make_dataset(str(tmp_path), n_reads=80)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from shrimp_tpu.core.encode import encode_ls
+        from shrimp_tpu.index.build import build_index
+        from shrimp_tpu.index.seeds import default_seeds
+        from shrimp_tpu.io.fasta import read_seqs
+        from shrimp_tpu_torch import fastpath
+        from shrimp_tpu_torch.mapper import Mapper
+        g = next(read_seqs({gpath!r}))
+        idx = build_index([(g.name, encode_ls(g.seq))], default_seeds())
+        reads = list(read_seqs({rpath!r}))
+        m = Mapper(idx, None, "cpu")
+        sam = b"".join(fastpath.map_unpaired_sam_stream(m, reads,
+                                                        batch_size=32))
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib")]
+        assert not loaded, loaded
+        print("records", sam.count(b"\\n"), "reads", m.stats.reads)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_rec, n_reads = map(int, res.stdout.split()[1::2])
+    assert n_reads == 80 and n_rec >= 40
+
+
+@needs_native
+def test_rejected_batch_raises(tmp_path):
+    """A batch the flat encoder rejects (here a short read) raises; the
+    port has no generic mapper to hand it to."""
+    _, _, g, reads = make_dataset(str(tmp_path), n_reads=120)
+    idx = build_index([("chr_test", encode.encode_ls(g))], default_seeds())
+    recs = [SeqRecord(n, s) for n, s in reads]
+    recs[70] = SeqRecord(recs[70].name, recs[70].seq[:30])
+    for lanes in (1, 4):
+        m = Mapper(idx, MapperConfig(), "cpu")
+        gen = fastpath.map_unpaired_sam_stream(m, recs, batch_size=32,
+                                               lanes=lanes)
+        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
+            b"".join(gen)
+    recs[3] = SeqRecord(recs[3].name, recs[3].seq[:20])
+    with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
+        fastpath.map_unpaired_sam_stream(Mapper(idx, None, "cpu"), recs,
+                                         batch_size=32)
