@@ -13,14 +13,29 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    integer). Times both with CUDA events.
 4. The packed device step (core/sw.py) on CUDA tensors against the same
    call on CPU tensors: [B, 3] rows bit-equal.
-5. The slice: bench.py's E. coli-scale workload (seed 20260816, 4.6 Mbp
-   genome, 36 bp reads) mapped to SAM on the card through
-   fastpath.map_unpaired_sam_stream; both kernels' launch counters must
-   rise; the SAM bytes must equal the port's CPU run on the same reads.
+5. The letter-space slice: bench.py's E. coli-scale workload (seed
+   20260816, 4.6 Mbp genome, 36 bp reads) mapped to SAM on the card
+   through fastpath.map_unpaired_sam_stream; both kernels' launch
+   counters must rise; the SAM bytes must equal the port's CPU run on
+   the same reads.
+6. The colour-space kernels (CS-mode vector SW, the 4-layer DP, the
+   traceback) against their plain versions on the card, at B = 2048 and
+   8192, G = 64 and 128, R = 36, global and local, taboo 0 and 4, with
+   revcmpl rows, BASE_N cells and pad rows: bit-equal (tolerance 0).
+   Times kernel and plain with CUDA events.
+7. The fused colour-space step (core/sw_cs.py) on CUDA tensors against
+   the same call on CPU tensors, on a synthetic plane with windows at
+   both ends of both strands: all three outputs bit-equal.
+8. The colour-space slice: bench_all.py's `ecoli-cs` workload (the same
+   genome, 36-colour SOLiD reads) mapped to SAM on the card through
+   fastpath_cs.map_unpaired_cs_sam_stream; the three CS launch counters
+   must rise, at least 95 % of reads must map, and the SAM bytes of the
+   first CS_CPU_READS reads must equal the port's CPU run on them.
 
-Any failure raises, so the exit code is non-zero and no result line is
-printed. The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+Each slice is driven with the launch counts set to 0 just before it and
+read just after. Any failure raises, so the exit code is non-zero and
+no result line is printed. The last two lines are the kernels' JSON
+record and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -37,6 +52,16 @@ B_CHUNK = 8192          # mapper.FULL_BATCH: rows per fused launch
 N_READS = 100_000
 KW = dict(match=10, mismatch=-15, a_gap_open=-40, a_gap_ext=-7,
           b_gap_open=-40, b_gap_ext=-7)
+# colour space: gmapper-cs's default scores and crossover; the main
+# path's launch (fastpath_cs._cs_chunk at E. coli density) and reads
+CS_KW = dict(match=10, mismatch=-24, a_gap_open=-33, a_gap_ext=-7,
+             b_gap_open=-33, b_gap_ext=-3)
+XOVER = -20
+CS_B_MAIN, CS_G_MAIN, CS_R = 2048, 64, 36
+# reads of the CS slice mapped again on the CPU for the SAM comparison
+# (two 8192-read batches: the plain 4-layer DP is slow on the host)
+CS_CPU_READS = 16_384
+BASE_N = 15
 
 
 def _smi() -> str:
@@ -188,17 +213,28 @@ def _mapper(idx, device):
     return Mapper(idx, None, device)
 
 
-def _map(m, reads):
-    """(SAM bytes, seconds) of one run of the port's entry point."""
+def _ls_stream(m, reads):
     from shrimp_tpu_torch import fastpath
+    return fastpath.map_unpaired_sam_stream(m, reads)
+
+
+def _map(m, reads, stream=_ls_stream):
+    """(SAM bytes, seconds) of one run of the port's entry point."""
+    sam, secs = _map_batches(m, reads, stream)
+    return b"".join(sam), secs
+
+
+def _map_batches(m, reads, stream):
+    """([SAM bytes of each batch], seconds) of one run of an entry
+    point."""
     t0 = time.perf_counter()
-    sam = b"".join(fastpath.map_unpaired_sam_stream(m, reads))
+    out = list(stream(m, reads))
     if m.device.type == "cuda":
         torch.cuda.synchronize()
-    return sam, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
 
 
-def _device_busy_share(m, reads) -> str:
+def _device_busy_share(m, reads, stream=_ls_stream) -> str:
     """Device activity (kernels, then copies) over the wall time of one
     mapping run under torch.profiler; "not measured" when the profiler
     records no device events. All work runs on one stream, so device
@@ -207,7 +243,7 @@ def _device_busy_share(m, reads) -> str:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = _map(m, reads)
+        _, wall = _map(m, reads, stream)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -268,12 +304,270 @@ def run_slice(dev, counters):
     return launches
 
 
+def _cs_vec_pairs(rng, B, G, R):
+    """CS-mode vector inputs: colour windows with their row-0 colours,
+    colour reads (half copied from their window, with dot colours),
+    lengths; the main path's pad rows (glen = rlen = 1) at the front."""
+    g = rng.integers(0, 4, (B, G)).astype(np.uint8)
+    g0 = rng.integers(0, 4, (B, G)).astype(np.uint8)
+    r = rng.integers(0, 4, (B, R)).astype(np.uint8)
+    half = np.arange(1, B, 2)
+    o = rng.integers(0, G - R + 1, len(half))
+    r[half] = g[half[:, None], o[:, None] + np.arange(R)[None, :]]
+    r[half, 0] = g0[half, o]
+    r[half[:, None], rng.integers(0, R, (len(half), 2))] = \
+        rng.integers(0, 4, (len(half), 2))
+    r[rng.random((B, R)) < 0.01] = BASE_N
+    g[rng.random((B, G)) < 0.005] = BASE_N
+    glen = rng.integers(1, G + 1, B).astype(np.int32)
+    rlen = rng.integers(R - 8, R + 1, B).astype(np.int32)
+    glen[:256] = rlen[:256] = 1
+    return dict(genome=g, glen=glen, read=r, rlen=rlen, g_row0=g0)
+
+
+def _cs_dp_pairs(rng, B, G, R):
+    """4-layer DP inputs: letter windows; four letter layers per read, one
+    of which follows its window (two substitutions) in half the pairs;
+    BASE_N cells; per-row crossovers; both strands; pad rows (glen =
+    rlen = alen = awid = 1, thresh = 1) at the front."""
+    g = rng.integers(0, 4, (B, G)).astype(np.uint8)
+    qr = rng.integers(0, 4, (B, 4, R)).astype(np.uint8)
+    half = np.arange(0, B, 2)
+    o = rng.integers(0, G - R + 1, len(half))
+    k0 = rng.integers(0, 4, len(half))
+    qr[half, k0] = g[half[:, None], o[:, None] + np.arange(R)[None, :]]
+    qr[half[:, None], k0[:, None], rng.integers(0, R, (len(half), 2))] = \
+        rng.integers(0, 4, (len(half), 2))
+    qr[rng.random((B, 4, R)) < 0.01] = BASE_N
+    g[rng.random((B, G)) < 0.01] = BASE_N
+    a = dict(genome=g, glen=rng.integers(G // 2, G + 1, B), qr=qr,
+             rlen=rng.integers(R - 12, R + 1, B),
+             ax=rng.integers(-4, G - R, B), ay=rng.integers(-4, 15, B),
+             alen=rng.integers(1, 24, B), awid=rng.integers(3, 16, B),
+             revcmpl=rng.integers(0, 2, B),
+             xover=rng.integers(2 * XOVER, 0, (B, R)),
+             gx=np.full(B, XOVER), thresh=rng.integers(0, 200, B))
+    for k in ("glen", "rlen", "alen", "awid", "thresh"):
+        a[k][:256] = 1
+    for k in ("ax", "ay", "revcmpl"):
+        a[k][:256] = 0
+    return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
+            for k, v in a.items()}
+
+
+_DP_ORDER = ("genome", "glen", "qr", "rlen", "ax", "ay", "alen", "awid",
+             "revcmpl", "xover", "gx")
+
+
+def _err(got, want) -> int:
+    return max(int((x.to(torch.int32) - w.to(torch.int32)).abs().max())
+               for x, w in zip(got, want))
+
+
+def check_cs_kernels(dev):
+    """Phase 6: the colour-space kernels vs their plain versions."""
+    from shrimp_tpu_torch.core import sw_cs_full, sw_vector
+    rec = {k: dict(err=0) for k in ("sw_vector_cs", "sw_cs_full",
+                                    "cs_traceback")}
+    vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
+    rng = np.random.default_rng(20261017)
+    for B in (CS_B_MAIN, 4 * CS_B_MAIN):
+        for G in (CS_G_MAIN, 2 * CS_G_MAIN):
+            R = CS_R
+            v = {k: torch.from_numpy(x).to(dev)
+                 for k, x in _cs_vec_pairs(rng, B, G, R).items()}
+            v4 = (v["genome"], v["glen"], v["read"], v["rlen"], v["g_row0"])
+            got = sw_vector.sw_vector_batch(*v4, cs_mode=True, **vkw)
+            torch.cuda.synchronize()
+            want = sw_vector.sw_vector_batch_ref(*v4, cs_mode=True, **vkw)
+            err = _err([got], [want])
+            rec["sw_vector_cs"]["err"] = max(rec["sw_vector_cs"]["err"], err)
+            print(f"sw_vector_cs B={B} G={G} R={R}: max |kernel - plain| = "
+                  f"{err} (best score {int(want.max())})")
+            a = {k: torch.from_numpy(x).to(dev)
+                 for k, x in _cs_dp_pairs(rng, B, G, R).items()}
+            dp = tuple(a[k] for k in _DP_ORDER)
+            for local in (False, True):
+                for taboo in (0, 4):
+                    kw = dict(CS_KW, local_alignment=local,
+                              indel_taboo_len=taboo)
+                    *st, bp = sw_cs_full.sw_full_cs_dp(*dp, **kw)
+                    torch.cuda.synchronize()
+                    *st_w, bp_w = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
+                    err = _err([*st, sw_cs_full.bp_ref_layout(bp)],
+                               [*st_w, bp_w])
+                    del bp_w
+                    rec["sw_cs_full"]["err"] = max(rec["sw_cs_full"]["err"],
+                                                   err)
+                    tb = (a["genome"], a["qr"], *st, bp, a["thresh"])
+                    got = sw_cs_full.cs_traceback(*tb)
+                    torch.cuda.synchronize()
+                    want = sw_cs_full.cs_traceback_ref(*tb)
+                    err_tb = _err(got, want)
+                    rec["cs_traceback"]["err"] = max(
+                        rec["cs_traceback"]["err"], err_tb)
+                    print(f"sw_cs_full B={B} G={G} R={R} local={local} "
+                          f"taboo={taboo}: max |kernel - plain| = {err}; "
+                          f"cs_traceback: {err_tb} (aligned rows "
+                          f"{int((want[0][:, 0] > 0).sum())}, with "
+                          f"crossovers {int((want[0][:, 11] > 0).sum())})")
+            # times at the main path's modes: global, taboo 0
+            st_bp = sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)
+            tb = (a["genome"], a["qr"], *st_bp, a["thresh"])
+            times = dict(
+                sw_vector_cs=(
+                    _time_ms(lambda: sw_vector.sw_vector_batch(
+                        *v4, cs_mode=True, **vkw)),
+                    _time_ms(lambda: sw_vector.sw_vector_batch_ref(
+                        *v4, cs_mode=True, **vkw), reps=5)),
+                sw_cs_full=(
+                    _time_ms(lambda: sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)),
+                    _time_ms(lambda: sw_cs_full.sw_full_cs_dp_ref(
+                        *dp, **CS_KW), reps=3)),
+                cs_traceback=(
+                    _time_ms(lambda: sw_cs_full.cs_traceback(*tb)),
+                    _time_ms(lambda: sw_cs_full.cs_traceback_ref(*tb),
+                             reps=5)))
+            for name, (k_ms, p_ms) in times.items():
+                print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms, "
+                      f"plain {p_ms!r} ms")
+                if (B, G) == (CS_B_MAIN, CS_G_MAIN):   # the main path's
+                    rec[name].update(ms=k_ms, plain_ms=p_ms)
+    for name, r in rec.items():
+        if r["err"] != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version (max abs err {r['err']})")
+    return rec
+
+
+def check_cs_packed_step(dev):
+    """Phase 7: the fused CS step on CUDA vs the same call on CPU, on a
+    synthetic plane with windows at both ends of both strands."""
+    from shrimp_tpu_torch.core.sw import cat_word_plane
+    from shrimp_tpu_torch.core.sw_cs import sw_vec_cs_full_from_index
+    from shrimp_tpu_torch.fastpath_cs import cs_layers_batch
+    from shrimp_tpu_torch.mapper import Mapper
+    rng = np.random.default_rng(8)
+    n_true, G, R, B, n_reads = 4_000_000, CS_G_MAIN, CS_R, CS_B_MAIN, 2048
+    k = B - B // 8                     # the rest are pad rows
+    fw = rng.integers(0, 4, n_true).astype(np.uint8)
+    rc = (3 - fw[::-1]).astype(np.uint8)
+    # lstocs of letters 0..3 is their xor
+    cfw = np.concatenate([[0], fw[:-1] ^ fw[1:]]).astype(np.uint8)
+    crc = np.concatenate([[0], rc[:-1] ^ rc[1:]]).astype(np.uint8)
+    planes = [Mapper._pad_plane(p) for p in (cfw, crc, fw, rc)]
+    n = len(planes[2])
+    cats = [cat_word_plane(*planes[:2]), cat_word_plane(*planes[2:])]
+    a = np.zeros((B, 12), np.int32)
+    starts = rng.integers(-5, n + 5, k)
+    starts[:64] = rng.integers(-5, 40, 64)            # plane starts
+    starts[64:128] = rng.integers(n - 70, n + 5, 64)  # plane ends
+    rcf = rng.integers(0, 2, k)
+    a[:k, 0], a[:k, 3] = starts, rcf
+    a[:k, 1] = rng.integers(1, G + 1, k)
+    a[:k, 2] = rng.integers(0, n_reads, k)
+    a[:k, 4] = R
+    a[:k, 5] = rng.integers(-8, G // 2, k)
+    a[:k, 6] = rng.integers(-8, R, k)
+    a[:k, 7] = rng.integers(0, 24, k)
+    a[:k, 8] = rng.integers(0, 30, k)
+    a[:k, 9] = rcf & rng.integers(0, 2, k)
+    a[:k, 10] = rng.integers(0, 150, k)
+    initbp = rng.integers(0, 4, n_reads)
+    colours = rng.integers(0, 4, (n_reads, R)).astype(np.uint8)
+    # plant reads that follow the band's diagonal in 512 windows
+    for q in range(128, 640):
+        st = int(rng.integers(0, n_true - G))
+        a[q, [0, 1, 2, 5, 6, 7, 8]] = (st, G, q, 0, 0, R, 8)
+        plane = planes[3] if a[q, 3] else planes[2]
+        lets = np.concatenate([[initbp[q]], plane[st:st + R]])
+        colours[q] = lets[:-1] ^ lets[1:]
+        colours[q, rng.integers(0, R)] = BASE_N
+    a[:k, 11] = initbp[a[:k, 2]]
+    a[k:, [1, 4, 7, 8, 10]] = 1                       # pad rows
+    qr = cs_layers_batch(colours, initbp)
+    xov = rng.integers(2 * XOVER, 0, (n_reads, R)).astype(np.int32)
+    args = (*planes, a, colours, qr, xov, *cats)
+    kw = dict(CS_KW, G=G, xover=XOVER)
+    got, want = ([x.cpu().numpy() for x in sw_vec_cs_full_from_index(
+        *(torch.from_numpy(x).to(d) for x in args), **kw)]
+        for d in (dev, torch.device("cpu")))
+    same = all(np.array_equal(x, w) for x, w in zip(got, want))
+    print(f"CS packed step B={B} G={G} R={R}: CUDA == CPU (vec, packed, "
+          f"steps): {same} (vec > 100: {int((want[0] > 100).sum())}, "
+          f"aligned: {int((want[1][:, 0] > 0).sum())})")
+    if not same:
+        raise AssertionError("CS packed step: CUDA and CPU outputs differ")
+
+
+def _cs_stream(m, reads):
+    from shrimp_tpu_torch import fastpath_cs
+    return fastpath_cs.map_unpaired_cs_sam_stream(m, reads)
+
+
+def run_cs_slice(dev, counters):
+    """Phase 8: bench_all.py's ecoli-cs workload through the port's CS
+    entry point."""
+    from shrimp_tpu_torch.dataset import ecoli_cs_config, ecoli_unpaired_cs
+    from shrimp_tpu_torch.mapper import Mapper
+    t0 = time.perf_counter()
+    idx, reads = ecoli_unpaired_cs(N_READS)
+    print(f"CS dataset + index: {time.perf_counter() - t0:.3f} s "
+          f"({idx.total_len} bp, {len(reads)} reads)")
+
+    def mapper(device):
+        return Mapper(idx, ecoli_cs_config(), device)
+
+    _map(mapper(dev), reads[:2 * B_CHUNK], _cs_stream)      # warm-up
+    m = mapper(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    batches, secs = _map_batches(m, reads, _cs_stream)
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    sam = b"".join(batches)
+    print(f"CS slice on {dev}: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; launches {launches}; windows "
+          f"{m.stats.vec_invocs}; peak device memory {peak} bytes")
+    print("CS stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in m.stats.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the CS path")
+    lines = sam.split(b"\n")[:-1]
+    if not lines or any(len(ln.split(b"\t")) < 11 for ln in lines):
+        raise AssertionError("CS slice: malformed SAM")
+    names = {f[0] for f in (ln.split(b"\t", 2) for ln in lines)
+             if not int(f[1]) & 4}
+    mapped = len(names) / len(reads)
+    print(f"CS SAM: {len(lines)} records, {mapped!r} of reads mapped")
+    if (m.stats.reads != len(reads) or m.stats.reads_mapped != len(names)
+            or mapped < 0.95):
+        raise AssertionError("CS slice: reads lost, miscounted or mostly "
+                             "unmapped")
+    print("CS device busy share (profiled run on the first 32768 reads): "
+          + _device_busy_share(mapper(dev), reads[:4 * B_CHUNK],
+                               _cs_stream))
+    # the stream's batches hold auto_batch_size reads each
+    from shrimp_tpu_torch.fastpath import auto_batch_size
+    n_cpu = CS_CPU_READS // auto_batch_size(m) * auto_batch_size(m)
+    sam_cpu, secs_cpu = _map(mapper("cpu"), reads[:n_cpu], _cs_stream)
+    want = b"".join(batches[:n_cpu // auto_batch_size(m)])
+    print(f"CS slice on cpu (plain versions), first {n_cpu} reads: "
+          f"{secs_cpu!r} s; SAM identical to the CUDA run's: "
+          f"{sam_cpu == want}")
+    if sam_cpu != want:
+        raise AssertionError("CS slice: CUDA and CPU SAM bytes differ")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from shrimp_tpu_torch import _build
-    from shrimp_tpu_torch.core import sw_full, sw_vector
+    from shrimp_tpu_torch.core import sw_cs_full, sw_full, sw_vector
     from shrimp_tpu_torch.device import get_device
 
     dev = get_device("cuda")
@@ -284,8 +578,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = _build.load()
-    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
-          f"{built.seconds:.3f} s) -> {os.path.relpath(built.path)}")
+    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc, one per source "
+          f"in parallel, {built.seconds:.3f} s) -> "
+          + ", ".join(os.path.relpath(p) for p in built.paths))
     for ln in built.log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  " + ln.strip())
@@ -294,23 +589,28 @@ def main() -> None:
     check_packed_step(dev)
     launches = run_slice(dev, {"sw_vector": sw_vector.LAUNCHES,
                                "sw_full_stats": sw_full.LAUNCHES})
+    rec.update(check_cs_kernels(dev))
+    check_cs_packed_step(dev)
+    launches.update(run_cs_slice(dev, {
+        "sw_vector_cs": sw_vector.CS_LAUNCHES,
+        "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+        "cs_traceback": sw_cs_full.TB_LAUNCHES}))
 
     kernels = [
-        dict(name="sw_vector", route="cuda",
-             source="shrimp_tpu_torch/csrc/sw_vector.cu",
-             replaces="shrimp_tpu/core/sw_pallas.py:155",
-             launches=launches["sw_vector"],
-             max_abs_err=rec["sw_vector"]["err"],
-             ms=rec["sw_vector"]["ms"],
-             plain_ms=rec["sw_vector"]["plain_ms"]),
-        dict(name="sw_full_stats", route="cuda",
-             source="shrimp_tpu_torch/csrc/sw_full.cu",
-             replaces="shrimp_tpu/core/sw_full_pallas.py:298",
-             launches=launches["sw_full_stats"],
-             max_abs_err=rec["sw_full_stats"]["err"],
-             ms=rec["sw_full_stats"]["ms"],
-             plain_ms=rec["sw_full_stats"]["plain_ms"]),
-    ]
+        dict(name=name, route="cuda", source=f"shrimp_tpu_torch/csrc/{src}",
+             replaces=replaces, launches=launches[name],
+             max_abs_err=rec[name]["err"], ms=rec[name]["ms"],
+             plain_ms=rec[name]["plain_ms"])
+        for name, src, replaces in (
+            ("sw_vector", "sw_vector.cu", "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_vector_cs", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_stats", "sw_full.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("sw_cs_full", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"))]
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-nvcc compiles every source under `csrc/` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded with ctypes: no PyTorch
-headers, so a build takes seconds, not minutes. The library is built at
-first use into `build/shrimp_tpu_torch/` beside the package, keyed by a
-hash of the sources and flags, so an unchanged tree reuses it. A failed
-build raises; nothing falls back to another implementation.
+nvcc compiles each source under `csrc/` for Hopper (`sm_90a`) into its
+own shared library with a plain C interface, loaded with ctypes: no
+PyTorch headers, so a build takes seconds, not minutes, and the sources
+build in parallel (one nvcc each, all started together). The libraries
+are built at first use into `build/shrimp_tpu_torch/` beside the
+package, each keyed by a hash of its source, the headers and the flags,
+so an unchanged source reuses its library. A failed build raises;
+nothing falls back to another implementation.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -28,17 +31,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (name, argtypes). Every pointer and the stream are
 # c_void_p (a plain int would be cut to 32 bits); sizes and scores int.
-_SIGNATURES = (
-    ("sw_vector_launch", [_P] * 5 + [_I] * 9 + [_P]),
-    ("sw_full_stats_launch", [_P] * 10 + [_I] * 10 + [_P]),
-)
+_SIGNATURES = {
+    "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P],
+    "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
+    "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
+    "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
+}
 
 
 @dataclass
 class Built:
-    lib: ctypes.CDLL
-    path: str
-    seconds: float      # nvcc wall time; 0.0 when a cached build was reused
+    lib: SimpleNamespace    # the C entry points of every source, by name
+    paths: list             # one shared library per source
+    seconds: float      # nvcc wall time; 0.0 when cached builds were reused
     log: str            # nvcc/ptxas output (registers, spills)
 
 
@@ -77,37 +82,63 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _so_path(src: str, headers) -> str:
+    """The library of one source, keyed by its bytes, the headers' and
+    the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in (src, *headers):
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
 def load() -> Built:
-    """Build (or reuse) and load the kernel library; raises on failure."""
+    """Build (or reuse) and load the kernel libraries; raises on
+    failure."""
     global _BUILT
     with _LOCK:
         if _BUILT is not None:
             return _BUILT
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
-            with open(s, "rb") as f:
-                h.update(os.path.basename(s).encode() + f.read())
+        headers = [s for s in srcs if s.endswith(".cuh")]
+        sos = [(s, _so_path(s, headers)) for s in srcs if s.endswith(".cu")]
         os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"kernels_{h.hexdigest()[:16]}.so")
-        secs, log = 0.0, ""
-        if not os.path.exists(so):
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            secs = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        for name, argtypes in _SIGNATURES:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _BUILT = Built(lib, so, secs, log)
+        todo = [(s, so) for s, so in sos if not os.path.exists(so)]
+        t0 = time.perf_counter()
+        procs = [(so, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", f"{so}.tmp{os.getpid()}", s],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for s, so in todo]
+        logs, failed = [], []
+        for so, p in procs:
+            out = p.communicate()[0]
+            logs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{os.path.basename(so)} ({p.returncode})")
+        secs = time.perf_counter() - t0 if todo else 0.0
+        log = "".join(logs)
+        if failed:
+            for so, _ in procs:
+                if os.path.exists(f"{so}.tmp{os.getpid()}"):
+                    os.remove(f"{so}.tmp{os.getpid()}")
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                               f"{log}")
+        for so, _ in procs:
+            os.replace(f"{so}.tmp{os.getpid()}", so)
+        lib = SimpleNamespace()
+        for _, so in sos:
+            dll = ctypes.CDLL(so)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name, None)
+                if fn is not None:
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    setattr(lib, name, fn)
+        missing = sorted(set(_SIGNATURES) - set(vars(lib)))
+        if missing:
+            raise RuntimeError(f"kernel entry points not built: {missing}")
+        _BUILT = Built(lib, [so for _, so in sos], secs, log)
         return _BUILT
 
 

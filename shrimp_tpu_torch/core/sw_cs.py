@@ -1,0 +1,111 @@
+"""The device step of the colour-space fused flow, on torch tensors.
+
+Port of the device half of `shrimp_tpu/core/sw_cs_jax.py`:
+`sw_full_cs_tpu_pallas` (the 4-layer DP followed by the traceback) and
+the fused phase of `sw_vec_cs_full_from_index`. Per chunk, [B, 12] int32
+argument rows go up; colour and letter windows are gathered from the
+two device-resident cat-word planes; the CS vector SW scores every
+window and the 4-layer DP plus traceback align it; [B] int32 vector
+scores, [B, 12] int16 packed alignments and [B, R + G] int8 reversed
+step codes come back in the reference's layout, which the native
+`cs_finalize_render` reads unchanged. The kernels are
+`sw_vector.sw_vector_batch` (colour-space mode), `sw_cs_full.
+sw_full_cs_dp` and `sw_cs_full.cs_traceback`: CUDA kernels for CUDA
+tensors, plain versions for CPU tensors.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import torch
+
+from shrimp_tpu import constants as C
+
+from .sw import fast_window_gather
+from .sw_cs_full import cs_traceback, sw_full_cs_dp
+from .sw_vector import sw_vector_batch
+
+
+@lru_cache(maxsize=None)
+def _colour_lut(dev: torch.device) -> torch.Tensor:
+    """lstocs as a flat [256] uint8 table on `dev` (COLOUR_MAT[a, b] at
+    a * 16 + b)."""
+    return torch.from_numpy(C.COLOUR_MAT.reshape(-1).copy()).to(dev)
+
+
+def sw_full_cs(genome_ls: torch.Tensor, glen: torch.Tensor,
+               qr: torch.Tensor, rlen: torch.Tensor, ax: torch.Tensor,
+               ay: torch.Tensor, alen: torch.Tensor, awid: torch.Tensor,
+               revcmpl: torch.Tensor, xover_rows: torch.Tensor,
+               gx_col: torch.Tensor, thresh: torch.Tensor, *, match: int,
+               mismatch: int, a_gap_open: int, a_gap_ext: int,
+               b_gap_open: int, b_gap_ext: int,
+               local_alignment: bool = False, indel_taboo_len: int = 0):
+    """The 4-layer DP, then the traceback from its best cells: (packed
+    [B, 12] int16, steps_rev [B, R + G] int8), as sw_full_cs_tpu_pallas
+    returns them. `thresh` zeroes the scores below it."""
+    best, bi, bj, bk, bfrm, bp = sw_full_cs_dp(
+        genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl, xover_rows,
+        gx_col, match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+        a_gap_ext=a_gap_ext, b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
+        local_alignment=local_alignment, indel_taboo_len=indel_taboo_len)
+    return cs_traceback(genome_ls, qr, best, bi, bj, bk, bfrm, bp, thresh)
+
+
+def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
+                              cs_codes_rc: torch.Tensor,
+                              ls_codes: torch.Tensor,
+                              ls_codes_rc: torch.Tensor, args: torch.Tensor,
+                              rtab: torch.Tensor, qr_tab: torch.Tensor,
+                              xover_tab: torch.Tensor,
+                              cs_cat: Optional[torch.Tensor] = None,
+                              ls_cat: Optional[torch.Tensor] = None, *,
+                              G: int, xover: int, match: int, mismatch: int,
+                              a_gap_open: int, a_gap_ext: int,
+                              b_gap_open: int, b_gap_ext: int,
+                              local_alignment: bool = False,
+                              indel_taboo_len: int = 0):
+    """Fused colour-space filter 2 + speculative filter 3 against the
+    device-resident genome planes, on the device of `args`.
+
+    args: [B, 12] int32 rows: 0 gstart (absolute, strand-normalized),
+    1 glen, 2 owner (read row), 3 eff_rc, 4 rlen, 5 rx, 6 ry, 7 rl, 8 rw
+    (widened anchor rectangle), 9 rev tie-break, 10 thresh, 11 initbp.
+    rtab [n, R] uint8 colour rows, qr_tab [n, 4, R] uint8 letter layers,
+    xover_tab [n, R] int32 crossover penalties; `xover` is also the row
+    -1 global crossover. cs_cat and ls_cat are the colour and letter
+    planes as cat words (core.sw.cat_word_plane); `cs_codes` and
+    `ls_codes` give their plane lengths, and the `_rc` planes are kept
+    for the reference's signature. Returns (vec [B] int32, packed
+    [B, 12] int16, steps_rev [B, R + G] int8)."""
+    if cs_cat is None or ls_cat is None:
+        raise NotImplementedError(
+            "the concatenated word planes overflow int32 offsets (genome "
+            "planes over ~1 Gbp); the byte-gather flow is not ported")
+    B = args.shape[0]
+    (gstart, glen, owner, eff_rc, rlen, rx, ry, rl, rw, rev, thresh,
+     initbp) = args.t().contiguous().unbind(0)
+    owner = owner.clamp(0, rtab.shape[0] - 1).long()
+    gwin_cs = fast_window_gather(cs_cat, cs_codes.shape[0], gstart, eff_rc,
+                                 G)
+    lswin = fast_window_gather(ls_cat, ls_codes.shape[0], gstart, eff_rc, G)
+    # the flat index clips as the reference's gather does (254 pad bytes)
+    g_row0 = _colour_lut(lswin.device)[
+        (lswin.to(torch.int32) * 16 + initbp[:, None]).clamp(0, 255).long()]
+    # the vector filter's mismatch is match + crossover (gmapper.c
+    # f1_setup): a colour mismatch there is one crossover, so reads with
+    # dot colours still clear pass 1
+    vec = sw_vector_batch(gwin_cs, glen, rtab[owner], rlen, g_row0,
+                          cs_mode=True, match=match, mismatch=match + xover,
+                          a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
+                          b_gap_open=b_gap_open, b_gap_ext=b_gap_ext)
+    gx_col = torch.full((B,), xover, dtype=torch.int32, device=args.device)
+    packed, steps_rev = sw_full_cs(
+        lswin, glen, qr_tab[owner], rlen, rx, ry, rl.clamp(min=1),
+        rw.clamp(min=1), (rev != 0).to(torch.int32),
+        xover_tab[owner].to(torch.int32), gx_col, thresh, match=match,
+        mismatch=mismatch, a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
+        b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
+        local_alignment=local_alignment, indel_taboo_len=indel_taboo_len)
+    return vec, packed, steps_rev

@@ -2,16 +2,19 @@
 wrapper of the CUDA kernel `csrc/sw_vector.cu`.
 
 Port of the Pallas kernel `shrimp_tpu/core/sw_pallas.py::
-sw_vector_batch_pallas` in letter-space mode, whose scores equal the XLA
-formulation `sw_jax.sw_vector_batch`: score-only local affine SW per
-(window, read) pair, gap open charged as open + extend, H clamped at 0,
-cells with i >= rlen or j >= glen contribute 0. Colour-space mode
-(`g_row0`) comes with the colour-space slice.
+sw_vector_batch_pallas`, whose scores equal the XLA formulation
+`sw_jax.sw_vector_batch`: score-only local affine SW per (window, read)
+pair, gap open charged as open + extend, H clamped at 0, cells with
+i >= rlen or j >= glen contribute 0. In colour-space mode (`cs_mode`)
+read row 0 is scored against `g_row0` = COLOUR_MAT[genome letter,
+initbp] and every other row against the colour window.
 
 `sw_vector_batch` takes the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,8 +24,10 @@ from ._args import check_cuda_shape, check_tensor
 NEG = -(2 ** 30)
 FILL = -(2 ** 28)
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel in letter-space and in colour-space mode
+# (the plain version is not counted)
 LAUNCHES = _build.LaunchCount()
+CS_LAUNCHES = _build.LaunchCount()
 
 
 def _costs(a_gap_open, a_gap_ext, b_gap_open, b_gap_ext):
@@ -31,22 +36,32 @@ def _costs(a_gap_open, a_gap_ext, b_gap_open, b_gap_ext):
             -b_gap_open - b_gap_ext, -b_gap_ext)
 
 
+def _row0(g_row0, cs_mode: bool):
+    if cs_mode and g_row0 is None:
+        raise ValueError("cs_mode needs g_row0")
+    return g_row0 if cs_mode else None
+
+
 def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
-                        read: torch.Tensor, rlen: torch.Tensor, *,
+                        read: torch.Tensor, rlen: torch.Tensor,
+                        g_row0: Optional[torch.Tensor] = None, *,
                         match: int, mismatch: int, a_gap_open: int,
-                        a_gap_ext: int, b_gap_open: int,
-                        b_gap_ext: int) -> torch.Tensor:
+                        a_gap_ext: int, b_gap_open: int, b_gap_ext: int,
+                        cs_mode: bool = False) -> torch.Tensor:
     """Plain int32 version, on any device: genome [B, G] uint8, glen [B],
-    read [B, R] uint8, rlen [B] -> [B] int32 best local scores. A row
-    loop over i; the E-gap chain along j is a cummax of h0[k] + k*ext
-    (h0 is the row value without E, which is exact because a gap
-    re-opened from an E cell never beats extending it)."""
+    read [B, R] uint8, rlen [B] (and g_row0 [B, G] uint8 in colour-space
+    mode) -> [B] int32 best local scores. A row loop over i; the E-gap
+    chain along j is a cummax of h0[k] + k*ext (h0 is the row value
+    without E, which is exact because a gap re-opened from an E cell
+    never beats extending it)."""
+    g0 = _row0(g_row0, cs_mode)
     goa, gea, gob, geb = _costs(a_gap_open, a_gap_ext, b_gap_open,
                                 b_gap_ext)
     B, G = genome.shape
     R = read.shape[1]
     dev = genome.device
     g = genome.to(torch.int32)
+    g0 = g if g0 is None else g0.to(torch.int32)
     r = read.to(torch.int32)
     glen = glen.to(torch.int32)
     rlen = rlen.to(torch.int32)
@@ -61,7 +76,7 @@ def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
              for v in (match, mismatch))
     for i in range(R):
         valid = (rlen > i)[:, None] & jvalid
-        s = torch.where(g == r[:, i:i + 1], m, mm)
+        s = torch.where((g0 if i == 0 else g) == r[:, i:i + 1], m, mm)
         f = torch.maximum(h[:, 1:] - gob, f - geb)
         h0 = torch.maximum((h[:, :-1] + s).clamp(min=0), f)
         h0 = torch.where(valid, h0, 0)
@@ -76,13 +91,15 @@ def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
     return best
 
 
-def _launch(genome, glen, read, rlen, *, match, mismatch, a_gap_open,
-            a_gap_ext, b_gap_open, b_gap_ext) -> torch.Tensor:
+def _launch(genome, glen, read, rlen, g_row0, *, match, mismatch,
+            a_gap_open, a_gap_ext, b_gap_open, b_gap_ext) -> torch.Tensor:
     check_cuda_shape(genome, "sw_vector_batch")
     B, G = genome.shape
     R = read.shape[1]
     dev = genome.device
     check_tensor("genome", genome, torch.uint8, (B, G), dev)
+    if g_row0 is not None:
+        check_tensor("g_row0", g_row0, torch.uint8, (B, G), dev)
     check_tensor("glen", glen, torch.int32, (B,), dev)
     check_tensor("read", read, torch.uint8, (B, R), dev)
     check_tensor("rlen", rlen, torch.int32, (B,), dev)
@@ -93,24 +110,28 @@ def _launch(genome, glen, read, rlen, *, match, mismatch, a_gap_open,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sw_vector_launch(
-            genome.data_ptr(), glen.data_ptr(), read.data_ptr(),
-            rlen.data_ptr(), out.data_ptr(), B, G, R, match, mismatch,
-            goa, gea, gob, geb, stream)
+            genome.data_ptr(),
+            None if g_row0 is None else g_row0.data_ptr(), glen.data_ptr(),
+            read.data_ptr(), rlen.data_ptr(), out.data_ptr(), B, G, R,
+            match, mismatch, goa, gea, gob, geb, stream)
     _build.check(rc, "sw_vector_launch")
-    LAUNCHES.add()
+    (LAUNCHES if g_row0 is None else CS_LAUNCHES).add()
     return out
 
 
 def sw_vector_batch(genome: torch.Tensor, glen: torch.Tensor,
-                    read: torch.Tensor, rlen: torch.Tensor, *, match: int,
+                    read: torch.Tensor, rlen: torch.Tensor,
+                    g_row0: Optional[torch.Tensor] = None, *, match: int,
                     mismatch: int, a_gap_open: int, a_gap_ext: int,
-                    b_gap_open: int, b_gap_ext: int) -> torch.Tensor:
+                    b_gap_open: int, b_gap_ext: int,
+                    cs_mode: bool = False) -> torch.Tensor:
     """[B] int32 vector-SW scores. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (uint8 windows and reads, int32
-    lengths, contiguous, G <= 256) or raise."""
+    CUDA tensors launch the kernel (uint8 windows, g_row0 and reads,
+    int32 lengths, contiguous, G <= 256) or raise."""
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext)
     if genome.device.type == "cpu":
-        return sw_vector_batch_ref(genome, glen, read, rlen, **kw)
-    return _launch(genome, glen, read, rlen, **kw)
+        return sw_vector_batch_ref(genome, glen, read, rlen, g_row0,
+                                   cs_mode=cs_mode, **kw)
+    return _launch(genome, glen, read, rlen, _row0(g_row0, cs_mode), **kw)

@@ -1,10 +1,13 @@
 // Vector Smith-Waterman (filter 2), hand-written for Hopper (sm_90a).
 //
 // Replaces: the Pallas TPU kernel shrimp_tpu/core/sw_pallas.py::_kernel,
-// reached through sw_vector_batch_pallas (letter-space mode). Scores are
+// reached through sw_vector_batch_pallas, in both modes. Scores are
 // bit-equal to it and to the XLA formulation sw_jax.sw_vector_batch:
 // local affine SW, gap open charged as open + extend, H clamped at 0,
-// cells with i >= rlen or j >= glen contribute 0.
+// cells with i >= rlen or j >= glen contribute 0. In colour-space mode
+// (g_row0 not null) read row 0 is scored against g_row0, the colours
+// lstocs(genome letter, initbp), and every other row against the colour
+// window (sw_pallas.py:81-83, sw_jax.py:89-93).
 //
 // What bounds it on an H100: integer ALU. A DP cell costs about ten
 // int32 operations (compare, adds, maxes) and a launch computes B*R*G
@@ -33,6 +36,7 @@ constexpr int BLOCK = 64;
 template <int GMAX>
 __global__ void __launch_bounds__(BLOCK)
 sw_vector_kernel(const uint8_t* __restrict__ genome,
+                 const uint8_t* __restrict__ g_row0,
                  const int32_t* __restrict__ glen,
                  const uint8_t* __restrict__ read,
                  const int32_t* __restrict__ rlen,
@@ -53,12 +57,15 @@ sw_vector_kernel(const uint8_t* __restrict__ genome,
   int best = 0;
   for (int i = 0; i < ni; ++i) {
     const int rch = r[i];
+    // colour space: row 0 compares against g_row0 (one select per row)
+    const uint8_t* gi = (i == 0 && g_row0 != nullptr)
+                            ? g_row0 + (size_t)b * G : g;
     int hdiag = 0;   // H[i-1][j-1]; the j = -1 pad column is always 0
     int c = FILL;    // running max of h0[k] + k*gea over k < j
     for (int j = 0; j < nj; ++j) {
       const int hp = h[j];
       const int fj = max(hp - gob, f[j] - geb);
-      const int s = (g[j] == rch) ? m : mm;
+      const int s = (gi[j] == rch) ? m : mm;
       const int h0 = max(max(0, hdiag + s), fj);
       const int e = c - (goa - gea) - j * gea;
       const int hj = max(h0, e);
@@ -73,37 +80,40 @@ sw_vector_kernel(const uint8_t* __restrict__ genome,
 }
 
 template <int GMAX>
-void launch(const void* genome, const void* glen, const void* read,
-            const void* rlen, void* out, int B, int G, int R, int m, int mm,
-            int goa, int gea, int gob, int geb, cudaStream_t stream) {
+void launch(const void* genome, const void* g_row0, const void* glen,
+            const void* read, const void* rlen, void* out, int B, int G,
+            int R, int m, int mm, int goa, int gea, int gob, int geb,
+            cudaStream_t stream) {
   sw_vector_kernel<GMAX><<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
-      static_cast<const uint8_t*>(genome), static_cast<const int32_t*>(glen),
+      static_cast<const uint8_t*>(genome),
+      static_cast<const uint8_t*>(g_row0), static_cast<const int32_t*>(glen),
       static_cast<const uint8_t*>(read), static_cast<const int32_t*>(rlen),
       static_cast<int32_t*>(out), B, G, R, m, mm, goa, gea, gob, geb);
 }
 
 }  // namespace
 
-// genome [B, G] u8, glen [B] i32, read [B, R] u8, rlen [B] i32 ->
-// out [B] i32. goa/gob are open + extend costs and gea/geb extend costs,
-// all as positive penalties. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for G > 256).
-extern "C" int sw_vector_launch(const void* genome, const void* glen,
-                                const void* read, const void* rlen,
-                                void* out, int B, int G, int R, int m,
-                                int mm, int goa, int gea, int gob, int geb,
-                                void* stream) {
+// genome [B, G] u8, g_row0 [B, G] u8 or null (letter space), glen [B]
+// i32, read [B, R] u8, rlen [B] i32 -> out [B] i32. goa/gob are open +
+// extend costs and gea/geb extend costs, all as positive penalties.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// G > 256).
+extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
+                                const void* glen, const void* read,
+                                const void* rlen, void* out, int B, int G,
+                                int R, int m, int mm, int goa, int gea,
+                                int gob, int geb, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G <= 64)
-    launch<64>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea, gob,
-               geb, st);
+    launch<64>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
+               gea, gob, geb, st);
   else if (G <= 128)
-    launch<128>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea,
-                gob, geb, st);
+    launch<128>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
+                gea, gob, geb, st);
   else if (G <= 256)
-    launch<256>(genome, glen, read, rlen, out, B, G, R, m, mm, goa, gea,
-                gob, geb, st);
+    launch<256>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
+                gea, gob, geb, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

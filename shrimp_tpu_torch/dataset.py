@@ -1,9 +1,13 @@
-"""The E. coli-scale letter-space workload of `bench.py`, made from a seed.
+"""The E. coli-scale workloads of `bench.py` and `bench_all.py`, made from
+a seed.
 
-A 4.6 Mbp random genome and 36 bp reads sampled from it with 0-2
-substitutions each, every odd read reverse-complemented; the same
-generator as `bench.py::get_dataset`, without its on-disk cache. The
-index is built with the shared `shrimp_tpu.index.build.build_index`.
+Letter space (`bench.py::get_dataset`): a 4.6 Mbp random genome and
+36 bp reads sampled from it with 0-2 substitutions each, every odd read
+reverse-complemented. Colour space (`bench_all.py::bench_cs`, the
+`ecoli-cs` workload): the same genome bytes, SOLiD reads of a `T` primer
+and 36 colours from letters with 0-2 substitutions. Both are the
+generators of those scripts without their on-disk caches; the indexes
+are built with the shared `shrimp_tpu.index.build.build_index`.
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from shrimp_tpu import constants as C
+from shrimp_tpu.config import MapperConfig
 from shrimp_tpu.index.build import GenomeIndex, build_index
 from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.io.fasta import SeqRecord
@@ -39,4 +45,35 @@ def ecoli_unpaired_ls(n_reads: int, seed: int = SEED
     seqs = np.frombuffer(b"ACGT", np.uint8)[mat].tobytes().decode()
     reads = [SeqRecord(f"r{k}", seqs[k * READ_LEN:(k + 1) * READ_LEN])
              for k in range(n_reads)]
+    return idx, reads
+
+
+def ecoli_cs_config() -> MapperConfig:
+    """The configuration bench_all.py maps the `ecoli-cs` workload with:
+    gmapper-cs's defaults."""
+    return MapperConfig(mode=C.MODE_COLOUR_SPACE)
+
+
+def ecoli_unpaired_cs(n_reads: int, seed: int = SEED
+                      ) -> Tuple[GenomeIndex, List[SeqRecord]]:
+    """(colour-space index, reads) of bench_all.py's `ecoli-cs` workload
+    with `n_reads` reads: reads drawn with default_rng(9), 36 colours
+    after a `T` primer, 0-2 letter substitutions, forward strand."""
+    codes = np.random.default_rng(seed).integers(0, 4, GENOME_LEN).astype(
+        np.uint8)
+    idx = build_index([("ecoli_synth2", codes)],
+                      default_seeds(mode=C.MODE_COLOUR_SPACE),
+                      mode=C.MODE_COLOUR_SPACE)
+    rng = np.random.default_rng(9)
+    cm = C.COLOUR_MAT
+    reads = []
+    for k in range(n_reads):
+        p = int(rng.integers(0, len(codes) - READ_LEN - 1))
+        lets = codes[p:p + READ_LEN + 1].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            lets[int(rng.integers(READ_LEN + 1))] = rng.integers(4)
+        cols = [int(cm[3, lets[0]])] + [int(cm[lets[i], lets[i + 1]])
+                                        for i in range(READ_LEN - 1)]
+        reads.append(SeqRecord(
+            f"c{k}", "T" + "".join(str(c) if c <= 3 else "." for c in cols)))
     return idx, reads

@@ -318,8 +318,10 @@ class FastLS:
         self.contig_offsets32 = np.ascontiguousarray(idx.contig_offsets,
                                                      np.uint32)
 
-    def _filter1(self, codes2: np.ndarray, L: int, wlen: int):
-        """Candidate window generation over the mapper's index."""
+    def _filter1(self, codes2: np.ndarray, L: int, wlen: int,
+                 min_kmer_pos: int = 0):
+        """Candidate window generation over the mapper's index (colour
+        space starts its k-mers at colour 1: min_kmer_pos=1)."""
         m = self.m
         cfg = m.config
         opts = m._unpaired_opts[0]
@@ -327,7 +329,7 @@ class FastLS:
             m.index, codes2, L, wlen, m.cutoff, opts.hit_list.match_mode,
             opts.hit_list.threshold, cfg.scores.match,
             cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
-            min_kmer_pos=0,
+            min_kmer_pos=min_kmer_pos,
             use_region_counts=opts.anchor_list.use_region_counts,
             region_bits=cfg.region_bits,
             region_overlap=cfg.region_overlap,
@@ -738,22 +740,39 @@ def map_unpaired_sam_stream(mapper, records: Sequence[SeqRecord],
     byte-identical to lanes=1."""
     if not _config_supported(mapper.config):
         return None
-    if batch_size is None:
-        batch_size = auto_batch_size(mapper)
     fast = FastLS(mapper)
-    if fast.lib is None:
+    return batch_pipeline(
+        fast, fast.stage_prepare, fast.stage_finish, records,
+        batch_size or auto_batch_size(mapper), lanes,
+        "mixed read lengths, non-ACGTN bases or mixed qualities")
+
+
+def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
+                   records: Sequence[SeqRecord], batch_size: int,
+                   lanes: Optional[int], rejected: str) -> Iterator[bytes]:
+    """SAM bytes batch by batch in input order, from `stage_prepare`
+    (records, batch_cap) -> context and `stage_finish` (context) ->
+    (bytes, hits). The first batch is prepared before this returns. A
+    batch that stage_prepare rejects (None, for the reasons `rejected`
+    names) or cannot take (NotImplementedError) raises
+    NotImplementedError naming its reads. `lanes` > 1 (default 16) runs
+    that many whole-batch pipelines on worker threads, output re-ordered
+    to input order; results are byte-identical to lanes=1."""
+    if fls.lib is None:
         raise RuntimeError("shrimp_tpu's native host library did not "
                            "build; the fast path has no other host path")
 
     def prepare(off: int):
-        a = fast.stage_prepare(records[off:off + batch_size],
-                               batch_cap=batch_size)
+        what = f"reads {off}..{min(off + batch_size, len(records)) - 1}"
+        try:
+            a = stage_prepare(records[off:off + batch_size],
+                              batch_cap=batch_size)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{what}: {e}") from e
         if a is None:
             raise NotImplementedError(
-                f"reads {off}..{min(off + batch_size, len(records)) - 1}: "
-                "batch rejected by the flat encoder (mixed read lengths, "
-                "non-ACGTN bases or mixed qualities); shrimp_tpu_torch "
-                "has no generic mapper for it")
+                f"{what}: batch rejected by the flat encoder ({rejected}); "
+                "shrimp_tpu_torch has no generic mapper for it")
         return a
 
     if not len(records):
@@ -765,11 +784,11 @@ def map_unpaired_sam_stream(mapper, records: Sequence[SeqRecord],
     if lanes > 1 and len(records) > batch_size:
         # lanes keep every host core busy; filter1's inner fan-out would
         # only contend with them
-        fast.f1_threads = 1
+        fls.f1_threads = 1
 
         def work(off: int, pre) -> bytes:
             a = pre if pre is not None else prepare(off)
-            return fast.stage_finish(a)[0]
+            return stage_finish(a)[0]
 
         def gen_mt():
             offs = list(range(0, len(records), batch_size))
@@ -791,6 +810,6 @@ def map_unpaired_sam_stream(mapper, records: Sequence[SeqRecord],
         while pend is not None:
             nxt = prepare(off) if off < len(records) else None
             off += batch_size
-            yield fast.stage_finish(pend)[0]
+            yield stage_finish(pend)[0]
             pend = nxt
     return gen()

@@ -4,7 +4,8 @@ on a torch device.
 Port of the device-bound parts of `shrimp_tpu/mapper.py::Mapper`: the
 fields the fast path reads (config, index, cutoff, calibration, the
 unpaired option set, run statistics) and the device-resident genome
-planes (`_pad_plane`, `_dev_codes`, `_dev_codes_rc`, `_dev_cat_words`).
+planes (`_pad_plane`, `_dev_codes`, `_dev_codes_rc`, `_dev_cat_words`,
+and for a colour-space config `_dev_cs_planes`, `_dev_cs_cat_words`).
 The planes are built once, when the Mapper is made, from the numpy
 arrays of the shared `GenomeIndex`, with the reference's padding and
 word layout, so both packages compute on identical bytes.
@@ -17,6 +18,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from shrimp_tpu import constants as C
 from shrimp_tpu.config import MapperConfig
 from shrimp_tpu.index.build import GenomeIndex
 from shrimp_tpu.utils.stats import MapperStats
@@ -62,6 +64,17 @@ class Mapper:
         self._codes_rc_dev = self._upload(rp)
         cat = cat_word_plane(fp, rp)
         self._cat_words_dev = None if cat is None else self._upload(cat)
+        self._cs_planes_dev = self._cs_cat_words_dev = None
+        if cfg.mode == C.MODE_COLOUR_SPACE:
+            cfp = self._pad_plane(index.cs_codes)
+            crp = self._pad_plane(index.cs_codes_rc)
+            self._cs_planes_dev = (self._upload(cfp), self._upload(crp),
+                                   self._codes_dev, self._codes_rc_dev)
+            ccat = cat_word_plane(cfp, crp)
+            # the letter cat plane is _cat_words_dev: the same bytes
+            if ccat is not None and cat is not None:
+                self._cs_cat_words_dev = (self._upload(ccat),
+                                          self._cat_words_dev)
 
     def tally(self, stage: Optional[str] = None, secs: float = 0.0,
               **counts) -> None:
@@ -106,3 +119,14 @@ class Mapper:
         """The concatenated word plane (core.sw.cat_word_plane) on the
         device, or None when its offsets would overflow int32."""
         return self._cat_words_dev
+
+    def _dev_cs_planes(self):
+        """(colour, colour rc, letter, letter rc) padded planes on the
+        device for a colour-space config, else None."""
+        return self._cs_planes_dev
+
+    def _dev_cs_cat_words(self):
+        """(colour cat words, letter cat words) on the device for a
+        colour-space config, or None (letter-space config, or offsets
+        that would overflow int32)."""
+        return self._cs_cat_words_dev

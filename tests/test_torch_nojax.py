@@ -11,23 +11,25 @@ import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import pytest
 import torch
 
+from shrimp_tpu import constants as C
 from shrimp_tpu.config import MapperConfig
 from shrimp_tpu.core import encode
 from shrimp_tpu.index.build import build_index
 from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.io.fasta import SeqRecord
 from shrimp_tpu.native import get_lib
-from shrimp_tpu_torch import fastpath
+from shrimp_tpu_torch import fastpath, fastpath_cs
 from shrimp_tpu_torch.mapper import Mapper
 
+from .test_e2e_cs import make_cs_dataset
 from .test_e2e_unpaired import make_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "shrimp_tpu_torch")
 # the jax-free host modules of shrimp_tpu that the port may import
 HOST_MODULES = {"config", "constants", "index.build", "index.seeds",
-                "core.encode", "core.batch_pipeline", "native",
-                "native.filter1_py", "io.fasta", "utils.stats"}
+                "core.encode", "core.batch_pipeline", "core.sw_cs_batch",
+                "native", "native.filter1_py", "io.fasta", "utils.stats"}
 
 needs_native = pytest.mark.skipif(get_lib() is None,
                                   reason="native library unavailable")
@@ -100,6 +102,46 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
 
 
 @needs_native
+def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
+    """The same rehearsal for the colour-space stream."""
+    gpath, rpath, _, _ = make_cs_dataset(str(tmp_path), n_reads=60,
+                                         genome_len=20_000)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from shrimp_tpu.config import MapperConfig
+        from shrimp_tpu.core.encode import encode_ls
+        from shrimp_tpu.index.build import build_index
+        from shrimp_tpu.index.seeds import default_seeds
+        from shrimp_tpu.io.fasta import read_seqs
+        from shrimp_tpu_torch import fastpath_cs
+        from shrimp_tpu_torch.mapper import Mapper
+        g = next(read_seqs({gpath!r}))
+        idx = build_index([(g.name, encode_ls(g.seq))],
+                          default_seeds(mode="cs"), mode="cs")
+        reads = list(read_seqs({rpath!r}))
+        m = Mapper(idx, MapperConfig(mode="cs"), "cpu")
+        sam = b"".join(fastpath_cs.map_unpaired_cs_sam_stream(
+            m, reads, batch_size=32))
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib")]
+        assert not loaded, loaded
+        print("records", sam.count(b"\\n"), "reads", m.stats.reads)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_rec, n_reads = map(int, res.stdout.split()[1::2])
+    assert n_reads == 60 and n_rec >= 40
+
+
+@needs_native
 def test_rejected_batch_raises(tmp_path):
     """A batch the flat encoder rejects (here a short read) raises; the
     port has no generic mapper to hand it to."""
@@ -117,3 +159,26 @@ def test_rejected_batch_raises(tmp_path):
     with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
         fastpath.map_unpaired_sam_stream(Mapper(idx, None, "cpu"), recs,
                                          batch_size=32)
+
+
+@needs_native
+def test_cs_rejected_batch_raises(tmp_path):
+    """A colour-space batch the flat encoder rejects (here a short read,
+    then a bad primer) raises, naming its reads."""
+    _, _, g, reads = make_cs_dataset(str(tmp_path), n_reads=120,
+                                     genome_len=20_000)
+    idx = build_index([("chrC", encode.encode_ls(g))],
+                      default_seeds(mode="cs"), mode="cs")
+    cfg = MapperConfig(mode=C.MODE_COLOUR_SPACE)
+    recs = [SeqRecord(n, s) for n, s in reads]
+    recs[70] = SeqRecord(recs[70].name, recs[70].seq[:30])
+    for lanes in (1, 4):
+        m = Mapper(idx, cfg, "cpu")
+        gen = fastpath_cs.map_unpaired_cs_sam_stream(m, recs, batch_size=32,
+                                                     lanes=lanes)
+        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
+            b"".join(gen)
+    recs[3] = SeqRecord(recs[3].name, "N" + recs[3].seq[1:])
+    with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
+        fastpath_cs.map_unpaired_cs_sam_stream(Mapper(idx, cfg, "cpu"), recs,
+                                               batch_size=32)
