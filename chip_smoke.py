@@ -31,11 +31,27 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fastpath_cs.map_unpaired_cs_sam_stream; the three CS launch counters
    must rise, at least 95 % of reads must map, and the SAM bytes of the
    first CS_CPU_READS reads must equal the port's CPU run on them.
+9. The long-read kernels (vector SW on wide windows, the full SW with
+   backpointers, the traceback) against their plain versions on the
+   card at the 250 bp launch (B, R, G) = (4096, 256, 352) and the
+   1000 bp one (256, 1000, 1408), global and local, with revcmpl rows,
+   BASE_N cells and pad rows: bit-equal (tolerance 0). Times kernel and
+   plain with CUDA events.
+10. The fused traceback step (core/sw.py) on CUDA tensors against the
+   same call on CPU tensors, on a synthetic plane with windows at both
+   ends of both strands: all three outputs bit-equal.
+11. The long-read slice: 100,000 reads of 250 bp (dataset.
+   ecoli_unpaired_ls_long) mapped to SAM on the card through
+   fastpath.map_unpaired_sam_stream, which takes the traceback flow;
+   its three launch counters must rise, at least 95 % of reads must
+   map, and the SAM bytes of the first LONG_CPU_READS reads must equal
+   the port's CPU run on them.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. Any failure raises, so the exit code is non-zero and
 no result line is printed. The last two lines are the kernels' JSON
-record and {"ok": true, "device": {...}}.
+record (each kernel's launches on its slice, error, times and bound)
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -62,6 +78,22 @@ CS_B_MAIN, CS_G_MAIN, CS_R = 2048, 64, 36
 # (two 8192-read batches: the plain 4-layer DP is slow on the host)
 CS_CPU_READS = 16_384
 BASE_N = 15
+# long reads: the 250 bp launch (traceback-flow chunk bucket at R = 256,
+# G = 352) and the --longest-read default's (1000 bp); reads of the
+# long slice mapped again on the CPU for the SAM comparison
+LONG_SHAPES = ((4096, 256, 352), (256, 1000, 1408))
+LONG_CPU_READS = 2048
+
+# peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and
+# int32 operations/s. The sheet's 67 TFLOP/s float32 counts an FMA as
+# two operations on 128 lanes per SM; int32 issues on 64 lanes per SM,
+# so a quarter of it.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# int32 operations per DP cell (per walk step for the tracebacks),
+# counted from each kernel's recurrence
+OPS = dict(sw_vector=14, sw_full_stats=40, sw_full_bp=32, ls_traceback=16,
+           sw_cs_full=240, cs_traceback=20)
 
 
 def _smi() -> str:
@@ -82,6 +114,49 @@ def _time_ms(fn, reps: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _bound(nbytes: float, ops: float, ops_all: float) -> dict:
+    """The least time for the work: the larger of bytes over the memory
+    rate and int32 operations over the int32 rate. `ops` counts the
+    cells (walk steps) these inputs need; `ops_all` every one of the
+    R x G cells (R + G steps), for `bound_all_ms` beside it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_all_ms=max(t_bytes, ops_all / INT32_OPS_PER_S * 1e3))
+
+
+def _band_cells(a, nrows) -> int:
+    """In-band DP cells of the pairs in `a` (numpy arrays) over rows
+    i < nrows (per pair), with the kernels' band (anchor_get_x_range)."""
+    ax, ay, alen, awid, glen = (a[k].astype(np.int64) for k in
+                                ("ax", "ay", "alen", "awid", "glen"))
+    nrows = np.asarray(nrows, np.int64)
+    ay2 = ay - (awid - 1)
+    total = 0
+    for i in range(int(nrows.max())):
+        x_min = np.where(i < ay, 0, np.where(i <= ay + alen - 1,
+                                             ax + (i - ay), ax + alen))
+        x_max = np.where(i < ay2, ax + awid - 2,
+                         np.where(i <= ay2 + alen - 1,
+                                  ax + (awid - 1) + (i - ay2), glen - 1))
+        x_min = np.clip(x_min, 0, glen - 1)
+        x_max = np.clip(x_max, 0, glen - 1)
+        total += int(np.where(i < nrows, np.maximum(x_max - x_min + 1, 0),
+                              0).sum())
+    return total
+
+
+def _vector_bound(a, B, G, R, cs=False) -> dict:
+    """Vector SW: every cell below glen and rlen; windows, reads and
+    lengths in, one int32 out (plus the row-0 colours in colour
+    space)."""
+    cells = int((np.minimum(a["glen"], G).astype(np.int64)
+                 * np.minimum(a["rlen"], R)).sum())
+    return _bound(B * (G + R + 12 + (G if cs else 0)),
+                  OPS["sw_vector"] * cells, OPS["sw_vector"] * B * R * G)
 
 
 def _pairs(rng, B, G, R):
@@ -115,8 +190,8 @@ def check_kernels(dev):
     rec = {"sw_vector": dict(err=0), "sw_full_stats": dict(err=0)}
     rng = np.random.default_rng(20261016)
     for G, R in ((64, 40), (256, 40)):
-        t = {k: torch.from_numpy(v).to(dev)
-             for k, v in _pairs(rng, B_CHUNK, G, R).items()}
+        a = _pairs(rng, B_CHUNK, G, R)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
         full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
                                     "ay", "alen", "awid", "revcmpl"))
@@ -152,6 +227,14 @@ def check_kernels(dev):
                   f"plain {p_ms!r} ms")
             if G == 64:     # the main path's shape
                 rec[name].update(ms=k_ms, plain_ms=p_ms)
+        if G == 64:
+            rec["sw_vector"].update(_vector_bound(a, B_CHUNK, G, R))
+            # in: windows, reads, 7 int32 per pair; out: 8 int32
+            rec["sw_full_stats"].update(_bound(
+                B_CHUNK * (G + R + 28 + 32),
+                OPS["sw_full_stats"]
+                * _band_cells(a, np.minimum(a["rlen"], R)),
+                OPS["sw_full_stats"] * B_CHUNK * R * G))
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -374,8 +457,8 @@ def check_cs_kernels(dev):
     for B in (CS_B_MAIN, 4 * CS_B_MAIN):
         for G in (CS_G_MAIN, 2 * CS_G_MAIN):
             R = CS_R
-            v = {k: torch.from_numpy(x).to(dev)
-                 for k, x in _cs_vec_pairs(rng, B, G, R).items()}
+            vn = _cs_vec_pairs(rng, B, G, R)
+            v = {k: torch.from_numpy(x).to(dev) for k, x in vn.items()}
             v4 = (v["genome"], v["glen"], v["read"], v["rlen"], v["g_row0"])
             got = sw_vector.sw_vector_batch(*v4, cs_mode=True, **vkw)
             torch.cuda.synchronize()
@@ -384,8 +467,8 @@ def check_cs_kernels(dev):
             rec["sw_vector_cs"]["err"] = max(rec["sw_vector_cs"]["err"], err)
             print(f"sw_vector_cs B={B} G={G} R={R}: max |kernel - plain| = "
                   f"{err} (best score {int(want.max())})")
-            a = {k: torch.from_numpy(x).to(dev)
-                 for k, x in _cs_dp_pairs(rng, B, G, R).items()}
+            an = _cs_dp_pairs(rng, B, G, R)
+            a = {k: torch.from_numpy(x).to(dev) for k, x in an.items()}
             dp = tuple(a[k] for k in _DP_ORDER)
             for local in (False, True):
                 for taboo in (0, 4):
@@ -433,6 +516,23 @@ def check_cs_kernels(dev):
                       f"plain {p_ms!r} ms")
                 if (B, G) == (CS_B_MAIN, CS_G_MAIN):   # the main path's
                     rec[name].update(ms=k_ms, plain_ms=p_ms)
+            if (B, G) == (CS_B_MAIN, CS_G_MAIN):
+                rec["sw_vector_cs"].update(_vector_bound(vn, B, G, R,
+                                                         cs=True))
+                # in: windows, 4 read layers, crossovers, 9 int32 per
+                # pair; out: 5 int32 and int16 backpointers [R, 4, G]
+                rec["sw_cs_full"].update(_bound(
+                    B * (G + 4 * R + 4 * R + 36 + 20 + 8 * R * G),
+                    OPS["sw_cs_full"]
+                    * _band_cells(an, np.minimum(an["rlen"], R)),
+                    OPS["sw_cs_full"] * B * R * G))
+                steps = int((sw_cs_full.cs_traceback(*tb)[1] != 0).sum())
+                # the walked backpointer, window and read bytes; out:
+                # [12] int16 and R + G step bytes per pair
+                rec["cs_traceback"].update(_bound(
+                    3 * steps + B * (24 + R + G),
+                    OPS["cs_traceback"] * steps,
+                    OPS["cs_traceback"] * B * (R + G)))
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -562,6 +662,244 @@ def run_cs_slice(dev, counters):
     return launches
 
 
+def _long_pairs(rng, B, G, R):
+    """Long-read pairs: in half of them the read is copied from its
+    window (4 substitutions; a 1-3 bp insertion or deletion in every
+    other one) with the band along its diagonal, as filter 1 gives
+    them; random bands and reads elsewhere; BASE_N cells; revcmpl rows;
+    the main path's pad rows (glen = alen = awid = 1) at the front."""
+    g = rng.integers(0, 4, (B, G)).astype(np.uint8)
+    r = rng.integers(0, 4, (B, R)).astype(np.uint8)
+    a = dict(genome=g, glen=rng.integers(R, G + 1, B), read=r,
+             rlen=rng.integers(R - 8, R + 1, B),
+             ax=rng.integers(-4, G - R, B), ay=rng.integers(-4, 20, B),
+             alen=rng.integers(1, R, B), awid=rng.integers(3, 30, B),
+             revcmpl=rng.integers(0, 2, B))
+    for k in range(1, B, 2):
+        o = int(rng.integers(0, G - R - 3))
+        r[k] = g[k, o:o + R]
+        r[k, rng.integers(0, R, 4)] = rng.integers(0, 4, 4)
+        if k % 4 == 1:
+            d = int(rng.integers(1, 4))
+            cut = int(rng.integers(20, R - 20))
+            if k % 8 == 1:      # deletion from the read
+                r[k, cut:] = g[k, o + cut + d:o + R + d]
+            else:               # insertion into the read
+                r[k, cut + d:] = g[k, o + cut:o + R - d]
+        a["glen"][k], a["ax"][k], a["ay"][k] = G, o, 0
+        a["alen"][k], a["awid"][k] = R // 2, int(rng.integers(8, 30))
+    r[rng.random((B, R)) < 0.005] = BASE_N
+    g[rng.random((B, G)) < 0.005] = BASE_N
+    for k in ("glen", "alen", "awid"):
+        a[k][:64] = 1
+    for k in ("ax", "ay", "revcmpl"):
+        a[k][:64] = 0
+    return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
+            for k, v in a.items()}
+
+
+def check_long_kernels(dev):
+    """Phase 9: the long-read kernels vs their plain versions on the
+    card, at the 250 bp and the 1000 bp launch shapes."""
+    from shrimp_tpu_torch.core import sw_full, sw_vector
+    rec = {k: dict(err=0) for k in ("sw_vector_g352", "sw_full_bp",
+                                    "ls_traceback")}
+    rng = np.random.default_rng(20261018)
+    for B, R, G in LONG_SHAPES:
+        a = _long_pairs(rng, B, G, R)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
+        full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
+                                    "ay", "alen", "awid", "revcmpl"))
+        got = sw_vector.sw_vector_batch(*v4, **KW)
+        torch.cuda.synchronize()
+        err = _err([got], [sw_vector.sw_vector_batch_ref(*v4, **KW)])
+        rec["sw_vector_g352"]["err"] = max(rec["sw_vector_g352"]["err"], err)
+        print(f"sw_vector B={B} G={G} R={R}: max |kernel - plain| = {err}")
+        steps = 0
+        for local in (False, True):
+            got = sw_full.sw_full_bp(*full, local_alignment=local, **KW)
+            torch.cuda.synchronize()
+            want = sw_full.sw_full_bp_ref(*full, local_alignment=local, **KW)
+            err = _err(got, want)
+            del got
+            rec["sw_full_bp"]["err"] = max(rec["sw_full_bp"]["err"], err)
+            tb = (t["genome"], t["read"], *want)
+            got = sw_full.traceback_pack(*tb)
+            torch.cuda.synchronize()
+            want_tb = sw_full.traceback_pack_ref(*tb)
+            err_tb = _err(got, want_tb)
+            rec["ls_traceback"]["err"] = max(rec["ls_traceback"]["err"],
+                                             err_tb)
+            pk = want_tb[0]
+            if not local:
+                steps = int(pk[:, 3].sum())
+            print(f"sw_full_bp B={B} G={G} R={R} local={local}: max |kernel "
+                  f"- plain| = {err}; ls_traceback: {err_tb} (rows with "
+                  f"score > 0: {int((pk[:, 0] > 0).sum())}, with indels "
+                  f"{int(((pk[:, 8] + pk[:, 9]) > 0).sum())}, walk steps "
+                  f"{int(pk[:, 3].sum())})")
+            del want, tb
+        # times at the main path's mode: global
+        want = sw_full.sw_full_bp(*full, **KW)
+        tb = (t["genome"], t["read"], *want)
+        times = dict(
+            sw_vector_g352=(
+                _time_ms(lambda: sw_vector.sw_vector_batch(*v4, **KW)),
+                _time_ms(lambda: sw_vector.sw_vector_batch_ref(*v4, **KW),
+                         reps=3)),
+            sw_full_bp=(
+                _time_ms(lambda: sw_full.sw_full_bp(*full, **KW), reps=10),
+                _time_ms(lambda: sw_full.sw_full_bp_ref(*full, **KW),
+                         reps=2)),
+            ls_traceback=(
+                _time_ms(lambda: sw_full.traceback_pack(*tb), reps=10),
+                _time_ms(lambda: sw_full.traceback_pack_ref(*tb), reps=2)))
+        del want, tb
+        W = (R + G + 3) // 4
+        bounds = dict(
+            sw_vector_g352=_vector_bound(a, B, G, R),
+            # in: windows, reads, 7 int32 per pair; out: 4 int32 and the
+            # backpointer byte of every cell
+            sw_full_bp=_bound(
+                B * (G + R + 28 + 16) + B * R * G,
+                OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
+                OPS["sw_full_bp"] * B * R * G),
+            # the walked backpointer, window and read bytes, 4 int32 in;
+            # out: 10 int32 and W op bytes per pair
+            ls_traceback=_bound(3 * steps + B * (16 + 40 + W),
+                                OPS["ls_traceback"] * steps,
+                                OPS["ls_traceback"] * B * (R + G)))
+        for name, (k_ms, p_ms) in times.items():
+            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms, plain "
+                  f"{p_ms!r} ms, bound {bounds[name]['bound_ms']!r} ms "
+                  f"({bounds[name]['bound_by']}; all R x G cells: "
+                  f"{bounds[name]['bound_all_ms']!r} ms)")
+            if (B, R, G) == LONG_SHAPES[0]:     # the main path's shape
+                rec[name].update(ms=k_ms, plain_ms=p_ms, **bounds[name])
+        del t, full, v4
+        torch.cuda.empty_cache()
+    for name, r in rec.items():
+        if r["err"] != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version (max abs err {r['err']})")
+    return rec
+
+
+def check_tb_packed_step(dev):
+    """Phase 10: the fused traceback step on CUDA vs the same call on
+    CPU, on a synthetic plane with windows at both ends of both strands
+    and long reads planted along the band's diagonal."""
+    from shrimp_tpu_torch.core.sw import cat_word_plane, sw_vec_full_tb_packed
+    from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
+    from shrimp_tpu_torch.mapper import Mapper
+    rng = np.random.default_rng(9)
+    n_true, G, L, R, B, n_reads = 4_000_000, 352, 250, 256, 2048, 1024
+    k = B - B // 8                     # the rest are pad rows
+    fp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
+    rp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
+    n = len(fp)
+    cat = cat_word_plane(fp, rp)
+    starts = rng.integers(-5, n + 5, k)
+    starts[:64] = rng.integers(-5, 40, 64)            # plane starts
+    starts[64:128] = rng.integers(n - G - 8, n + 5, 64)   # plane ends
+    glen = rng.integers(1, G + 1, k)
+    ri = rng.integers(0, n_reads, k)
+    rc = rng.integers(0, 2, k)
+    rc[:128:2] = 1
+    rx = rng.integers(-8, G // 2, k)
+    ry = rng.integers(-8, L, k)
+    rl = rng.integers(1, 40, k)
+    rw = rng.integers(1, 30, k)
+    rev = rc & rng.integers(0, 2, k)
+    rtab = np.full((n_reads, R), 254, np.uint8)
+    rtab[:, :L] = rng.integers(0, 4, (n_reads, L))
+    # plant reads that align along the band's diagonal in 768 windows,
+    # every third with a 2-base insertion
+    for q in range(128, 896):
+        r = q - 128
+        ri[q], glen[q], rx[q], ry[q], rl[q], rw[q] = r, G, 20, 0, L // 2, 12
+        starts[q] = rng.integers(0, n_true - G)
+        plane = rp if rc[q] else fp
+        rtab[r, :L] = plane[starts[q] + 20:starts[q] + 20 + L]
+        rtab[r, rng.integers(0, L, 3)] = rng.integers(0, 4, 3)
+        if r % 3 == 0:
+            cut = int(rng.integers(30, L - 30))
+            rtab[r, cut + 2:L] = rtab[r, cut:L - 2].copy()
+    args = _pack_args4(B, k, starts, glen, ri, rc, rx, ry, rl, rw, rev)
+    got, want = ([x.cpu().numpy() for x in sw_vec_full_tb_packed(
+        *(torch.from_numpy(x).to(d) for x in (fp, rp, args,
+                                              _pack_rtab(rtab), cat)),
+        G=G, L=L, **KW)] for d in (dev, torch.device("cpu")))
+    same = all(np.array_equal(x, w) for x, w in zip(got, want))
+    print(f"traceback step B={B} G={G} L={L}: CUDA == CPU (vec, packed, "
+          f"ops): {same} (aligned: {int((want[1][:, 0] > 0).sum())}, with "
+          f"indels: {int(((want[1][:, 8] + want[1][:, 9]) > 0).sum())})")
+    if not same:
+        raise AssertionError("traceback step: CUDA and CPU outputs differ")
+
+
+def run_long_slice(dev, counters):
+    """Phase 11: 250 bp reads through the port's entry point, which takes
+    the traceback flow."""
+    from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
+    t0 = time.perf_counter()
+    idx, reads = ecoli_unpaired_ls_long(N_READS)
+    print(f"long dataset + index: {time.perf_counter() - t0:.3f} s "
+          f"({idx.total_len} bp, {len(reads)} reads of "
+          f"{len(reads[0].seq)} bp)")
+    _map(_mapper(idx, dev), reads[:2 * B_CHUNK])      # warm-up
+    m = _mapper(idx, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    sam, secs = _map(m, reads)
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"long slice on {dev}: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; launches {launches}; windows "
+          f"{m.stats.vec_invocs}; peak device memory {peak} bytes")
+    print("long stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in m.stats.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the long-read path")
+    lines = sam.split(b"\n")[:-1]
+    if not lines or any(len(ln.split(b"\t")) < 11 for ln in lines):
+        raise AssertionError("long slice: malformed SAM")
+    names = {f[0] for f in (ln.split(b"\t", 2) for ln in lines)
+             if not int(f[1]) & 4}
+    mapped = len(names) / len(reads)
+    indel = sum(1 for ln in lines
+                if b"I" in ln.split(b"\t", 6)[5]
+                or b"D" in ln.split(b"\t", 6)[5])
+    print(f"long SAM: {len(lines)} records, {mapped!r} of reads mapped, "
+          f"{indel} records with an indel")
+    if (m.stats.reads != len(reads) or m.stats.reads_mapped != len(names)
+            or mapped < 0.95 or indel == 0):
+        raise AssertionError("long slice: reads lost, miscounted, mostly "
+                             "unmapped or no indel alignment")
+    print("long device busy share (profiled run on the first 32768 reads): "
+          + _device_busy_share(_mapper(idx, dev), reads[:4 * B_CHUNK]))
+    first = reads[:LONG_CPU_READS]
+
+    def stream(mm, rr):
+        from shrimp_tpu_torch import fastpath
+        return fastpath.map_unpaired_sam_stream(mm, rr,
+                                                batch_size=LONG_CPU_READS)
+    sam_gpu, _ = _map(_mapper(idx, dev), first, stream)
+    sam_cpu, secs_cpu = _map(_mapper(idx, "cpu"), first, stream)
+    # records come in input order, so the full run's SAM starts with
+    # the first reads' records
+    print(f"long slice on cpu (plain versions), first {len(first)} reads: "
+          f"{secs_cpu!r} s; SAM identical to the CUDA run's: "
+          f"{sam_cpu == sam_gpu}; a prefix of the full run's SAM: "
+          f"{sam.startswith(sam_gpu)}")
+    if sam_cpu != sam_gpu or not sam.startswith(sam_gpu):
+        raise AssertionError("long slice: CUDA and CPU SAM bytes differ")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -595,12 +933,21 @@ def main() -> None:
         "sw_vector_cs": sw_vector.CS_LAUNCHES,
         "sw_cs_full": sw_cs_full.DP_LAUNCHES,
         "cs_traceback": sw_cs_full.TB_LAUNCHES}))
+    rec.update(check_long_kernels(dev))
+    check_tb_packed_step(dev)
+    launches.update(run_long_slice(dev, {
+        "sw_vector_g352": sw_vector.LAUNCHES,
+        "sw_full_bp": sw_full.BP_LAUNCHES,
+        "ls_traceback": sw_full.TB_LAUNCHES}))
 
     kernels = [
         dict(name=name, route="cuda", source=f"shrimp_tpu_torch/csrc/{src}",
              replaces=replaces, launches=launches[name],
              max_abs_err=rec[name]["err"], ms=rec[name]["ms"],
-             plain_ms=rec[name]["plain_ms"])
+             plain_ms=rec[name]["plain_ms"],
+             bound_ms=rec[name]["bound_ms"], bound_by=rec[name]["bound_by"],
+             # no single PyTorch call computes any of these functions
+             library_ms=None)
         for name, src, replaces in (
             ("sw_vector", "sw_vector.cu", "shrimp_tpu/core/sw_pallas.py:155"),
             ("sw_vector_cs", "sw_vector.cu",
@@ -610,7 +957,17 @@ def main() -> None:
             ("sw_cs_full", "sw_cs_full.cu",
              "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
             ("cs_traceback", "cs_traceback.cu",
-             "shrimp_tpu/core/sw_cs_jax.py:261"))]
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_g352", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"))]
+    for name in rec:
+        print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
+              f"({rec[name]['bound_by']}), over all R x G cells "
+              f"{rec[name]['bound_all_ms']!r} ms")
     print(_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

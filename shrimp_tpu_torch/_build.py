@@ -36,6 +36,8 @@ _SIGNATURES = {
     "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
     "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
     "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
+    "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P],
+    "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 

@@ -1,14 +1,18 @@
-"""The device step of the fused stats flow, on torch tensors.
+"""The device steps of the letter-space fused flows, on torch tensors.
 
 Port of `shrimp_tpu/core/sw_jax.py`: `_unpack_rtab_nib`, `_unpack_args4`,
 `fast_window_gather`, `_vec_full_gather_packed`, `_pack_stats3` and the
-fused phase of `sw_vec_full_stats_packed`. Packed arguments go up
-(16 B per window, 4-bit reads), both kernels run on windows gathered
-from the device-resident genome plane, and [B, 3] int32 rows come back
-in the reference's bit layout, so the host's `_unpack_stats3` reads
-them unchanged. The gather is plain tensor indexing; the two DP
-kernels are `sw_vector.sw_vector_batch` and `sw_full.sw_full_stats`
-(CUDA kernels for CUDA tensors, plain versions for CPU tensors).
+fused phases of `sw_vec_full_stats_packed` (the stats flow) and
+`sw_vec_full_tb_packed` (the traceback flow). Packed arguments go up
+(16 B per window, 4-bit reads) and the kernels run on windows gathered
+from the device-resident genome plane. The stats flow returns [B, 3]
+int32 rows in the reference's bit layout, so the host's
+`_unpack_stats3` reads them unchanged; the traceback flow returns the
+vector scores, the [B, 10] traceback rows and the packed ops that the
+host's `finalize_render` reads. The gather is plain tensor indexing;
+the DP kernels are `sw_vector.sw_vector_batch`, `sw_full.sw_full_stats`,
+`sw_full.sw_full_bp` and `sw_full.traceback_pack` (CUDA kernels for
+CUDA tensors, plain versions for CPU tensors).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .sw_full import sw_full_stats
+from .sw_full import sw_full_bp, sw_full_stats, traceback_pack
 from .sw_vector import sw_vector_batch
 
 # bytes between the forward and reverse-complement planes of the
@@ -82,7 +86,9 @@ def fast_window_gather(cat_words: torch.Tensor, n_gen: int,
     clipped to [0, n_gen-1] first; the pads repeat each plane's last
     byte, which reproduces a per-element clip for the tails of windows
     that overrun a plane (those cells are glen-masked in both kernels).
-    Bytes past the end of the word plane clip to its last byte."""
+    Bytes past the end of the word plane read as the bytes of INT32_MIN
+    (0, 0, 0, 0x80), the fill of the reference's out-of-range word
+    gather; only windows wider than the pad reach them."""
     if G % 4:
         raise ValueError(f"fast_window_gather: G={G} is not a multiple "
                          "of 4 (the packed flow pads G to 32)")
@@ -90,7 +96,10 @@ def fast_window_gather(cat_words: torch.Tensor, n_gen: int,
     eff = (gstart.clamp(0, n_gen - 1)
            + torch.where(rc != 0, n_gen + PAD, 0)).long()
     pos = eff[:, None] + torch.arange(G, device=eff.device)[None, :]
-    return cat[pos.clamp_(max=cat.numel() - 1)]
+    out = cat[pos.clamp(max=cat.numel() - 1)]
+    past = pos >= cat.numel()
+    return torch.where(past, torch.where((pos & 3) == 3, 0x80, 0).to(
+        torch.uint8), out)
 
 
 def _vec_full_gather_packed(codes_fwd, args4, rtab_pk, G: int, L: int,
@@ -149,3 +158,30 @@ def sw_vec_full_stats_packed(codes_fwd: torch.Tensor,
     stats = sw_full_stats(gwin, glen, rwin, rlen, rx, ry, rl_, rw_, rev,
                           local_alignment=local_alignment, **kw)
     return _pack_stats3(vec, stats)
+
+
+def sw_vec_full_tb_packed(codes_fwd: torch.Tensor, codes_rc: torch.Tensor,
+                          args4: torch.Tensor, rtab_pk: torch.Tensor,
+                          cat_words: Optional[torch.Tensor], *, G: int,
+                          L: int, match: int, mismatch: int,
+                          a_gap_open: int, a_gap_ext: int, b_gap_open: int,
+                          b_gap_ext: int, local_alignment: bool = False):
+    """Fused filter 2 + speculative filter 3 with the traceback on the
+    device, on packed input: (vec int16 [B], packed [B, 10] int32, ops
+    [B, (R+G+3)//4] uint8), all on the device of `args4`. The [B, R, G]
+    backpointers live only inside this call."""
+    if cat_words is None:
+        raise NotImplementedError(
+            "the concatenated word plane overflows int32 offsets (genome "
+            "planes over ~1 Gbp); the byte-gather flow is not ported")
+    gwin, rwin, glen, rlen, rx, ry, rl_, rw_, rev = \
+        _vec_full_gather_packed(codes_fwd, args4, rtab_pk, G, L, cat_words)
+    kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+              b_gap_ext=b_gap_ext)
+    vec = sw_vector_batch(gwin, glen, rwin, rlen, **kw)
+    score, max_i, max_j, plane, bp = sw_full_bp(
+        gwin, glen, rwin, rlen, rx, ry, rl_, rw_, rev,
+        local_alignment=local_alignment, **kw)
+    packed, ops = traceback_pack(gwin, rwin, score, max_i, max_j, plane, bp)
+    return vec.to(torch.int16), packed, ops

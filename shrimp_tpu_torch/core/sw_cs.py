@@ -20,8 +20,7 @@ from typing import Optional
 
 import torch
 
-from shrimp_tpu import constants as C
-
+from .. import constants as C
 from .sw import fast_window_gather
 from .sw_cs_full import cs_traceback, sw_full_cs_dp
 from .sw_vector import sw_vector_batch

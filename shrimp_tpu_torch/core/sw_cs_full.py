@@ -27,11 +27,11 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..constants import BASE_N
 from ._args import check_cuda_shape, check_tensor
 
 NEG = -(2 ** 25)
 FILL = -(2 ** 28)
-BASE_N = 15            # shrimp_tpu.constants.BASE_N
 # direction-pair codes of sw-full-cs.c; a backpointer is code << 2 | layer
 _NN, _NNW, _WNW, _WW, _NWN, _NWNW, _NWW = 1, 2, 3, 4, 5, 6, 7
 # the plane (0 nw, 1 n, 2 w) each direction-pair code continues in

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ._args import check_cuda_shape, check_tensor
+from ._args import MAX_G_LONG, check_cuda_shape, check_tensor
 
 NEG = -(2 ** 30)
 FILL = -(2 ** 28)
@@ -93,7 +93,7 @@ def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
 
 def _launch(genome, glen, read, rlen, g_row0, *, match, mismatch,
             a_gap_open, a_gap_ext, b_gap_open, b_gap_ext) -> torch.Tensor:
-    check_cuda_shape(genome, "sw_vector_batch")
+    check_cuda_shape(genome, "sw_vector_batch", MAX_G_LONG)
     B, G = genome.shape
     R = read.shape[1]
     dev = genome.device
@@ -127,7 +127,7 @@ def sw_vector_batch(genome: torch.Tensor, glen: torch.Tensor,
                     cs_mode: bool = False) -> torch.Tensor:
     """[B] int32 vector-SW scores. CPU tensors take the plain version;
     CUDA tensors launch the kernel (uint8 windows, g_row0 and reads,
-    int32 lengths, contiguous, G <= 256) or raise."""
+    int32 lengths, contiguous, G <= 4095) or raise."""
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext)

@@ -6,8 +6,11 @@ Letter space (`bench.py::get_dataset`): a 4.6 Mbp random genome and
 reverse-complemented. Colour space (`bench_all.py::bench_cs`, the
 `ecoli-cs` workload): the same genome bytes, SOLiD reads of a `T` primer
 and 36 colours from letters with 0-2 substitutions. Both are the
-generators of those scripts without their on-disk caches; the indexes
-are built with the shared `shrimp_tpu.index.build.build_index`.
+generators of those scripts without their on-disk caches. Long reads
+(`ecoli_unpaired_ls_long`, no counterpart in the bench scripts): the
+same genome, 250 bp reads with substitutions and, in one read of ten,
+a short indel. The indexes are built with the port's
+`index.build.build_index`.
 """
 from __future__ import annotations
 
@@ -15,11 +18,11 @@ from typing import List, Tuple
 
 import numpy as np
 
-from shrimp_tpu import constants as C
-from shrimp_tpu.config import MapperConfig
-from shrimp_tpu.index.build import GenomeIndex, build_index
-from shrimp_tpu.index.seeds import default_seeds
-from shrimp_tpu.io.fasta import SeqRecord
+from . import constants as C
+from .config import MapperConfig
+from .index.build import GenomeIndex, build_index
+from .index.seeds import default_seeds
+from .io.fasta import SeqRecord
 
 SEED = 20260816
 GENOME_LEN = 4_600_000
@@ -44,6 +47,46 @@ def ecoli_unpaired_ls(n_reads: int, seed: int = SEED
     mat[odd] = comp[mat[odd, ::-1]]
     seqs = np.frombuffer(b"ACGT", np.uint8)[mat].tobytes().decode()
     reads = [SeqRecord(f"r{k}", seqs[k * READ_LEN:(k + 1) * READ_LEN])
+             for k in range(n_reads)]
+    return idx, reads
+
+
+def ecoli_unpaired_ls_long(n_reads: int, read_len: int = 250,
+                           seed: int = SEED
+                           ) -> Tuple[GenomeIndex, List[SeqRecord]]:
+    """(index, reads) of the long-read letter-space workload: the genome
+    bytes and contig of `ecoli_unpaired_ls` (default seeds), `n_reads`
+    reads of `read_len` bp with 0-4 substitutions each; every tenth read
+    (k % 10 == 9) also carries an insertion or a deletion of 1-3 bp, so
+    that alignments walk real indels; odd reads are reverse-complemented.
+    Map with the default `MapperConfig()` (longest read 1000). The reads
+    of Illumina 2x250 bp runs, mapped one end at a time with gmapper-ls,
+    look like these."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, GENOME_LEN).astype(np.uint8)
+    idx = build_index([("ecoli_synth", codes)], default_seeds())
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    span = read_len + 3
+    pos = rng.integers(0, GENOME_LEN - span, n_reads)
+    src = codes[pos[:, None] + np.arange(span)[None, :]]
+    mat = src[:, :read_len].copy()
+    for k in range(9, n_reads, 10):
+        d = int(rng.integers(1, 4))
+        cut = int(rng.integers(20, read_len - 20))
+        if rng.integers(0, 2):      # deletion: skip d genome bases
+            mat[k, cut:] = src[k, cut + d:read_len + d]
+        else:                       # insertion of d random bases
+            mat[k, cut + d:] = src[k, cut:read_len - d]
+            mat[k, cut:cut + d] = rng.integers(0, 4, d)
+    nmut = rng.integers(0, 5, n_reads)
+    for j in range(4):
+        rows = np.nonzero(nmut > j)[0]
+        mat[rows, rng.integers(0, read_len, len(rows))] = \
+            rng.integers(0, 4, len(rows)).astype(np.uint8)
+    odd = np.arange(n_reads) % 2 == 1
+    mat[odd] = comp[mat[odd, ::-1]]
+    seqs = np.frombuffer(b"ACGT", np.uint8)[mat].tobytes().decode()
+    reads = [SeqRecord(f"l{k}", seqs[k * read_len:(k + 1) * read_len])
              for k in range(n_reads)]
     return idx, reads
 

@@ -1,18 +1,28 @@
 """Flat-array fast path for letter-space unpaired mapping to SAM, on
 torch devices.
 
-Port of the fused stats flow of `shrimp_tpu/fastpath.py`:
+Port of the two fused flows of `shrimp_tpu/fastpath.py`, on packed IO:
 
     read prep + filter 1 (native)  ->  one fused device step per chunk
-    (vector SW + full-SW stats, core/sw.py)  ->  pass1_select (native)
-    -> vector-score gate -> closed-form diagonal alignments, native DP
-    for indel paths  ->  finalize_render (native: MQV, SAM text)
+    ->  pass1_select (native)  ->  vector-score gate  ->  alignments
+    ->  finalize_render (native: MQV, SAM text)
 
-The host stages run through `shrimp_tpu.native` exactly as in the
-reference, so the SAM bytes are the reference's. Not ported here:
-two-phase dispatch, the on-device traceback flow, read sharding and
-the sharded-index MQV hooks. A batch the flat encoder rejects raises
-NotImplementedError: there is no generic mapper behind this path.
+- the stats flow, for windows the stats kernel takes (G <= 256: reads
+  up to about 183 bp): vector SW + full-SW stats on the device
+  (`core/sw.py::sw_vec_full_stats_packed`), closed-form diagonal
+  alignments on the host and the native banded DP for indel paths;
+- the traceback flow, for wider windows (long reads): vector SW, the
+  full SW with backpointers and the traceback on the device
+  (`core/sw.py::sw_vec_full_tb_packed`), whose [B, 10] rows and packed
+  ops go to finalize_render as they are.
+
+`_stats_flow_enabled` picks the flow from G alone, the same on every
+device. The host stages run through the port's own native library
+(`native/`, a copy of the reference's C++), so the SAM bytes are the
+reference's. Not ported here: two-phase dispatch, the unpacked-IO and
+byte-gather flows, read sharding and the sharded-index MQV hooks. A
+batch the flat encoder rejects raises NotImplementedError: there is no
+generic mapper behind this path.
 """
 from __future__ import annotations
 
@@ -24,13 +34,13 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from shrimp_tpu import constants as C
-from shrimp_tpu.config import MapperConfig, abs_or_pct
-from shrimp_tpu.io.fasta import SeqRecord
-from shrimp_tpu.native import get_lib
-from shrimp_tpu.native.filter1_py import generate_candidates_native
-
-from .core.sw import sw_vec_full_stats_packed
+from . import constants as C
+from .config import MapperConfig, abs_or_pct
+from .io.fasta import SeqRecord
+from .native import get_lib
+from .native.filter1_py import generate_candidates_native
+from .core._args import MAX_G
+from .core.sw import sw_vec_full_stats_packed, sw_vec_full_tb_packed
 from .mapper import FULL_BATCH, FULL_BUCKETS, _round_up
 
 # SAM seq cleaning LUTs (io/sam.py _CLEAN_TBL / _COMP_TBL as byte maps)
@@ -242,14 +252,35 @@ def _normalize_win(m, fh, L: int, rcf: np.ndarray):
     return win, G
 
 
+def _stats_flow_enabled(G: int) -> bool:
+    """The flow of a batch whose windows are G wide: the stats flow
+    where the stats kernel (csrc/sw_full.cu) takes the windows, the
+    traceback flow otherwise. A function of the shape only, so the CPU
+    walks the flow the card walks. (The reference gates on its Mosaic
+    kernel's shapes, `pallas_full_ok`, R * G <= 8192 on a TPU.)"""
+    return G <= MAX_G
+
+
+def _chunk_bucket(k: int, eff_batch: int) -> int:
+    """Launch rows for a chunk of k windows: the FULL_BUCKETS row counts,
+    or under the traceback flow's long-read shrink the next power of two
+    >= k (at least 8), as the reference pads them."""
+    if eff_batch >= FULL_BUCKETS[0]:
+        return FULL_BUCKETS[int(np.searchsorted(FULL_BUCKETS, k))]
+    return 1 << int(np.ceil(np.log2(max(k, 8))))
+
+
 def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
                     rcf: np.ndarray):
     """Fused filter 2 + speculative filter 3 over every candidate window,
-    in FULL_BATCH-row chunks on m.device. `rcf` marks windows needing
-    the reverse_hit normalization (strand 1 for unpaired reads).
-    Returns (futures, win, G): futures are (off, k, [bucket, 3] int32
-    tensor on the device); `win` is the normalized window geometry that
-    the host reconstruction stage reuses."""
+    in chunks on m.device. `rcf` marks windows needing the reverse_hit
+    normalization (strand 1 for unpaired reads). Returns (futures, win,
+    G, stats_flow): futures are (off, k, result) with result the
+    [bucket, 3] int32 stats rows (stats flow) or (vec, packed, ops)
+    (traceback flow) on the device; `win` is the normalized window
+    geometry that the host reconstruction stage reuses. The traceback
+    flow's chunks hold at most 2^28 backpointer cells (bucket * R * G),
+    as the reference's do."""
     cfg = m.config
     idx = m.index
     sc = cfg.scores
@@ -273,26 +304,31 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
               a_gap_open=sc.a_gap_open, a_gap_ext=sc.a_gap_extend,
               b_gap_open=sc.b_gap_open, b_gap_ext=sc.b_gap_extend,
               local_alignment=False)
+    stats_flow = _stats_flow_enabled(G)
+    if stats_flow:
+        fn, eff_batch = sw_vec_full_stats_packed, FULL_BATCH
+    else:
+        fn = sw_vec_full_tb_packed
+        eff_batch = max(8, min(FULL_BATCH, (1 << 28) // max(R * G, 1)))
     dev = m.device
     rtab_dev = torch.from_numpy(_pack_rtab(read_tab)).to(dev)
     futures = []
     off = 0
     while off < n:
-        k = min(n - off, FULL_BATCH)
-        bucket = FULL_BUCKETS[int(np.searchsorted(FULL_BUCKETS, k))]
+        k = min(n - off, eff_batch)
+        bucket = _chunk_bucket(k, eff_batch)
         sl = slice(off, off + k)
         args = _pack_args4(
             bucket, k, win["starts"][sl], win["glen"][sl], win["ri"][sl],
             win["rcmask"][sl], win["rx"][sl], win["ry"][sl],
             win["rl_"][sl], win["rw_"][sl], win["rev"][sl])
-        res = sw_vec_full_stats_packed(
-            m._dev_codes(), m._dev_codes_rc(), torch.from_numpy(args).to(dev),
-            rtab_dev, cat_dev, **kw)
+        res = fn(m._dev_codes(), m._dev_codes_rc(),
+                 torch.from_numpy(args).to(dev), rtab_dev, cat_dev, **kw)
         futures.append((off, k, res))
         off += k
     cells = int(fh.w_len.astype(np.int64).sum()) * L
     m.tally(vec_invocs=n, vec_cells=cells, full_invocs=n, full_cells=cells)
-    return futures, win, G
+    return futures, win, G, stats_flow
 
 
 class FastLS:
@@ -440,12 +476,14 @@ class FastLS:
         win = None
         futures = []
         G = 16
+        stats_flow = True
         if fh.n:
-            futures, win, G = _fused_dispatch(m, fh, read_tab, L, R,
-                                              (fh.owner & 1) == 1)
+            futures, win, G, stats_flow = _fused_dispatch(
+                m, fh, read_tab, L, R, (fh.owner & 1) == 1)
         m.tally("device dispatch", _time.perf_counter() - t2)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
-                    G=G, R=R, codes=codes, names=nm_blob, name_off=offs,
+                    G=G, R=R, stats_flow=stats_flow, codes=codes,
+                    names=nm_blob, name_off=offs,
                     seq_fwd=seq_fwd, seq_rc=seq_rc,
                     qual_fwd=qual_fwd, qual_rc=qual_rc,
                     qual_raw=qual_raw,
@@ -560,7 +598,9 @@ class FastLS:
     def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray]:
         """Fetch the fused device results, run the native pass1
         selection on the vector scores, keep the selected rows'
-        speculative full-SW stats, then native finalize/render."""
+        speculative full-SW results (stats expanded on the host, or the
+        device traceback's rows and ops as they are), then native
+        finalize/render."""
         m = self.m
         cfg = m.config
         B = ctx["B"]
@@ -575,11 +615,21 @@ class FastLS:
         n = int(fh.n)
         t0 = _time.perf_counter()
         scores = np.empty(n, np.int64)
-        stats_all = np.empty((n, 7), np.int32)
-        for off, k, res in ctx["futures"]:
-            v, st = _unpack_stats3(res[:k].cpu().numpy())
-            scores[off:off + k] = v
-            stats_all[off:off + k] = st
+        stats_flow = ctx["stats_flow"]
+        if stats_flow:
+            stats_all = np.empty((n, 7), np.int32)
+            for off, k, res in ctx["futures"]:
+                v, st = _unpack_stats3(res[:k].cpu().numpy())
+                scores[off:off + k] = v
+                stats_all[off:off + k] = st
+        else:
+            W_all = (ctx["R"] + ctx["G"] + 3) // 4
+            packed_all = np.empty((n, 10), np.int32)
+            ops_all = np.empty((n, W_all), np.uint8)
+            for off, k, (vec, pk, opk) in ctx["futures"]:
+                scores[off:off + k] = vec[:k].cpu().numpy()
+                packed_all[off:off + k] = pk[:k].cpu().numpy()
+                ops_all[off:off + k] = opk[:k].cpu().numpy()
         dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
         m.tally("device fetch", _time.perf_counter() - t0,
                 vec_secs=dev_secs, full_secs=dev_secs)
@@ -649,15 +699,21 @@ class FastLS:
                  "score_vector")}
         rows = sel["src"][:n_sel][jsel]
         t0 = _time.perf_counter()
-        win = ctx["win"]
-        ctx2 = dict(n_jobs=n_jobs, jobs=jobs, R=ctx["R"], G=ctx["G"],
-                    L=L, read_tab=ctx["read_tab"],
-                    starts=win["starts"][rows],
-                    rcmask=win["rcmask"][rows],
-                    rx=win["rx"][rows], ry=win["ry"][rows],
-                    rl_=win["rl_"][rows], rw_=win["rw_"][rows],
-                    rev=win["rev"][rows])
-        packed, ops_pk, W = self._stats_to_packed(stats_all[rows], ctx2)
+        if stats_flow:
+            win = ctx["win"]
+            ctx2 = dict(n_jobs=n_jobs, jobs=jobs, R=ctx["R"], G=ctx["G"],
+                        L=L, read_tab=ctx["read_tab"],
+                        starts=win["starts"][rows],
+                        rcmask=win["rcmask"][rows],
+                        rx=win["rx"][rows], ry=win["ry"][rows],
+                        rl_=win["rl_"][rows], rw_=win["rw_"][rows],
+                        rev=win["rev"][rows])
+            packed, ops_pk, W = self._stats_to_packed(stats_all[rows],
+                                                      ctx2)
+        else:
+            W = ops_all.shape[1]
+            packed = np.ascontiguousarray(packed_all[rows])
+            ops_pk = np.ascontiguousarray(ops_all[rows])
         m.tally("alignment expand", _time.perf_counter() - t0)
         t1 = _time.perf_counter()
         cal = m.cal
@@ -758,10 +814,6 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
     NotImplementedError naming its reads. `lanes` > 1 (default 16) runs
     that many whole-batch pipelines on worker threads, output re-ordered
     to input order; results are byte-identical to lanes=1."""
-    if fls.lib is None:
-        raise RuntimeError("shrimp_tpu's native host library did not "
-                           "build; the fast path has no other host path")
-
     def prepare(off: int):
         what = f"reads {off}..{min(off + batch_size, len(records)) - 1}"
         try:

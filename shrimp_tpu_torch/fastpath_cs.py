@@ -8,8 +8,8 @@ Port of the fused flow of `shrimp_tpu/fastpath_cs.py`:
     pass1_select (native)  ->  cs_finalize_render (native: post-SW
     forward-backward, threshold, dedup, sort, MQV, SAM text)
 
-The host stages run through `shrimp_tpu.native` exactly as in the
-reference, so the SAM bytes are the reference's. It builds on the port's
+The host stages run through the port's native library (`native/`, a
+copy of the reference's C++), so the SAM bytes are the reference's. It builds on the port's
 `fastpath.FastLS` (contig blobs, native library, filter 1 fan-out) and
 counts every statistic through `Mapper.tally`, which the lane threads
 share. Not ported here: the two-phase dispatch (a batch at >= 8 windows
@@ -27,14 +27,13 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from shrimp_tpu import constants as C
-from shrimp_tpu.config import MapperConfig, abs_or_pct
-from shrimp_tpu.core.sw_cs_batch import cs_layers_batch
-from shrimp_tpu.io.fasta import SeqRecord
-
+from . import constants as C
+from .config import MapperConfig, abs_or_pct
 from .core.sw_cs import sw_vec_cs_full_from_index
+from .core.sw_cs_batch import cs_layers_batch
 from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _vp,
                        auto_batch_size, batch_pipeline)
+from .io.fasta import SeqRecord
 from .mapper import _round_up
 
 # launch row buckets: the chunk adapts to the window count, bucketed so

@@ -7,8 +7,9 @@ unpaired option set, run statistics) and the device-resident genome
 planes (`_pad_plane`, `_dev_codes`, `_dev_codes_rc`, `_dev_cat_words`,
 and for a colour-space config `_dev_cs_planes`, `_dev_cs_cat_words`).
 The planes are built once, when the Mapper is made, from the numpy
-arrays of the shared `GenomeIndex`, with the reference's padding and
-word layout, so both packages compute on identical bytes.
+arrays of the port's own `index.build.GenomeIndex` (a copy of the
+reference's), with the reference's padding and word layout, so both
+packages compute on identical bytes.
 """
 from __future__ import annotations
 
@@ -18,13 +19,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from shrimp_tpu import constants as C
-from shrimp_tpu.config import MapperConfig
-from shrimp_tpu.index.build import GenomeIndex
-from shrimp_tpu.utils.stats import MapperStats
-
+from . import constants as C
+from .config import MapperConfig
 from .core.sw import cat_word_plane
 from .device import get_device
+from .index.build import GenomeIndex
+from .utils.stats import MapperStats
 
 # window rows per fused launch, and the launch row buckets
 FULL_BATCH = 8192
@@ -43,11 +43,14 @@ def _pow2_bucket(n: int, lo: int = 256) -> int:
 
 
 class Mapper:
-    """Mapper(index, config, device): `device` is a torch.device or a
-    name ("cuda", "cuda:0", "cpu"); CUDA is never swapped for the CPU."""
+    """Mapper(index, config, device="cuda"): `index` is the port's
+    GenomeIndex; `device` is a torch.device or a name ("cuda", "cuda:0",
+    "cpu"). The mapper runs on the card unless the caller asks for the
+    CPU, and CUDA is never swapped for the CPU."""
 
-    def __init__(self, index: GenomeIndex, config: Optional[MapperConfig],
-                 device: Union[str, torch.device]):
+    def __init__(self, index: GenomeIndex,
+                 config: Optional[MapperConfig] = None,
+                 device: Union[str, torch.device] = "cuda"):
         self.index = index
         self.config = config or MapperConfig()
         cfg = self.config

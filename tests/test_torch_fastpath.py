@@ -15,14 +15,13 @@ from shrimp_tpu.index.build import build_index
 from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.io.fasta import SeqRecord
 from shrimp_tpu.mapper import Mapper as RefMapper
-from shrimp_tpu.native import get_lib
 from shrimp_tpu_torch import fastpath
+from shrimp_tpu_torch.config import MapperConfig as PortConfig
+from shrimp_tpu_torch.index import build as port_index
+from shrimp_tpu_torch.index import seeds as port_seeds
 from shrimp_tpu_torch.mapper import Mapper
 
 from .test_e2e_unpaired import make_dataset
-
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
 
 
 @pytest.fixture(autouse=True)
@@ -35,8 +34,11 @@ def _one_thread():
 
 def _build(tmp_path, **dskw):
     _, _, g, reads = make_dataset(str(tmp_path), **dskw)
-    idx = build_index([("chr_test", encode.encode_ls(g))], default_seeds())
-    return idx, [SeqRecord(n, s) for n, s in reads]
+    codes = encode.encode_ls(g)
+    idx = build_index([("chr_test", codes)], default_seeds())
+    pidx = port_index.build_index([("chr_test", codes)],
+                                  port_seeds.default_seeds())
+    return idx, pidx, [SeqRecord(n, s) for n, s in reads]
 
 
 def _ref_sam(idx, cfg, recs, batch_size):
@@ -62,10 +64,10 @@ def _port_sam(m, recs, batch_size, lanes=None):
 ], ids=["300-one-batch", "257-lanes-bs64", "seed3-indels", "extra-sam",
         "sam-unaligned"])
 def test_sam_matches_reference(tmp_path, dskw, cfgkw, batch_size):
-    idx, recs = _build(tmp_path, **dskw)
+    idx, pidx, recs = _build(tmp_path, **dskw)
     cfg = MapperConfig(**cfgkw)
     bs = batch_size or len(recs)
-    m = Mapper(idx, cfg, "cpu")
+    m = Mapper(pidx, PortConfig(**cfgkw), "cpu")
     got = _port_sam(m, recs, bs)
     assert got == _ref_sam(idx, cfg, recs, bs)
     assert got.count(b"\n") >= len(recs) // 2
@@ -75,9 +77,9 @@ def test_sam_matches_reference(tmp_path, dskw, cfgkw, batch_size):
 
 
 def test_lanes_one_matches_reference(tmp_path):
-    idx, recs = _build(tmp_path, n_reads=257)
+    idx, pidx, recs = _build(tmp_path, n_reads=257)
     cfg = MapperConfig()
-    got = _port_sam(Mapper(idx, cfg, "cpu"), recs, 64, lanes=1)
+    got = _port_sam(Mapper(pidx, PortConfig(), "cpu"), recs, 64, lanes=1)
     assert got == _ref_sam(idx, cfg, recs, 64)
 
 
@@ -85,9 +87,9 @@ def test_lanes_share_stats_without_lost_updates(tmp_path):
     """16 lane threads over 33 small batches with a tiny switch
     interval: the shared run statistics count every read, and the SAM
     bytes equal the single-batch run."""
-    idx, recs = _build(tmp_path, n_reads=257)
-    want = _port_sam(Mapper(idx, None, "cpu"), recs, len(recs))
-    m = Mapper(idx, None, "cpu")
+    idx, pidx, recs = _build(tmp_path, n_reads=257)
+    want = _port_sam(Mapper(pidx, None, "cpu"), recs, len(recs))
+    m = Mapper(pidx, None, "cpu")
     prev = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -103,21 +105,21 @@ def test_lanes_share_stats_without_lost_updates(tmp_path):
 
 
 def test_fastq_quals_match_reference(tmp_path):
-    idx, recs = _build(tmp_path, n_reads=150)
+    idx, pidx, recs = _build(tmp_path, n_reads=150)
     rng = np.random.default_rng(8)
     recs = [SeqRecord(r.name, r.seq,
                       "".join(chr(64 + int(q)) for q in
                               rng.integers(2, 41, len(r.seq))))
             for r in recs]
     cfg = MapperConfig()
-    got = _port_sam(Mapper(idx, cfg, "cpu"), recs, 64)
+    got = _port_sam(Mapper(pidx, PortConfig(), "cpu"), recs, 64)
     assert got == _ref_sam(idx, cfg, recs, 64)
     assert got.split(b"\n")[0].split(b"\t")[10] != b"*"
 
 
 def test_gate_configs_return_none(tmp_path):
-    idx, recs = _build(tmp_path, n_reads=8)
+    idx, pidx, recs = _build(tmp_path, n_reads=8)
     for kw in (dict(shrimp_format=True),
                dict(compute_mapping_qualities=False), dict(trim_front=2)):
-        m = Mapper(idx, MapperConfig(**kw), "cpu")
+        m = Mapper(pidx, PortConfig(**kw), "cpu")
         assert fastpath.map_unpaired_sam_stream(m, recs) is None, kw

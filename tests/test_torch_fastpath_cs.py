@@ -17,14 +17,13 @@ from shrimp_tpu.index.build import build_index
 from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.io.fasta import SeqRecord
 from shrimp_tpu.mapper import Mapper as RefMapper
-from shrimp_tpu.native import get_lib
 from shrimp_tpu_torch import fastpath_cs
+from shrimp_tpu_torch.config import MapperConfig as PortConfig
+from shrimp_tpu_torch.index import build as port_index
+from shrimp_tpu_torch.index import seeds as port_seeds
 from shrimp_tpu_torch.mapper import Mapper
 
 from .test_e2e_cs import make_cs_dataset
-
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native library unavailable")
 
 CS = C.MODE_COLOUR_SPACE
 
@@ -40,9 +39,11 @@ def _one_thread():
 def _build(tmp_path, n_reads=200, genome_len=30_000, **dskw):
     _, _, g, reads = make_cs_dataset(str(tmp_path), n_reads=n_reads,
                                      genome_len=genome_len, **dskw)
-    idx = build_index([("chrC", encode.encode_ls(g))],
-                      default_seeds(mode=CS), mode=CS)
-    return idx, [SeqRecord(n, s) for n, s in reads]
+    codes = encode.encode_ls(g)
+    idx = build_index([("chrC", codes)], default_seeds(mode=CS), mode=CS)
+    pidx = port_index.build_index([("chrC", codes)],
+                                  port_seeds.default_seeds(mode=CS), mode=CS)
+    return idx, pidx, [SeqRecord(n, s) for n, s in reads]
 
 
 def _with_quals(recs, seed=8, offset=33):
@@ -85,14 +86,14 @@ def _port_sam(m, recs, batch_size, lanes=None):
 ], ids=["200-one-batch", "200-lanes-bs48", "fastq-quals", "ignore-qvs",
         "sam-unaligned-rg"])
 def test_cs_sam_matches_reference(tmp_path, quals, cfgkw, batch_size):
-    idx, recs = _build(tmp_path)
+    idx, pidx, recs = _build(tmp_path)
     if cfgkw.get("sam_unaligned"):
         recs = _with_junk(recs)
     if quals:
         recs = _with_quals(recs)
     cfg = MapperConfig(mode=CS, **cfgkw)
     bs = batch_size or len(recs)
-    m = Mapper(idx, cfg, "cpu")
+    m = Mapper(pidx, PortConfig(mode=CS, **cfgkw), "cpu")
     got = _port_sam(m, recs, bs)
     assert got == _ref_sam(idx, cfg, recs, bs)
     mapped = {ln.split(b"\t")[0] for ln in got.split(b"\n")[:-1]
@@ -109,10 +110,10 @@ def test_cs_lanes_share_stats_without_lost_updates(tmp_path):
     interval: the shared run statistics count every read, and the SAM
     bytes equal the single-batch run (the reference's FastCS updates
     them with a bare `+=`). Short reads keep the padded chunks cheap."""
-    idx, recs = _build(tmp_path, n_reads=80, read_len=24)
-    want = _port_sam(Mapper(idx, MapperConfig(mode=CS), "cpu"), recs,
+    idx, pidx, recs = _build(tmp_path, n_reads=80, read_len=24)
+    want = _port_sam(Mapper(pidx, PortConfig(mode=CS), "cpu"), recs,
                      len(recs))
-    m = Mapper(idx, MapperConfig(mode=CS), "cpu")
+    m = Mapper(pidx, PortConfig(mode=CS), "cpu")
     prev = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -128,13 +129,13 @@ def test_cs_lanes_share_stats_without_lost_updates(tmp_path):
 
 
 def test_cs_gate_configs_return_none(tmp_path):
-    idx, recs = _build(tmp_path, n_reads=8)
+    idx, pidx, recs = _build(tmp_path, n_reads=8)
     for kw in (dict(), dict(mode=CS, pair_mode=C.PAIR_OPP_IN),
                dict(mode=CS, compute_mapping_qualities=False),
                dict(mode=CS, global_alignment=False),
                dict(mode=CS, extra_sam_fields=True),
                dict(mode=CS, trim_front=2)):
-        m = Mapper(idx, MapperConfig(**kw), "cpu")
+        m = Mapper(pidx, PortConfig(**kw), "cpu")
         assert fastpath_cs.map_unpaired_cs_sam_stream(m, recs) is None, kw
         assert not fastpath_cs._config_supported(m.config)
 
@@ -142,9 +143,9 @@ def test_cs_gate_configs_return_none(tmp_path):
 def test_cs_two_phase_density_raises(tmp_path, monkeypatch):
     """A batch at >= 8 candidate windows per read would take the
     reference's two-phase dispatch, which is not ported."""
-    idx, recs = _build(tmp_path, n_reads=40)
+    idx, pidx, recs = _build(tmp_path, n_reads=40)
     monkeypatch.setattr(fastpath_cs, "CS_TWO_PHASE_WPR", 1)
-    m = Mapper(idx, MapperConfig(mode=CS), "cpu")
+    m = Mapper(pidx, PortConfig(mode=CS), "cpu")
     with pytest.raises(NotImplementedError, match=r"reads 0\.\.19: .*two-"
                        r"phase"):
         _port_sam(m, recs, 20)

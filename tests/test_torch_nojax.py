@@ -1,6 +1,7 @@
 """shrimp_tpu_torch runs where there is no JAX (the GPU machines have
-none): it imports none, reuses only shrimp_tpu's jax-free host modules,
-and never hands a batch it cannot take to a JAX or CPU fallback."""
+none): it imports neither JAX nor any module of the JAX package
+shrimp_tpu (it keeps its own copies of the host modules), and never
+hands a batch it cannot take to a JAX or CPU fallback."""
 import os
 import re
 import subprocess
@@ -11,14 +12,13 @@ import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import pytest
 import torch
 
-from shrimp_tpu import constants as C
-from shrimp_tpu.config import MapperConfig
-from shrimp_tpu.core import encode
-from shrimp_tpu.index.build import build_index
-from shrimp_tpu.index.seeds import default_seeds
-from shrimp_tpu.io.fasta import SeqRecord
-from shrimp_tpu.native import get_lib
+from shrimp_tpu_torch import constants as C
 from shrimp_tpu_torch import fastpath, fastpath_cs
+from shrimp_tpu_torch.config import MapperConfig
+from shrimp_tpu_torch.core import encode
+from shrimp_tpu_torch.index.build import build_index
+from shrimp_tpu_torch.index.seeds import default_seeds
+from shrimp_tpu_torch.io.fasta import SeqRecord
 from shrimp_tpu_torch.mapper import Mapper
 
 from .test_e2e_cs import make_cs_dataset
@@ -26,13 +26,9 @@ from .test_e2e_unpaired import make_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "shrimp_tpu_torch")
-# the jax-free host modules of shrimp_tpu that the port may import
-HOST_MODULES = {"config", "constants", "index.build", "index.seeds",
-                "core.encode", "core.batch_pipeline", "core.sw_cs_batch",
-                "native", "native.filter1_py", "io.fasta", "utils.stats"}
-
-needs_native = pytest.mark.skipif(get_lib() is None,
-                                  reason="native library unavailable")
+# an import of the JAX package (shrimp_tpu, not shrimp_tpu_torch)
+JAX_PKG_IMPORT = re.compile(r"^\s*(?:from|import)\s+shrimp_tpu(?!_torch)\b",
+                            re.M)
 
 
 @pytest.fixture(autouse=True)
@@ -53,17 +49,17 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     srcs = list(_port_sources())
-    assert len(srcs) >= 10
+    assert len(srcs) >= 20
     for path in srcs:
         with open(path) as f:
             text = f.read()
         assert "import jax" not in text and "from jax" not in text, path
-        for mod in re.findall(r"^\s*(?:from|import) shrimp_tpu\.([\w.]+)",
-                              text, re.M):
-            assert mod in HOST_MODULES, (path, mod)
+        assert not JAX_PKG_IMPORT.search(text), path
+    assert JAX_PKG_IMPORT.search("from shrimp_tpu.config import X")
+    assert JAX_PKG_IMPORT.search("    import shrimp_tpu")
+    assert not JAX_PKG_IMPORT.search("from shrimp_tpu_torch import fastpath")
 
 
-@needs_native
 def test_maps_to_sam_with_jax_blocked(tmp_path):
     """The GPU machine's situation, rehearsed: `import jax` fails, and the
     port still maps a small dataset to SAM on the CPU."""
@@ -72,13 +68,14 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
         import sys
         sys.modules["jax"] = None
         sys.modules["jaxlib"] = None
+        sys.modules["shrimp_tpu"] = None
         sys.path.insert(0, {REPO!r})
         import torch
         torch.set_num_threads(1)
-        from shrimp_tpu.core.encode import encode_ls
-        from shrimp_tpu.index.build import build_index
-        from shrimp_tpu.index.seeds import default_seeds
-        from shrimp_tpu.io.fasta import read_seqs
+        from shrimp_tpu_torch.core.encode import encode_ls
+        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.seeds import default_seeds
+        from shrimp_tpu_torch.io.fasta import read_seqs
         from shrimp_tpu_torch import fastpath
         from shrimp_tpu_torch.mapper import Mapper
         g = next(read_seqs({gpath!r}))
@@ -88,7 +85,7 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
         sam = b"".join(fastpath.map_unpaired_sam_stream(m, reads,
                                                         batch_size=32))
         loaded = [k for k, v in sys.modules.items() if v is not None
-                  and k.split(".")[0] in ("jax", "jaxlib")]
+                  and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
         assert not loaded, loaded
         print("records", sam.count(b"\\n"), "reads", m.stats.reads)
     """)
@@ -101,7 +98,6 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
     assert n_reads == 80 and n_rec >= 40
 
 
-@needs_native
 def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
     """The same rehearsal for the colour-space stream."""
     gpath, rpath, _, _ = make_cs_dataset(str(tmp_path), n_reads=60,
@@ -110,14 +106,15 @@ def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
         import sys
         sys.modules["jax"] = None
         sys.modules["jaxlib"] = None
+        sys.modules["shrimp_tpu"] = None
         sys.path.insert(0, {REPO!r})
         import torch
         torch.set_num_threads(1)
-        from shrimp_tpu.config import MapperConfig
-        from shrimp_tpu.core.encode import encode_ls
-        from shrimp_tpu.index.build import build_index
-        from shrimp_tpu.index.seeds import default_seeds
-        from shrimp_tpu.io.fasta import read_seqs
+        from shrimp_tpu_torch.config import MapperConfig
+        from shrimp_tpu_torch.core.encode import encode_ls
+        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.seeds import default_seeds
+        from shrimp_tpu_torch.io.fasta import read_seqs
         from shrimp_tpu_torch import fastpath_cs
         from shrimp_tpu_torch.mapper import Mapper
         g = next(read_seqs({gpath!r}))
@@ -128,7 +125,7 @@ def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
         sam = b"".join(fastpath_cs.map_unpaired_cs_sam_stream(
             m, reads, batch_size=32))
         loaded = [k for k, v in sys.modules.items() if v is not None
-                  and k.split(".")[0] in ("jax", "jaxlib")]
+                  and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
         assert not loaded, loaded
         print("records", sam.count(b"\\n"), "reads", m.stats.reads)
     """)
@@ -141,7 +138,6 @@ def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
     assert n_reads == 60 and n_rec >= 40
 
 
-@needs_native
 def test_rejected_batch_raises(tmp_path):
     """A batch the flat encoder rejects (here a short read) raises; the
     port has no generic mapper to hand it to."""
@@ -161,7 +157,6 @@ def test_rejected_batch_raises(tmp_path):
                                          batch_size=32)
 
 
-@needs_native
 def test_cs_rejected_batch_raises(tmp_path):
     """A colour-space batch the flat encoder rejects (here a short read,
     then a bad primer) raises, naming its reads."""

@@ -25,6 +25,8 @@ from shrimp_tpu_torch.core import sw as port_sw
 from shrimp_tpu_torch.core import sw_full, sw_vector
 from shrimp_tpu_torch.device import get_device
 from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
+from shrimp_tpu_torch.index import build as port_index
+from shrimp_tpu_torch.index import seeds as port_seeds
 from shrimp_tpu_torch.mapper import Mapper
 
 KW = dict(match=10, mismatch=-15, a_gap_open=-33, a_gap_ext=-7,
@@ -124,16 +126,22 @@ def test_sw_full_stats_ref_matches_xla_where_positive(local):
     assert np.array_equal(got[pos, 2], mj[pos])
 
 
-def _small_index(seed=5, n=30_000):
+def _small_codes(seed=5, n=30_000):
     rng = np.random.default_rng(seed)
-    g = "".join(rng.choice(list("ACGT"), n))
-    return build_index([("chr_small", encode_ls(g))], default_seeds())
+    return encode_ls("".join(rng.choice(list("ACGT"), n)))
+
+
+def _small_index(seed=5, n=30_000):
+    return build_index([("chr_small", _small_codes(seed, n))],
+                       default_seeds())
 
 
 def test_mapper_planes_match_reference():
     idx = _small_index()
     ref = RefMapper(idx)
-    m = Mapper(idx, None, "cpu")
+    m = Mapper(port_index.build_index([("chr_small", _small_codes())],
+                                      port_seeds.default_seeds()),
+               None, "cpu")
     fp = RefMapper._pad_plane(idx.codes)
     rp = RefMapper._pad_plane(idx.codes_rc)
     assert len(fp) == 1 << 22 and fp[-1] == 254
