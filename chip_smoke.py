@@ -21,8 +21,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 6. The colour-space kernels (CS-mode vector SW, the 4-layer DP, the
    traceback) against their plain versions on the card, at B = 2048 and
    8192, G = 64 and 128, R = 36, global and local, taboo 0 and 4, with
-   revcmpl rows, BASE_N cells and pad rows: bit-equal (tolerance 0).
-   Times kernel and plain with CUDA events.
+   revcmpl rows, BASE_N cells, pad rows and the edge bands of
+   dataset.edge_bands: bit-equal (tolerance 0). Prints the 4-layer DP's
+   launch configuration. Times kernel and plain with CUDA events.
 7. The fused colour-space step (core/sw_cs.py) on CUDA tensors against
    the same call on CPU tensors, on a synthetic plane with windows at
    both ends of both strands: all three outputs bit-equal.
@@ -30,13 +31,17 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    genome, 36-colour SOLiD reads) mapped to SAM on the card through
    fastpath_cs.map_unpaired_cs_sam_stream; the three CS launch counters
    must rise, at least 95 % of reads must map, and the SAM bytes of the
-   first CS_CPU_READS reads must equal the port's CPU run on them.
+   first CS_CPU_READS reads must equal the port's CPU run on them. The
+   geometry of the first launch of one more batch, recorded where the
+   flow calls the DP's wrapper, gives the in-band share and bound of the
+   4-layer DP on the flow's own bands.
 9. The long-read kernels (vector SW on wide windows, the full SW with
    backpointers, the traceback) against their plain versions on the
    card at the 250 bp launch (B, R, G) = (4096, 256, 352) and the
    1000 bp one (256, 1000, 1408), global and local, with revcmpl rows,
-   BASE_N cells and pad rows: bit-equal (tolerance 0). Times kernel and
-   plain with CUDA events.
+   BASE_N cells, pad rows and the edge bands of dataset.edge_bands:
+   bit-equal (tolerance 0). Prints the full SW's launch configuration.
+   Times kernel and plain with CUDA events.
 10. The fused traceback step (core/sw.py) on CUDA tensors against the
    same call on CPU tensors, on a synthetic plane with windows at both
    ends of both strands: all three outputs bit-equal.
@@ -45,7 +50,10 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fastpath.map_unpaired_sam_stream, which takes the traceback flow;
    its three launch counters must rise, at least 95 % of reads must
    map, and the SAM bytes of the first LONG_CPU_READS reads must equal
-   the port's CPU run on them.
+   the port's CPU run on them. The geometry of the first launch of one
+   more batch, recorded where the flow calls the wrapper, gives the
+   in-band share and bound of the full SW with backpointers on the
+   flow's own bands.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. Any failure raises, so the exit code is non-zero and
@@ -147,6 +155,82 @@ def _band_cells(a, nrows) -> int:
         total += int(np.where(i < nrows, np.maximum(x_max - x_min + 1, 0),
                               0).sum())
     return total
+
+
+def _with_edge_bands(a, rng, lo, n, G, R):
+    """Rows [lo, lo + n) of the pairs `a` take the band geometries of
+    dataset.edge_bands."""
+    from shrimp_tpu_torch.dataset import edge_bands
+    for k, v in edge_bands(rng, n, G, R).items():
+        a[k][lo:lo + n] = v
+
+
+def _print_launch_config(name, entry, *args):
+    """One line of a kernel's launch configuration, from its C entry
+    point `entry` (occupancy from the CUDA runtime)."""
+    from shrimp_tpu_torch import _build
+    c = _build.launch_config(entry, *args)
+    print(f"{name} launch {args}: {c['pairs_per_block']} pairs per block, "
+          f"{c['threads_per_pair']} threads per pair, {c['smem_bytes']} B "
+          f"dynamic shared memory per block, {c['blocks_per_sm']} resident "
+          f"blocks per SM ({c['blocks_per_sm'] * c['pairs_per_block']} "
+          f"warps), {c['registers']} registers and {c['local_bytes']} B "
+          f"local memory per thread")
+
+
+def _cs_dp_bytes(B, R, G) -> int:
+    """4-layer DP: windows, 4 read layers, crossovers and 9 int32 per pair
+    in; 5 int32 and the int16 backpointers [R, 4, G] per pair out."""
+    return B * (G + 4 * R + 4 * R + 36 + 20 + 8 * R * G)
+
+
+def _bp_bytes(B, R, G) -> int:
+    """Full SW with backpointers: windows, reads and 7 int32 per pair in;
+    4 int32 and the backpointer byte of every cell out."""
+    return B * (G + R + 28 + 16) + B * R * G
+
+
+def _first_launch(m, reads, stream, module, fn):
+    """The band geometry (numpy glen, rlen, ax, ay, alen, awid) and
+    (B, R, G) of the first launch that one batch of `reads` makes through
+    `stream`: the arguments the flow passes to the DP wrapper
+    `module.<fn>` (genome [B, G], glen, read [B, (4,) R], rlen, ax, ay,
+    alen, awid, ...), pad rows included, copied to the host."""
+    from shrimp_tpu_torch.fastpath import auto_batch_size
+    wrapper = getattr(module, fn)
+    seen = []
+
+    def record(*args, **kw):
+        if not seen:
+            seen.append([x.cpu().numpy() for x in args[:8]])
+        return wrapper(*args, **kw)
+    setattr(module, fn, record)
+    try:
+        _map(m, reads[:auto_batch_size(m)], stream)
+    finally:
+        setattr(module, fn, wrapper)
+    genome, glen, read, rlen, ax, ay, alen, awid = seen[0]
+    a = dict(glen=glen, rlen=rlen, ax=ax, ay=ay, alen=alen, awid=awid)
+    return a, genome.shape[0], read.shape[-1], genome.shape[1]
+
+
+def _print_flow_bound(name, m, reads, stream, module, fn, test_bound,
+                      nbytes, by_rlen):
+    """The in-band share of the first launch's windows on the flow's own
+    bands (`_first_launch`), and the kernel's bound over those cells
+    beside the test pairs' bound. The DP runs the rows i < rlen of each
+    pair (`by_rlen`) or every row of the launch."""
+    a, B, R, G = _first_launch(m, reads, stream, module, fn)
+    pads = int(((a["glen"] == 1) & (a["alen"] == 1) & (a["awid"] == 1)).sum())
+    cells = _band_cells(a, np.minimum(a["rlen"], R) if by_rlen
+                        else np.full(B, R))
+    b = _bound(nbytes(B, R, G), OPS[name] * cells, OPS[name] * B * R * G)
+    print(f"{name} on the flow's bands, first launch (B, R, G) = "
+          f"({B}, {R}, {G}), {B - pads} windows and {pads} pad rows (glen = "
+          f"alen = awid = 1): in-band share {cells / (B * R * G)!r} of the "
+          f"R x G cells; bound {b['bound_ms']!r} ms ({b['bound_by']}; all "
+          f"cells {b['bound_all_ms']!r} ms); test pairs' bound "
+          f"{test_bound!r} ms")
 
 
 def _vector_bound(a, B, G, R, cs=False) -> dict:
@@ -412,7 +496,8 @@ def _cs_dp_pairs(rng, B, G, R):
     """4-layer DP inputs: letter windows; four letter layers per read, one
     of which follows its window (two substitutions) in half the pairs;
     BASE_N cells; per-row crossovers; both strands; pad rows (glen =
-    rlen = alen = awid = 1, thresh = 1) at the front."""
+    rlen = alen = awid = 1, thresh = 1) at the front, then B / 16 pairs
+    at the edge bands."""
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     qr = rng.integers(0, 4, (B, 4, R)).astype(np.uint8)
     half = np.arange(0, B, 2)
@@ -434,6 +519,7 @@ def _cs_dp_pairs(rng, B, G, R):
         a[k][:256] = 1
     for k in ("ax", "ay", "revcmpl"):
         a[k][:256] = 0
+    _with_edge_bands(a, rng, 256, B // 16, G, R)
     return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
             for k, v in a.items()}
 
@@ -454,6 +540,8 @@ def check_cs_kernels(dev):
                                     "cs_traceback")}
     vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
     rng = np.random.default_rng(20261017)
+    for G in (CS_G_MAIN, 2 * CS_G_MAIN):
+        _print_launch_config("sw_cs_full", "sw_cs_full_config", G)
     for B in (CS_B_MAIN, 4 * CS_B_MAIN):
         for G in (CS_G_MAIN, 2 * CS_G_MAIN):
             R = CS_R
@@ -477,8 +565,7 @@ def check_cs_kernels(dev):
                     *st, bp = sw_cs_full.sw_full_cs_dp(*dp, **kw)
                     torch.cuda.synchronize()
                     *st_w, bp_w = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
-                    err = _err([*st, sw_cs_full.bp_ref_layout(bp)],
-                               [*st_w, bp_w])
+                    err = _err([*st, bp], [*st_w, bp_w])
                     del bp_w
                     rec["sw_cs_full"]["err"] = max(rec["sw_cs_full"]["err"],
                                                    err)
@@ -519,11 +606,8 @@ def check_cs_kernels(dev):
             if (B, G) == (CS_B_MAIN, CS_G_MAIN):
                 rec["sw_vector_cs"].update(_vector_bound(vn, B, G, R,
                                                          cs=True))
-                # in: windows, 4 read layers, crossovers, 9 int32 per
-                # pair; out: 5 int32 and int16 backpointers [R, 4, G]
                 rec["sw_cs_full"].update(_bound(
-                    B * (G + 4 * R + 4 * R + 36 + 20 + 8 * R * G),
-                    OPS["sw_cs_full"]
+                    _cs_dp_bytes(B, R, G), OPS["sw_cs_full"]
                     * _band_cells(an, np.minimum(an["rlen"], R)),
                     OPS["sw_cs_full"] * B * R * G))
                 steps = int((sw_cs_full.cs_traceback(*tb)[1] != 0).sum())
@@ -605,7 +689,7 @@ def _cs_stream(m, reads):
     return fastpath_cs.map_unpaired_cs_sam_stream(m, reads)
 
 
-def run_cs_slice(dev, counters):
+def run_cs_slice(dev, counters, test_bound):
     """Phase 8: bench_all.py's ecoli-cs workload through the port's CS
     entry point."""
     from shrimp_tpu_torch.dataset import ecoli_cs_config, ecoli_unpaired_cs
@@ -649,6 +733,9 @@ def run_cs_slice(dev, counters):
     print("CS device busy share (profiled run on the first 32768 reads): "
           + _device_busy_share(mapper(dev), reads[:4 * B_CHUNK],
                                _cs_stream))
+    from shrimp_tpu_torch.core import sw_cs
+    _print_flow_bound("sw_cs_full", m, reads, _cs_stream, sw_cs,
+                      "sw_full_cs_dp", test_bound, _cs_dp_bytes, True)
     # the stream's batches hold auto_batch_size reads each
     from shrimp_tpu_torch.fastpath import auto_batch_size
     n_cpu = CS_CPU_READS // auto_batch_size(m) * auto_batch_size(m)
@@ -667,7 +754,8 @@ def _long_pairs(rng, B, G, R):
     window (4 substitutions; a 1-3 bp insertion or deletion in every
     other one) with the band along its diagonal, as filter 1 gives
     them; random bands and reads elsewhere; BASE_N cells; revcmpl rows;
-    the main path's pad rows (glen = alen = awid = 1) at the front."""
+    the main path's pad rows (glen = alen = awid = 1) at the front, then
+    B / 32 pairs at the edge bands."""
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     r = rng.integers(0, 4, (B, R)).astype(np.uint8)
     a = dict(genome=g, glen=rng.integers(R, G + 1, B), read=r,
@@ -694,6 +782,7 @@ def _long_pairs(rng, B, G, R):
         a[k][:64] = 1
     for k in ("ax", "ay", "revcmpl"):
         a[k][:64] = 0
+    _with_edge_bands(a, rng, 64, B // 32, G, R)
     return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
             for k, v in a.items()}
 
@@ -706,6 +795,7 @@ def check_long_kernels(dev):
                                     "ls_traceback")}
     rng = np.random.default_rng(20261018)
     for B, R, G in LONG_SHAPES:
+        _print_launch_config("sw_full_bp", "sw_full_bp_config", B, G, R)
         a = _long_pairs(rng, B, G, R)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
@@ -759,10 +849,8 @@ def check_long_kernels(dev):
         W = (R + G + 3) // 4
         bounds = dict(
             sw_vector_g352=_vector_bound(a, B, G, R),
-            # in: windows, reads, 7 int32 per pair; out: 4 int32 and the
-            # backpointer byte of every cell
             sw_full_bp=_bound(
-                B * (G + R + 28 + 16) + B * R * G,
+                _bp_bytes(B, R, G),
                 OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
                 OPS["sw_full_bp"] * B * R * G),
             # the walked backpointer, window and read bytes, 4 int32 in;
@@ -839,7 +927,7 @@ def check_tb_packed_step(dev):
         raise AssertionError("traceback step: CUDA and CPU outputs differ")
 
 
-def run_long_slice(dev, counters):
+def run_long_slice(dev, counters, test_bound):
     """Phase 11: 250 bp reads through the port's entry point, which takes
     the traceback flow."""
     from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
@@ -881,6 +969,9 @@ def run_long_slice(dev, counters):
                              "unmapped or no indel alignment")
     print("long device busy share (profiled run on the first 32768 reads): "
           + _device_busy_share(_mapper(idx, dev), reads[:4 * B_CHUNK]))
+    from shrimp_tpu_torch.core import sw
+    _print_flow_bound("sw_full_bp", m, reads, _ls_stream, sw, "sw_full_bp",
+                      test_bound, _bp_bytes, False)
     first = reads[:LONG_CPU_READS]
 
     def stream(mm, rr):
@@ -932,13 +1023,15 @@ def main() -> None:
     launches.update(run_cs_slice(dev, {
         "sw_vector_cs": sw_vector.CS_LAUNCHES,
         "sw_cs_full": sw_cs_full.DP_LAUNCHES,
-        "cs_traceback": sw_cs_full.TB_LAUNCHES}))
+        "cs_traceback": sw_cs_full.TB_LAUNCHES},
+        rec["sw_cs_full"]["bound_ms"]))
     rec.update(check_long_kernels(dev))
     check_tb_packed_step(dev)
     launches.update(run_long_slice(dev, {
         "sw_vector_g352": sw_vector.LAUNCHES,
         "sw_full_bp": sw_full.BP_LAUNCHES,
-        "ls_traceback": sw_full.TB_LAUNCHES}))
+        "ls_traceback": sw_full.TB_LAUNCHES},
+        rec["sw_full_bp"]["bound_ms"]))
 
     kernels = [
         dict(name=name, route="cuda", source=f"shrimp_tpu_torch/csrc/{src}",

@@ -35,8 +35,10 @@ _SIGNATURES = {
     "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P],
     "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
     "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
+    "sw_cs_full_config": [_I, _P],
     "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
     "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P],
+    "sw_full_bp_config": [_I, _I, _I, _P],
     "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P],
 }
 
@@ -142,6 +144,20 @@ def load() -> Built:
             raise RuntimeError(f"kernel entry points not built: {missing}")
         _BUILT = Built(lib, [so for _, so in sos], secs, log)
         return _BUILT
+
+
+CONFIG_KEYS = ("pairs_per_block", "threads_per_pair", "smem_bytes",
+               "blocks_per_sm", "registers", "local_bytes")
+
+
+def launch_config(name: str, *args: int) -> dict:
+    """The launch configuration that a kernel's C entry point `name`
+    (`<kernel>_config`) reports for the sizes `args`: CONFIG_KEYS, with
+    the resident blocks per SM from the CUDA occupancy calculator and the
+    registers and local (spill) bytes of each thread."""
+    out = (ctypes.c_int * len(CONFIG_KEYS))()
+    check(getattr(load().lib, name)(*args, ctypes.addressof(out)), name)
+    return dict(zip(CONFIG_KEYS, out))
 
 
 def check(rc: int, what: str) -> None:

@@ -16,11 +16,11 @@ The traceback is the port of `sw_cs_jax._cs_traceback`: a walk from the
 best cell through the packed backpointers (nw | n << 5 | w << 10) that
 yields the [B, 12] packed alignment fields and the reversed step codes.
 
-Backpointers travel between the two as int16 in the pair-fastest layout
-[R, 4, G, B] on every device (the CUDA kernel writes it so that a warp's
-stores coalesce); `bp_ref_layout` gives the reference's [B, R, 4, G]
-int32 for comparisons. Each wrapper takes the plain version for CPU
-tensors only; for CUDA tensors it launches its kernel or raises.
+Backpointers travel between the two as int16 in the reference's own
+layout [B, R, 4, G] on every device (every packed value fits 15 bits;
+the CUDA kernel, a warp per pair, stores a row's 4 x G values as one
+contiguous run). Each wrapper takes the plain version for CPU tensors
+only; for CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -242,18 +242,6 @@ def sw_full_cs_dp_ref(genome_ls: torch.Tensor, glen: torch.Tensor,
     return best, bi, bj, bk, bfrm, bp
 
 
-def bp_ref_layout(bp: torch.Tensor) -> torch.Tensor:
-    """[R, 4, G, B] int16 backpointers -> the reference's [B, R, 4, G]
-    int32 (for comparisons with sw_full_cs_dp_pallas)."""
-    return bp.permute(3, 0, 1, 2).to(torch.int32)
-
-
-def _pair_fastest(bp: torch.Tensor) -> torch.Tensor:
-    """[B, R, 4, G] int32 -> [R, 4, G, B] int16, the kernels' layout
-    (every packed value fits 15 bits)."""
-    return bp.permute(1, 2, 3, 0).to(torch.int16).contiguous()
-
-
 def _launch_dp(genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl,
                xover_rows, gx_col, *, match, mismatch, a_gap_open,
                a_gap_ext, b_gap_open, b_gap_ext, local_alignment,
@@ -270,7 +258,7 @@ def _launch_dp(genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl,
                     ("revcmpl", revcmpl)):
         check_tensor(name, t, torch.int32, (B,), dev)
     lib = _build.load().lib
-    bp = torch.empty((R, 4, G, B), dtype=torch.int16, device=dev)
+    bp = torch.empty((B, R, 4, G), dtype=torch.int16, device=dev)
     stats = torch.empty((5, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -295,7 +283,7 @@ def sw_full_cs_dp(genome_ls: torch.Tensor, glen: torch.Tensor,
                   a_gap_open: int, a_gap_ext: int, b_gap_open: int,
                   b_gap_ext: int, local_alignment: bool = False,
                   indel_taboo_len: int = 0):
-    """(best, bi, bj, bk, bfrm [B] int32, bp [R, 4, G, B] int16). CPU
+    """(best, bi, bj, bk, bfrm [B] int32, bp [B, R, 4, G] int16). CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (uint8 windows and layers, int32 crossovers and per-pair arguments
     incl. revcmpl, contiguous, G <= 256) or raise."""
@@ -307,7 +295,7 @@ def sw_full_cs_dp(genome_ls: torch.Tensor, glen: torch.Tensor,
             xover_rows, gx_col)
     if genome_ls.device.type == "cpu":
         *stats, bp = sw_full_cs_dp_ref(*args, **kw)
-        return (*stats, _pair_fastest(bp))
+        return (*stats, bp.to(torch.int16))
     return _launch_dp(*args, **kw)
 
 
@@ -316,7 +304,7 @@ def cs_traceback_ref(genome_ls: torch.Tensor, qr: torch.Tensor,
                      bk: torch.Tensor, bfrm: torch.Tensor, bp: torch.Tensor,
                      thresh: torch.Tensor):
     """Plain version, on any device: R + G lock-step walk steps over all
-    pairs, as _cs_traceback scans them. bp is [R, 4, G, B] int16. Returns
+    pairs, as _cs_traceback scans them. bp is [B, R, 4, G] int16. Returns
     (packed [B, 12] int16, steps_rev [B, R + G] int8)."""
     B, G = genome_ls.shape
     R = qr.shape[2]
@@ -361,8 +349,8 @@ def cs_traceback_ref(genome_ls: torch.Tensor, qr: torch.Tensor,
         j2 = j - (is_w | is_nw).to(i32)
         nxt = nextp[code.clamp(0, 7)]
         inb = act & (i2 >= 0) & (j2 >= 0)
-        flat = (((i2.clamp(0, R - 1) * 4 + k2.clamp(0, 3)) * G
-                 + j2.clamp(0, G - 1)) * B + bidx)
+        flat = (((bidx * R + i2.clamp(0, R - 1)) * 4 + k2.clamp(0, 3)) * G
+                + j2.clamp(0, G - 1))
         frm2 = (bpf[flat].to(i32) >> (5 * nxt)) & 31
         frm = torch.where(inb, frm2, 0)
         act = inb & (frm != 0)
@@ -387,7 +375,7 @@ def _launch_tb(genome_ls, qr, best, bi, bj, bk, bfrm, bp, thresh):
     dev = genome_ls.device
     check_tensor("genome_ls", genome_ls, torch.uint8, (B, G), dev)
     check_tensor("qr", qr, torch.uint8, (B, 4, R), dev)
-    check_tensor("bp", bp, torch.int16, (R, 4, G, B), dev)
+    check_tensor("bp", bp, torch.int16, (B, R, 4, G), dev)
     for name, t in (("best", best), ("bi", bi), ("bj", bj), ("bk", bk),
                     ("bfrm", bfrm), ("thresh", thresh)):
         check_tensor(name, t, torch.int32, (B,), dev)
@@ -411,7 +399,7 @@ def cs_traceback(genome_ls: torch.Tensor, qr: torch.Tensor,
                  bk: torch.Tensor, bfrm: torch.Tensor, bp: torch.Tensor,
                  thresh: torch.Tensor):
     """(packed [B, 12] int16, steps_rev [B, R + G] int8) from the DP's
-    best cells and [R, 4, G, B] int16 backpointers. CPU tensors take the
+    best cells and [B, R, 4, G] int16 backpointers. CPU tensors take the
     plain version; CUDA tensors launch the kernel (uint8 windows and
     layers, int32 per-pair values, contiguous) or raise."""
     args = (genome_ls, qr, best, bi, bj, bk, bfrm, bp, thresh)

@@ -5,7 +5,7 @@
 // _cs_traceback (a lax.scan of R + G gather steps, device code on the TPU
 // though not a Pallas kernel). From the DP's best cell (bi, bj, bk, bfrm)
 // it walks the packed backpointers (nw | n << 5 | w << 10, written by
-// csrc/sw_cs_full.cu in the layout [R, 4, G, B]) back to the alignment's
+// csrc/sw_cs_full.cu in the layout [B, R, 4, G]) back to the alignment's
 // start, counting matches (BASE_N on either side matches), mismatches,
 // insertions, deletions and crossovers, and emits one step code per op,
 // op | layer << 2 | crossover << 4, last op first. An alignment that
@@ -83,8 +83,8 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
     j -= is_w || is_nw;
     if (i < 0 || j < 0) break;
     const int nxt = NEXT_PLANE[min(max(code, 0), 7)];
-    const int v = bp[(((size_t)min(i, R - 1) * 4 + k) * G + min(j, G - 1))
-                     * B + b];
+    const int v = bp[(((size_t)b * R + min(i, R - 1)) * 4 + k) * G
+                     + min(j, G - 1)];
     frm = (v >> (5 * nxt)) & 31;
     act = frm != 0;
   }
@@ -104,7 +104,7 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
 }  // namespace
 
 // genome [B, G] u8 (letters), qr [B, 4, R] u8, best/bi/bj/bk/bfrm/thresh
-// [B] i32, bp [R, 4, G, B] i16 -> packed [B, 12] i16, steps
+// [B] i32, bp [B, R, 4, G] i16 -> packed [B, 12] i16, steps
 // [B, R + G] i8. Returns cudaGetLastError() after the launch.
 extern "C" int cs_traceback_launch(const void* genome, const void* qr,
                                    const void* best, const void* bi,

@@ -14,22 +14,36 @@
 // the per-row local inits, the taboo near the read end, the W chain's
 // FILL floor and the best-cell picks.
 //
-// What bounds it on an H100: integer ALU. A cell of one layer weighs 12
-// NW and 8 N candidates plus the W chain, about 60 int32 operations, and
-// a launch computes 4*B*R*G of them. Device memory carries the
+// What bounds it on an H100: integer ALU and shared-memory issue. A cell
+// of one layer weighs 12 NW and 8 N candidates plus the W chain, about
+// 60 int32 operations, and each reads the previous row of all four
+// layers; a launch computes 4*B*R*G of them. Device memory carries the
 // backpointers out, 2 bytes per layer-cell (B = 2048, G = 64, R = 36:
-// 37.7 MB), which the card writes in microseconds.
+// 37.7 MB), which the card writes in microseconds. The main path's
+// launches are small (2048 pairs), so the design must fill 132 SMs from
+// 2048 pairs.
 //
-// What the simple design does about it: one thread per (window, read)
-// pair, as the TPU kernel gave one lane to a pair. The thread walks rows
-// i and columns j in order, so the W chain (a log-doubling cummax on the
-// TPU) is a scalar running max per layer and the row's best cell a
-// scalar compare. The previous row's nw, n and w of the four layers live
-// in per-thread arrays of G+1 ints sized by the G bucket (a template
-// parameter), updated in place with the diagonal values held in
-// registers. Backpointers are int16 in a pair-fastest layout [R, 4, G, B],
-// so the 32 threads of a warp store 64 contiguous bytes. Blocks are one
-// warp, so that the main path's 2048-pair launches spread over 64 SMs.
+// What the design does about it: one warp per (window, read) pair and
+// PAIRS warps per block, so a 2048-pair launch is 2048 warps, about 15
+// per SM. Lane = (layer k = lane / 8, column strip s = lane % 8); a strip
+// is S = GMAX / 8 consecutive columns (the G bucket is a template
+// parameter). The previous and the current row of all 4 layers x 3
+// planes live in shared memory as ping-pong buffers, so no lane orders
+// its reads against another's writes within a row. Slots are padded (one
+// spare int after every strip, a layer stride of GMAX + 8 = 8 mod 32) so
+// that the 32 lanes' loads of one column step fall in 32 distinct banks.
+// A row runs in two passes: (1) NW and N from the previous row, which
+// also gathers the strip's maximum of the W chain terms a_j + j*gea from
+// the nw values it has just computed; a 3-step __shfl_up_sync max scan
+// over the 8 lanes of each layer gives the strip's carry; (2) the W
+// plane from that carry, its from-codes and the lane's best cell. The
+// row's best cell is reduced over all 32 lanes on (value larger, then j
+// smaller, then k smaller), which is the reference's first (j, then k)
+// holding the row's maximum. Backpointers are int16 [B, R, 4, G],
+// pair-major as the reference lays them out: a row's 4 x G values are
+// one contiguous run, and each lane stores its strip from registers in
+// 16-byte pieces, in lane order. Every cell is computed, in band or not;
+// out-of-band cells take their init values as in the reference.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,8 +52,9 @@ namespace {
 
 constexpr int NEG = -(1 << 25);
 constexpr int FILL = -(1 << 28);
-constexpr int BLOCK = 32;
 constexpr int BASE_N = 15;
+constexpr int PAIRS = 4;   // warps, one pair each, per block
+constexpr unsigned FULL_MASK = 0xffffffffu;
 // direction-pair codes of sw-full-cs.c; a backpointer is code << 2 | layer
 constexpr int NN = 1, NNW = 2, WNW = 3, WW = 4, NWN = 5, NWNW = 6, NWW = 7;
 
@@ -48,7 +63,7 @@ constexpr int NN = 1, NNW = 2, WNW = 3, WW = 4, NWN = 5, NWNW = 6, NWW = 7;
 struct Best {
   int val = INT_MIN;
   int bk = 0;
-  __device__ void take(int c, int code, int layer) {
+  __device__ __forceinline__ void take(int c, int code, int layer) {
     if (c > val) {
       val = c;
       bk = code << 2 | layer;
@@ -56,8 +71,36 @@ struct Best {
   }
 };
 
+// The strict-> scan over the groups of layer k's candidates in the order
+// [k, the others ascending], from each group's own scan: a group's first
+// maximum is the first maximum of its candidates, so scanning group
+// results in that order equals scanning every candidate in it.
+__device__ __forceinline__ Best in_order(const Best (&grp)[4], int k) {
+  Best r = grp[0];
+#pragma unroll
+  for (int l = 1; l < 4; ++l)
+    if (l == k) r = grp[l];
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+    if (l != k && grp[l].val > r.val) r = grp[l];
+  return r;
+}
+
+// Shared memory of one pair in the G bucket GMAX: two row buffers of
+// 3 planes x 4 layers x L slots, then the genome window. Column j of a
+// layer sits in slot 1 + j + j / S (slot 0 is the pad column j = -1).
 template <int GMAX>
-__global__ void __launch_bounds__(BLOCK)
+struct Geo {
+  static constexpr int S = GMAX / 8;         // strip width
+  static constexpr int L = GMAX + 8;         // layer stride, 8 mod 32
+  static constexpr int PLANE = 4 * L;
+  static constexpr int BUF = 3 * PLANE;
+  static constexpr int INTS = 2 * BUF + GMAX / 4;
+  static constexpr int BYTES = 4 * INTS;
+};
+
+template <int GMAX>
+__global__ void __launch_bounds__(32 * PAIRS)
 sw_cs_full_kernel(const uint8_t* __restrict__ genome,
                   const uint8_t* __restrict__ qr,
                   const int32_t* __restrict__ xover,
@@ -72,31 +115,37 @@ sw_cs_full_kernel(const uint8_t* __restrict__ genome,
                   int16_t* __restrict__ bp, int32_t* __restrict__ stats,
                   int B, int G, int R, int m, int mm, int goa, int gea,
                   int gob, int geb, int local, int taboo) {
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
+  using Gm = Geo<GMAX>;
+  constexpr int S = Gm::S, L = Gm::L, PLANE = Gm::PLANE;
+  extern __shared__ int4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * PAIRS + warp;
   if (b >= B) return;
-  const uint8_t* g = genome + (size_t)b * G;
-  const uint8_t* q = qr + (size_t)b * 4 * R;
+  int* prev = reinterpret_cast<int*>(smem) + warp * Gm::INTS;
+  int* cur = prev + Gm::BUF;
+  uint8_t* gsh = reinterpret_cast<uint8_t*>(prev + 2 * Gm::BUF);
+
+  const int k = lane >> 3, s = lane & 7;
+  const int j0 = s * S;           // the strip is [j0, j0 + S) below G
+  const uint8_t* q = qr + (size_t)b * 4 * R + (size_t)k * R;
   const int32_t* xr = xover + (size_t)b * R;
   const int gl = glen_[b], rl = rlen_[b];
   const int ax = ax_[b], ay = ay_[b], alen = alen_[b], awid = awid_[b];
   const bool rv = rev_[b] != 0;
   const int gx = gx_[b];
 
-  // previous row per layer, index j + 1 for column j (0 is the pad
-  // column j = -1); row -1 starts layer 0 at 0 and layers 1..3 at the
-  // global crossover, with the N and W planes offset by the gap opens
-  int p_nw[4][GMAX + 1], p_n[4][GMAX + 1], p_w[4][GMAX + 1];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int off = k == 0 ? 0 : gx;
-    for (int j = 0; j <= G; ++j) {
-      p_nw[k][j] = off;
-      p_n[k][j] = off - gob;
-      p_w[k][j] = off - goa;
-    }
+  for (int j = lane; j < G; j += 32) gsh[j] = genome[(size_t)b * G + j];
+  // row -1 starts layer 0 at 0 and layers 1..3 at the global crossover,
+  // with the N and W planes offset by the gap opens, in every slot
+  for (int x = lane; x < PLANE; x += 32) {
+    const int off = x < L ? 0 : gx;
+    prev[x] = off;
+    prev[PLANE + x] = off - gob;
+    prev[2 * PLANE + x] = off - goa;
   }
-  int best = 0, bi = 0, bj = 0, bk = 0, bfrm = 0;
+  __syncwarp();
 
+  int best = 0, bi = 0, bj = 0, bk = 0, bfrm = 0;
   for (int i = 0; i < R; ++i) {
     // band for this row (anchor_get_x_range), clipped to [0, glen-1]
     int x_min = i < ay ? 0 : (i <= ay + alen - 1 ? ax + (i - ay)
@@ -111,183 +160,308 @@ sw_cs_full_kernel(const uint8_t* __restrict__ genome,
     // taboo: no N-plane entry (or exit to NW) near the read end
     const bool no_taboo = taboo == 0 || i < rl - taboo;
     const bool rec = local ? i < rl : i == rl - 1;
-
-    int init_nw[4], init_n[4], init_w[4], qk[4];
-    int d_nw[4], d_n[4], d_w[4];   // previous row, column j - 1
-    int left_nw[4], w_left[4], c[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      init_nw[k] = local ? (k == 0 ? 0 : xc) : NEG;
-      init_n[k] = local ? init_nw[k] - gob : NEG;
-      init_w[k] = local ? init_nw[k] - goa : NEG;
-      qk[k] = q[k * R + i];
-      d_nw[k] = p_nw[k][0];
-      d_n[k] = p_n[k][0];
-      d_w[k] = p_w[k][0];
-      p_nw[k][0] = init_nw[k];
-      p_n[k][0] = init_n[k];
-      p_w[k][0] = init_w[k];
-      left_nw[k] = init_nw[k];   // this row's nw at column j - 1
-      w_left[k] = init_w[k];     // this row's W value before the clamp
-      c[k] = FILL;               // running max of the W chain
+    const int init_nw = local ? (k == 0 ? 0 : xc) : NEG;
+    const int init_n = local ? init_nw - gob : NEG;
+    const int init_w = local ? init_nw - goa : NEG;
+    const int qk = q[i];
+    if (s == 0) {   // this row's pad column j = -1
+      cur[k * L] = init_nw;
+      cur[PLANE + k * L] = init_n;
+      cur[2 * PLANE + k * L] = init_w;
     }
-    int rb = NEG, rj = 0, rk = 0, rfrm = 0;   // this row's best cell
 
-    for (int j = 0; j < G; ++j) {
-      const bool inb = j >= x_min && j <= x_max;
-      const int gch = g[j];
-      int u_nw[4], u_n[4], u_w[4];   // previous row, column j
+    // ---- pass 1: NW and N of layer k over the strip, from the previous
+    // row of all four layers; d_* hold column j - 1, u_* column j
+    int d_nw[4], d_n[4], d_w[4];
+    const int sl1 = j0 + s + 1;              // slot of column j0
+    const int sl0 = s == 0 ? 0 : sl1 - 2;    // slot of column j0 - 1
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        u_nw[k] = p_nw[k][j + 1];
-        u_n[k] = p_n[k][j + 1];
-        u_w[k] = p_w[k][j + 1];
-      }
-      int16_t* bpj = bp + ((size_t)i * 4 * G + j) * B + b;
+    for (int l = 0; l < 4; ++l) {
+      d_nw[l] = prev[l * L + sl0];
+      d_n[l] = prev[PLANE + l * L + sl0];
+      d_w[l] = prev[2 * PLANE + l * L + sl0];
+    }
+    uint32_t bpv[S / 2];   // the strip's backpointers, two per word
+    int agg = FILL;        // max of the W chain terms of columns > j0
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+    for (int t = 0; t < S; ++t) {
+      const int j = j0 + t;
+      if (j < G) {
+        const int sl = sl1 + t;
+        int u_nw[4], u_n[4], u_w[4];
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          u_nw[l] = prev[l * L + sl];
+          u_n[l] = prev[PLANE + l * L + sl];
+          u_w[l] = prev[2 * PLANE + l * L + sl];
+        }
+        const bool inb = j >= x_min && j <= x_max;
         // NW: 12 candidates, groups in layer order [k, others ascending],
-        // groups after the first pay the crossover
-        Best nw;
+        // groups after the first pay the crossover. Each layer's group is
+        // scanned on its own (layer indices stay compile-time, so the
+        // arrays stay in registers), then the groups in that order.
+        Best grp[4];
 #pragma unroll
-        for (int gi = 0; gi < 4; ++gi) {
-          const int l = gi == 0 ? k : (gi <= k ? gi - 1 : gi);
-          const int x = gi == 0 ? 0 : xc;
+        for (int l = 0; l < 4; ++l) {
+          const int x = l == k ? 0 : xc;
           const int c_n = no_taboo ? d_n[l] + x : 2 * NEG;
           if (rv) {
-            nw.take(d_w[l] + x, NWW, l);
-            nw.take(c_n, NWN, l);
-            nw.take(d_nw[l] + x, NWNW, l);
+            grp[l].take(d_w[l] + x, NWW, l);
+            grp[l].take(c_n, NWN, l);
+            grp[l].take(d_nw[l] + x, NWNW, l);
           } else {
-            nw.take(d_nw[l] + x, NWNW, l);
-            nw.take(c_n, NWN, l);
-            nw.take(d_w[l] + x, NWW, l);
+            grp[l].take(d_nw[l] + x, NWNW, l);
+            grp[l].take(c_n, NWN, l);
+            grp[l].take(d_w[l] + x, NWW, l);
           }
         }
-        const int s = (gch == BASE_N || qk[k] == BASE_N)
-                          ? 0 : (gch == qk[k] ? m : mm);
-        int nw_val = nw.val + s, nw_bk = nw.bk;
-        if (local && nw_val <= init_nw[k]) {
-          nw_val = init_nw[k];
+        const Best nw = in_order(grp, k);
+        const int gch = gsh[j];
+        const int sc = (gch == BASE_N || qk == BASE_N) ? 0
+                                                       : (gch == qk ? m : mm);
+        int nw_val = nw.val + sc, nw_bk = nw.bk;
+        if (local && nw_val <= init_nw) {
+          nw_val = init_nw;
           nw_bk = 0;
         }
         if (!inb) {
-          nw_val = init_nw[k];
+          nw_val = init_nw;
           nw_bk = 0;
         }
 
-        // N: 8 candidates (open, extend) per layer group
-        Best n;
+        // N: 8 candidates (open, extend) per layer group, in the same
+        // group order
 #pragma unroll
-        for (int gi = 0; gi < 4; ++gi) {
-          const int l = gi == 0 ? k : (gi <= k ? gi - 1 : gi);
-          const int x = gi == 0 ? 0 : xc;
+        for (int l = 0; l < 4; ++l) {
+          const int x = l == k ? 0 : xc;
           const int c_open = no_taboo ? u_nw[l] - gob - geb + x : 2 * NEG;
           const int c_ext = u_n[l] - geb + x;
+          grp[l] = Best();
           if (rv) {
-            n.take(c_ext, NN, l);
-            n.take(c_open, NNW, l);
+            grp[l].take(c_ext, NN, l);
+            grp[l].take(c_open, NNW, l);
           } else {
-            n.take(c_open, NNW, l);
-            n.take(c_ext, NN, l);
+            grp[l].take(c_open, NNW, l);
+            grp[l].take(c_ext, NN, l);
           }
         }
+        const Best n = in_order(grp, k);
         int n_val = n.val, n_bk = n.bk;
-        if (local && n_val <= init_nw[k]) {
-          n_val = init_nw[k];
+        if (local && n_val <= init_nw) {
+          n_val = init_nw;
           n_bk = 0;
         }
         if (!inb) {
-          n_val = init_n[k];
+          n_val = init_n;
           n_bk = 0;
         }
+        cur[k * L + sl] = nw_val;
+        cur[PLANE + k * L + sl] = n_val;
+        const uint32_t v = static_cast<uint32_t>(nw_bk | n_bk << 5);
+        if (t & 1)
+          bpv[t >> 1] |= v << 16;
+        else
+          bpv[t >> 1] = v;
 
-        // W: this layer's chain along j; the band's left edge injects
-        // init_w as an extra candidate; out-of-band cells add FILL
-        const int c_open_w = no_taboo ? left_nw[k] - goa - gea : 2 * NEG;
+        // the W chain term of column j + 1, whose left nw is nw_val
+        const int jn = j + 1;
+        if (t + 1 < S && jn < G && jn >= x_min && jn <= x_max) {
+          int a = no_taboo ? nw_val - goa - gea : 2 * NEG;
+          if (local) a = max(a, init_nw);
+          if (jn == x_min) a = max(a, init_w - gea);
+          agg = max(agg, a + jn * gea);
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          d_nw[l] = u_nw[l];
+          d_n[l] = u_n[l];
+          d_w[l] = u_w[l];
+        }
+      }
+    }
+    __syncwarp();
+
+    // the term of column j0, whose left nw is the neighbour strip's last
+    // (or the pad column); then the carry from the strips to the left:
+    // the W chain's running max after column j0 - 1, floored at FILL
+    int left_nw = cur[k * L + sl0];
+    if (j0 < G && j0 >= x_min && j0 <= x_max) {
+      int a = no_taboo ? left_nw - goa - gea : 2 * NEG;
+      if (local) a = max(a, init_nw);
+      if (j0 == x_min) a = max(a, init_w - gea);
+      agg = max(agg, a + j0 * gea);
+    }
+#pragma unroll
+    for (int d = 1; d < 8; d <<= 1) {
+      const int u = __shfl_up_sync(FULL_MASK, agg, d, 8);
+      if (s >= d) agg = max(agg, u);
+    }
+    int c = __shfl_up_sync(FULL_MASK, agg, 1, 8);
+    if (s == 0) c = FILL;
+
+    // ---- pass 2: the W plane, its from-codes and the lane's best cell
+    // (first j holding the lane's maximum)
+    int w_left = j0 > 0 && j0 - 1 >= x_min && j0 - 1 <= x_max
+                     ? c - (j0 - 1) * gea : init_w;
+    int rb = NEG, rj = G, rfrm = 0;
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      const int j = j0 + t;
+      if (j < G) {
+        const int sl = sl1 + t;
+        const bool inb = j >= x_min && j <= x_max;
+        const int nw_val = cur[k * L + sl];
+        const int c_open_w = no_taboo ? left_nw - goa - gea : 2 * NEG;
         int a = c_open_w;
-        if (local) a = max(a, init_nw[k]);
-        if (j == x_min) a = max(a, init_w[k] - gea);
-        c[k] = max(c[k], inb ? a + j * gea : FILL);
-        const int w_raw = inb ? c[k] - j * gea : init_w[k];
-        const int c_ext_w = w_left[k] - gea;
+        if (local) a = max(a, init_nw);
+        if (j == x_min) a = max(a, init_w - gea);
+        c = max(c, inb ? a + j * gea : FILL);
+        const int w_raw = inb ? c - j * gea : init_w;
+        const int c_ext_w = w_left - gea;
         const bool take_ext = rv ? !(c_open_w > c_ext_w) : c_ext_w > c_open_w;
         int w_val = w_raw;
         int w_bk = (take_ext ? WW : WNW) << 2 | k;
-        if (local && w_raw <= init_nw[k]) {
-          w_val = init_nw[k];
+        if (local && w_raw <= init_nw) {
+          w_val = init_nw;
           w_bk = 0;
         }
         if (!inb) w_bk = 0;
-        w_left[k] = w_raw;
-        left_nw[k] = nw_val;
+        w_left = w_raw;
+        left_nw = nw_val;
+        cur[2 * PLANE + k * L + sl] = w_val;
+        const uint32_t v = (bpv[t >> 1] >> (16 * (t & 1))) & 0x3ffu;
+        bpv[t >> 1] |= static_cast<uint32_t>(w_bk << 10) << (16 * (t & 1));
 
-        bpj[(size_t)k * G * B] = (int16_t)(nw_bk | n_bk << 5 | w_bk << 10);
-
-        // best cell: first (j, then k) holding the row's maximum
         if (rec && inb) {
+          const int n_val = cur[PLANE + k * L + sl];
           const int cm = max(max(nw_val, n_val), w_val);
           if (cm > rb) {
             rb = cm;
             rj = j;
-            rk = k;
             // the reference picks max(value, NEG) at the selected cell,
             // then prefers nw, w if strictly greater, then n
             const int nw_c = max(nw_val, NEG), n_c = max(n_val, NEG),
                       w_c = max(w_val, NEG);
-            int frm = nw_bk, fs = nw_c;
+            int frm = static_cast<int>(v & 31), fs = nw_c;
             if (w_c > fs) frm = w_bk;
             fs = max(fs, w_c);
-            if (n_c > fs) frm = n_bk;
+            if (n_c > fs) frm = static_cast<int>(v >> 5);
             rfrm = frm;
           }
         }
+      }
+    }
 
-        // store this row's column j (every layer read column j above)
-        p_nw[k][j + 1] = nw_val;
-        p_n[k][j + 1] = n_val;
-        p_w[k][j + 1] = w_val;
-      }
-      // shift the diagonal carries once all four layers are done
+    // the row's best cell: largest value, then smallest j, then smallest
+    // k; across rows the strict > keeps the earliest row
+    if (rec) {
+      int rk = k;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        d_nw[k] = u_nw[k];
-        d_n[k] = u_n[k];
-        d_w[k] = u_w[k];
+      for (int d = 16; d > 0; d >>= 1) {
+        const int v2 = __shfl_xor_sync(FULL_MASK, rb, d);
+        const int j2 = __shfl_xor_sync(FULL_MASK, rj, d);
+        const int k2 = __shfl_xor_sync(FULL_MASK, rk, d);
+        const int f2 = __shfl_xor_sync(FULL_MASK, rfrm, d);
+        if (v2 > rb || (v2 == rb && (j2 < rj || (j2 == rj && k2 < rk)))) {
+          rb = v2;
+          rj = j2;
+          rk = k2;
+          rfrm = f2;
+        }
+      }
+      if (rb > best) {
+        best = rb;
+        bi = i;
+        bj = rj;
+        bk = rk;
+        bfrm = rfrm;
       }
     }
-    if (rb > best) {
-      best = rb;
-      bi = i;
-      bj = rj;
-      bk = rk;
-      bfrm = rfrm;
+
+    // the strip's backpointers: row i, layer k, columns [j0, j0 + S)
+    int16_t* dst = bp + (((size_t)b * R + i) * 4 + k) * G + j0;
+    const bool vec = (G & 7) == 0;
+#pragma unroll
+    for (int p = 0; p < S / 8; ++p) {
+      const int jc = j0 + 8 * p;
+      if (vec && jc + 8 <= G) {
+        reinterpret_cast<int4*>(dst)[p] = make_int4(
+            static_cast<int>(bpv[4 * p]), static_cast<int>(bpv[4 * p + 1]),
+            static_cast<int>(bpv[4 * p + 2]),
+            static_cast<int>(bpv[4 * p + 3]));
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (jc + u < G)
+            dst[8 * p + u] = static_cast<int16_t>(
+                bpv[4 * p + u / 2] >> (16 * (u & 1)));
+      }
     }
+    __syncwarp();
+    int* tmp = prev;
+    prev = cur;
+    cur = tmp;
   }
-  stats[b] = best;
-  stats[B + b] = bi;
-  stats[2 * B + b] = bj;
-  stats[3 * B + b] = bk;
-  stats[4 * B + b] = bfrm;
+  if (lane == 0) {
+    stats[b] = best;
+    stats[B + b] = bi;
+    stats[2 * B + b] = bj;
+    stats[3 * B + b] = bk;
+    stats[4 * B + b] = bfrm;
+  }
 }
 
 template <int GMAX>
-void launch(const void* const* in, void* bp, void* stats, int B, int G,
-            int R, int m, int mm, int goa, int gea, int gob, int geb,
-            int local, int taboo, cudaStream_t stream) {
+cudaError_t prepare(int* smem) {
+  *smem = PAIRS * Geo<GMAX>::BYTES;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sw_cs_full_kernel<GMAX>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+}
+
+template <int GMAX>
+cudaError_t launch(const void* const* in, void* bp, void* stats, int B,
+                   int G, int R, int m, int mm, int goa, int gea, int gob,
+                   int geb, int local, int taboo, cudaStream_t stream) {
+  int smem = 0;
+  const cudaError_t e = prepare<GMAX>(&smem);
+  if (e != cudaSuccess) return e;
   auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  sw_cs_full_kernel<GMAX><<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+  sw_cs_full_kernel<GMAX><<<(B + PAIRS - 1) / PAIRS, 32 * PAIRS, smem,
+                            stream>>>(
       u8(in[0]), u8(in[1]), i32(in[2]), i32(in[3]), i32(in[4]), i32(in[5]),
       i32(in[6]), i32(in[7]), i32(in[8]), i32(in[9]), i32(in[10]),
       static_cast<int16_t*>(bp), static_cast<int32_t*>(stats), B, G, R, m,
       mm, goa, gea, gob, geb, local, taboo);
+  return cudaGetLastError();
+}
+
+template <int GMAX>
+cudaError_t config(int* out) {
+  int smem = 0;
+  cudaError_t e = prepare<GMAX>(&smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, sw_cs_full_kernel<GMAX>);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, sw_cs_full_kernel<GMAX>, 32 * PAIRS, smem);
+  out[0] = PAIRS;
+  out[1] = 32;
+  out[2] = smem;
+  out[3] = blocks;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  return e;
 }
 
 }  // namespace
 
 // genome [B, G] u8 (letters), qr [B, 4, R] u8 (letter layers), xover
-// [B, R] i32, gx/glen/rlen/ax/ay/alen/awid/rev [B] i32 -> bp [R, 4, G, B]
+// [B, R] i32, gx/glen/rlen/ax/ay/alen/awid/rev [B] i32 -> bp [B, R, 4, G]
 // i16, stats [5, B] i32 (best, bi, bj, bk, bfrm). goa/gea/gob/geb are the
 // open and extend costs as positive penalties (open NOT including
 // extend). Returns cudaGetLastError() after the launch
@@ -305,16 +479,30 @@ extern "C" int sw_cs_full_launch(const void* genome, const void* qr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* in[] = {genome, qr, xover, gx, glen, rlen,
                       ax, ay, alen, awid, rev};
+  cudaError_t e;
   if (G <= 64)
-    launch<64>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb, local,
-               taboo, st);
+    e = launch<64>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb, local,
+                   taboo, st);
   else if (G <= 128)
-    launch<128>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb, local,
-                taboo, st);
+    e = launch<128>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb,
+                    local, taboo, st);
   else if (G <= 256)
-    launch<256>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb, local,
-                taboo, st);
+    e = launch<256>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb,
+                    local, taboo, st);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The launch configuration of windows G wide: out[0..5] = pairs per
+// block, threads per pair, dynamic shared memory bytes per block,
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers per thread and local (spill) bytes per thread. Returns a
+// cudaError_t.
+extern "C" int sw_cs_full_config(int G, void* out) {
+  int* o = static_cast<int*>(out);
+  if (G <= 64) return static_cast<int>(config<64>(o));
+  if (G <= 128) return static_cast<int>(config<128>(o));
+  if (G <= 256) return static_cast<int>(config<256>(o));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

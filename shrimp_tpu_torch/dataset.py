@@ -10,7 +10,9 @@ generators of those scripts without their on-disk caches. Long reads
 (`ecoli_unpaired_ls_long`, no counterpart in the bench scripts): the
 same genome, 250 bp reads with substitutions and, in one read of ten,
 a short indel. The indexes are built with the port's
-`index.build.build_index`.
+`index.build.build_index`. `edge_bands` draws the band geometries at
+which the banded DP kernels take their special cases, for the tests and
+`chip_smoke.py`.
 """
 from __future__ import annotations
 
@@ -120,3 +122,49 @@ def ecoli_unpaired_cs(n_reads: int, seed: int = SEED
         reads.append(SeqRecord(
             f"c{k}", "T" + "".join(str(c) if c <= 3 else "." for c in cols)))
     return idx, reads
+
+
+EDGE_KINDS = 6
+
+
+def edge_bands(rng: np.random.Generator, n: int, G: int, R: int) -> dict:
+    """Band geometry (int32 glen, ax, ay, alen, awid [n]) of n (window,
+    read) pairs of G columns and R rows at the edges of the anchor band
+    (anchor_get_x_range clipped to [0, glen - 1]), cycling through
+    EDGE_KINDS kinds: (0) ax >= glen, the band clips to the last column;
+    (1) ax + awid < 0, it clips to column 0; (2) the flow's pad rows,
+    glen = alen = awid = 1; (3) awid = 1 along the diagonal; (4) a short
+    narrow anchor, so the band jumps at the anchor's end to reach
+    glen - 1; (5) glen = 1 under a wide anchor."""
+    kind = np.arange(n) % EDGE_KINDS
+    glen = rng.integers(max(1, G // 2), G + 1, n)
+    awid = rng.integers(1, 12, n)
+    alen = rng.integers(1, max(2, R // 2), n)
+    ay = rng.integers(-4, R, n)
+    ax = rng.integers(0, G, n)
+
+    def pick(k):
+        return np.nonzero(kind == k)[0]
+    k = pick(0)
+    ax[k] = glen[k] + rng.integers(0, 8, len(k))
+    k = pick(1)
+    ax[k] = -awid[k] - rng.integers(1, 8, len(k))
+    k = pick(2)
+    glen[k] = alen[k] = awid[k] = 1
+    ax[k] = ay[k] = 0
+    k = pick(3)
+    awid[k] = 1
+    ay[k] = rng.integers(0, max(1, R // 2), len(k))
+    ax[k] = (rng.random(len(k)) * np.maximum(glen[k] - alen[k], 1)).astype(
+        ax.dtype)
+    k = pick(4)
+    awid[k] = 2
+    alen[k] = rng.integers(1, 9, len(k))
+    ay[k] = rng.integers(R // 4, R // 2 + 1, len(k))
+    ax[k] = rng.integers(0, max(1, G // 4), len(k))
+    k = pick(5)
+    glen[k] = 1
+    awid[k] = rng.integers(8, 30, len(k))
+    return {name: v.astype(np.int32) for name, v in
+            (("glen", glen), ("ax", ax), ("ay", ay), ("alen", alen),
+             ("awid", awid))}

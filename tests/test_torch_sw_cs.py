@@ -24,6 +24,7 @@ from shrimp_tpu.core.sw_cs_jax import (sw_full_cs_tpu, sw_full_cs_tpu_pallas,
 from shrimp_tpu.core.sw_pallas import sw_vector_batch_pallas
 from shrimp_tpu_torch.core import sw_cs, sw_cs_full, sw_vector
 from shrimp_tpu_torch.core.sw import cat_word_plane
+from shrimp_tpu_torch.dataset import edge_bands
 from shrimp_tpu_torch.mapper import Mapper
 
 # gmapper-cs's default scores (constants.DEF_CS_*)
@@ -66,10 +67,14 @@ def _vec_cs_inputs(seed, B, G, R):
     return g, glen, r, rlen, g0
 
 
-def _dp_inputs(seed, B, G, R):
+def _dp_inputs(seed, B, G, R, edge=False):
     """4-layer DP inputs drawn as tests/test_cs_pallas.py draws them,
     with layers translated from colour reads that follow their window,
-    per-row crossovers from qualities, BASE_N cells and both strands."""
+    per-row crossovers from qualities, BASE_N cells and both strands.
+    `edge` gives the first quarter of the pairs the band geometries of
+    dataset.edge_bands (bands clipped to one column at either edge, pad
+    rows, awid = 1, a band that jumps at the anchor's end); crossovers
+    vary by row, so local mode's out-of-band values do too."""
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     colours = rng.integers(0, 4, (B, R)).astype(np.uint8)
@@ -82,7 +87,7 @@ def _dp_inputs(seed, B, G, R):
     colours[rng.random((B, R)) < 0.01] = C.BASE_N
     g[rng.random((B, G)) < 0.01] = C.BASE_N
     qr = cs_layers_batch(colours, initbp)
-    return dict(
+    a = dict(
         genome=g, glen=rng.integers(40, G + 1, B).astype(np.int32), qr=qr,
         rlen=rng.integers(R - 12, R + 1, B).astype(np.int32),
         ax=rng.integers(-4, 6, B).astype(np.int32),
@@ -93,6 +98,10 @@ def _dp_inputs(seed, B, G, R):
         xover=rng.integers(2 * XOVER, 0, (B, R)).astype(np.int32),
         gx=np.full(B, XOVER, np.int32),
         thresh=rng.integers(0, 200, B).astype(np.int32))
+    if edge:
+        a.update((k, np.concatenate([v, a[k][B // 4:]]))
+                 for k, v in edge_bands(rng, B // 4, G, R).items())
+    return a
 
 
 @pytest.mark.parametrize("G,R", [(32, 24), (64, 36)])
@@ -117,10 +126,12 @@ def test_sw_vector_cs_ref_matches_pallas_and_xla(G, R):
         sw_vector.sw_vector_batch(*_t(g, glen, r, rlen), cs_mode=True, **kw)
 
 
-@pytest.mark.parametrize("local,taboo", [(False, 0), (False, 4), (True, 0),
-                                         (True, 4)])
-def test_sw_full_cs_dp_ref_matches_pallas(local, taboo):
-    a = _dp_inputs(10 + 2 * local + taboo, 1024, 64, 36)
+@pytest.mark.parametrize("local,taboo,edge", [
+    pytest.param(local, taboo, edge,
+                 id=("edge-" if edge else "") + f"{local}-{taboo}")
+    for edge in (False, True) for local in (False, True) for taboo in (0, 4)])
+def test_sw_full_cs_dp_ref_matches_pallas(local, taboo, edge):
+    a = _dp_inputs(10 + 2 * local + taboo + 100 * edge, 1024, 64, 36, edge)
     args = [a[k] for k in _DP_ORDER]
     kw = dict(KW, local_alignment=local, indel_taboo_len=taboo)
     want = [np.asarray(x) for x in sw_full_cs_dp_pallas(
@@ -132,10 +143,11 @@ def test_sw_full_cs_dp_ref_matches_pallas(local, taboo):
         assert x.dtype == np.int32, name
         assert np.array_equal(x, w), name
     assert (got[0] > 100).sum() > 150
-    # the wrapper hands the kernels' [R, 4, G, B] int16 layout on
+    # the wrapper hands the backpointers on as int16 in the reference's
+    # [B, R, 4, G] layout
     *stats, bp = sw_cs_full.sw_full_cs_dp(*_t(*args), **kw)
-    assert bp.dtype == torch.int16 and bp.shape == (36, 4, 64, 1024)
-    assert np.array_equal(sw_cs_full.bp_ref_layout(bp).numpy(), want[5])
+    assert bp.dtype == torch.int16 and bp.shape == (1024, 36, 4, 64)
+    assert np.array_equal(bp.numpy(), want[5])
 
 
 @pytest.mark.parametrize("local,taboo", [(False, 4), (True, 0)])
@@ -244,7 +256,7 @@ def test_cs_wrappers_raise_off_cpu_without_kernel():
         sw_cs_full.sw_full_cs_dp(*t, **KW)
     s = [x.to("meta") for x in _t(a["genome"], a["qr"],
                                   *[np.zeros(8, np.int32)] * 5)]
-    bp = torch.zeros((36, 4, 64, 8), dtype=torch.int16, device="meta")
+    bp = torch.zeros((8, 36, 4, 64), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         sw_cs_full.cs_traceback(*s, bp, s[2])
     v = [x.to("meta") for x in _t(*_vec_cs_inputs(1, 8, 32, 16))]
@@ -258,7 +270,7 @@ def test_cuda_cs_kernels_match_plain(local, taboo):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    a = _dp_inputs(3, 2048, 64, 36)
+    a = _dp_inputs(3, 2048, 64, 36, edge=True)
     args = [torch.from_numpy(a[k]).to(dev) for k in _DP_ORDER]
     thresh = torch.from_numpy(a["thresh"]).to(dev)
     kw = dict(KW, local_alignment=local, indel_taboo_len=taboo)
@@ -268,7 +280,7 @@ def test_cuda_cs_kernels_match_plain(local, taboo):
     assert sw_cs_full.DP_LAUNCHES.n == n0 + 1
     for x, w in zip(got[:5], want[:5]):
         assert torch.equal(x, w)
-    assert torch.equal(sw_cs_full.bp_ref_layout(got[5]), want[5])
+    assert torch.equal(got[5].to(torch.int32), want[5])
     tb = (args[0], args[2], *got, thresh)
     for x, w in zip(sw_cs_full.cs_traceback(*tb),
                     sw_cs_full.cs_traceback_ref(*tb)):

@@ -23,6 +23,7 @@ from shrimp_tpu.core.sw_full_pallas import sw_full_batch_pallas
 from shrimp_tpu_torch.core import sw as port_sw
 from shrimp_tpu_torch.core import sw_full, sw_vector
 from shrimp_tpu_torch.core.sw import cat_word_plane
+from shrimp_tpu_torch.dataset import edge_bands
 from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
 from shrimp_tpu_torch.mapper import Mapper
 
@@ -40,9 +41,12 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _mk(seed, B=1024, G=32, R=16):
+def _mk(seed, B=1024, G=32, R=16, edge=False):
     """tests/test_full_pallas.py's inputs, plus reads copied from their
-    windows (with substitutions and a gap) so that long walks occur."""
+    windows (with substitutions and a gap) so that long walks occur.
+    `edge` gives the first quarter of the pairs the band geometries of
+    dataset.edge_bands (bands clipped to one column at either edge, pad
+    rows, awid = 1, a band that jumps at the anchor's end)."""
     rng = np.random.default_rng(seed)
     a = dict(
         genome=rng.integers(0, 5, (B, G)).astype(np.uint8),
@@ -63,6 +67,9 @@ def _mk(seed, B=1024, G=32, R=16):
             a["read"][k, cut:] = a["genome"][k, o + cut + 1:o + R + 1]
         a["ax"][k], a["ay"][k], a["alen"][k] = o, 0, R // 2
         a["glen"][k] = G
+    if edge:
+        for k, v in edge_bands(rng, B // 4, G, R).items():
+            a[k][:B // 4] = v
     return a
 
 
@@ -70,11 +77,49 @@ def _t(a):
     return [torch.from_numpy(np.ascontiguousarray(a[k])) for k in ORDER]
 
 
+def _bands(a, R):
+    """[n, R] clipped anchor_get_x_range bounds of the geometry `a`."""
+    i = np.arange(R)[None, :]
+    ax, ay, alen, awid, glen = (a[k].astype(np.int64)[:, None] for k in
+                                ("ax", "ay", "alen", "awid", "glen"))
+    x_min = np.where(i < ay, 0, np.where(i <= ay + alen - 1, ax + (i - ay),
+                                         ax + alen))
+    ay2 = ay - (awid - 1)
+    x_max = np.where(i < ay2, ax + awid - 2,
+                     np.where(i <= ay2 + alen - 1, ax + (awid - 1) + (i - ay2),
+                              glen - 1))
+    return (np.minimum(np.maximum(x_min, 0), glen - 1),
+            np.minimum(np.maximum(x_max, 0), glen - 1))
+
+
+@pytest.mark.parametrize("G,R", [(32, 16), (64, 24), (352, 256)])
+def test_edge_bands_reach_the_special_cases(G, R):
+    """dataset.edge_bands gives the bands the banded kernels special-case:
+    one-column bands at the last column and at column 0, pad rows, awid =
+    1, a band that widens in one step at the anchor's end, glen = 1."""
+    e = edge_bands(np.random.default_rng(G), 96, G, R)
+    x_min, x_max = _bands(e, R)
+    one = x_min == x_max
+    k = np.arange(96) % 6
+    glen = e["glen"][:, None]
+    assert (one & (x_min == glen - 1) & (glen > 1))[k == 0].any()
+    assert (one & (x_min == 0) & (glen > 1))[k == 1].any()
+    assert (e["glen"][k == 2] == 1).all() and (e["awid"][k == 2] == 1).all()
+    assert (e["awid"][k == 3] == 1).all()
+    jump = np.diff(x_max, axis=1) > 1
+    assert jump[k == 4].any(axis=1).all()
+    assert (x_max[k == 5] == 0).all()
+    assert ((x_min >= 0) & (x_max < G) & (x_min <= x_max)).all()
+
+
 @pytest.mark.parametrize("local", [False, True])
-@pytest.mark.parametrize("seed,G,R", [(1, 32, 16), (2, 32, 16),
-                                      (1, 64, 24), (2, 64, 24)])
-def test_sw_full_bp_ref_matches_pallas(local, seed, G, R):
-    a = _mk(seed, 1024, G, R)
+@pytest.mark.parametrize("seed,G,R,edge", [
+    pytest.param(seed, G, R, edge,
+                 id=("edge-" if edge else "") + f"{seed}-{G}-{R}")
+    for edge in (False, True) for seed, G, R in ((1, 32, 16), (2, 32, 16),
+                                                 (1, 64, 24), (2, 64, 24))])
+def test_sw_full_bp_ref_matches_pallas(local, seed, G, R, edge):
+    a = _mk(seed, 1024, G, R, edge)
     want = [np.asarray(x) for x in sw_full_batch_pallas(
         *[a[k] for k in ORDER], local_alignment=local, interpret=True,
         **KW)]
@@ -197,7 +242,7 @@ def test_cuda_long_kernels_match_plain(B, R, G):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    a = _mk(G + R, B, G, R)
+    a = _mk(G + R, B, G, R, edge=True)
     t = [x.to(dev) for x in _t(a)]
     assert torch.equal(sw_vector.sw_vector_batch(*t[:4], **KW),
                        sw_vector.sw_vector_batch_ref(*t[:4], **KW))
