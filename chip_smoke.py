@@ -7,23 +7,30 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 2. The build: compiles the CUDA kernels under shrimp_tpu_torch/csrc/
    (nvcc, sm_90a) and prints the build time and ptxas's register and
    spill report.
-3. Each kernel against its plain PyTorch version on the card, on seeded
-   random inputs at the main path's chunk (B = 8192) with G = 64 and
-   G = 256, R = 40: outputs must be bit-equal (tolerance 0; all
-   integer). Times both with CUDA events.
+3. The vector SW and the full-SW stats kernel against their plain
+   PyTorch versions on the card, on seeded random inputs at the main
+   path's chunk (B = 8192) with G = 64, 128 and 256 (the stats flow's
+   buckets), R = 40, global and local, with revcmpl rows, pad rows and
+   the edge bands of dataset.edge_bands: outputs must be bit-equal
+   (tolerance 0; all integer). Prints the stats kernel's launch
+   configuration. Times kernel and plain with CUDA events, and the
+   stats kernel's bound at each G.
 4. The packed device step (core/sw.py) on CUDA tensors against the same
    call on CPU tensors: [B, 3] rows bit-equal.
 5. The letter-space slice: bench.py's E. coli-scale workload (seed
    20260816, 4.6 Mbp genome, 36 bp reads) mapped to SAM on the card
    through fastpath.map_unpaired_sam_stream; both kernels' launch
    counters must rise; the SAM bytes must equal the port's CPU run on
-   the same reads.
+   the same reads. The geometry of the first launch of one more batch,
+   recorded where the flow calls the stats kernel's wrapper, gives its
+   in-band share and bound on the flow's own bands.
 6. The colour-space kernels (CS-mode vector SW, the 4-layer DP, the
    traceback) against their plain versions on the card, at B = 2048 and
    8192, G = 64 and 128, R = 36, global and local, taboo 0 and 4, with
    revcmpl rows, BASE_N cells, pad rows and the edge bands of
    dataset.edge_bands: bit-equal (tolerance 0). Prints the 4-layer DP's
-   launch configuration. Times kernel and plain with CUDA events.
+   launch configuration and its bound at each shape. Times kernel and
+   plain with CUDA events.
 7. The fused colour-space step (core/sw_cs.py) on CUDA tensors against
    the same call on CPU tensors, on a synthetic plane with windows at
    both ends of both strands: all three outputs bit-equal.
@@ -39,9 +46,13 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    backpointers, the traceback) against their plain versions on the
    card at the 250 bp launch (B, R, G) = (4096, 256, 352) and the
    1000 bp one (256, 1000, 1408), global and local, with revcmpl rows,
-   BASE_N cells, pad rows and the edge bands of dataset.edge_bands:
-   bit-equal (tolerance 0). Prints the full SW's launch configuration.
-   Times kernel and plain with CUDA events.
+   BASE_N cells, pad rows, the edge bands of dataset.edge_bands and
+   pairs with one long insertion or deletion (walks that cross several
+   of the traceback's tiles, through their left side too): bit-equal
+   (tolerance 0); the full SW also at G = 360, whose backpointer rows
+   leave in byte stores. The traceback refuses G = 360 and unaligned
+   backpointers. Prints the launch configuration of the full SW and
+   of the traceback. Times kernel and plain with CUDA events.
 10. The fused traceback step (core/sw.py) on CUDA tensors against the
    same call on CPU tensors, on a synthetic plane with windows at both
    ends of both strands: all three outputs bit-equal.
@@ -50,10 +61,11 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fastpath.map_unpaired_sam_stream, which takes the traceback flow;
    its three launch counters must rise, at least 95 % of reads must
    map, and the SAM bytes of the first LONG_CPU_READS reads must equal
-   the port's CPU run on them. The geometry of the first launch of one
-   more batch, recorded where the flow calls the wrapper, gives the
-   in-band share and bound of the full SW with backpointers on the
-   flow's own bands.
+   the port's CPU run on them. The first launch of one more batch,
+   recorded where the flow calls each wrapper, gives the in-band share
+   and bound of the full SW with backpointers on the flow's own bands,
+   and the traceback's time, bound and walk lengths on the flow's own
+   walks beside the test pairs'.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. Any failure raises, so the exit code is non-zero and
@@ -74,6 +86,8 @@ import torch
 
 B_CHUNK = 8192          # mapper.FULL_BATCH: rows per fused launch
 N_READS = 100_000
+# (G, R) of the stats flow's buckets at phase 3 (G = 64: 36 bp reads)
+STATS_SHAPES = ((64, 40), (128, 40), (256, 40))
 KW = dict(match=10, mismatch=-15, a_gap_open=-40, a_gap_ext=-7,
           b_gap_open=-40, b_gap_ext=-7)
 # colour space: gmapper-cs's default scores and crossover; the main
@@ -139,22 +153,11 @@ def _bound(nbytes: float, ops: float, ops_all: float) -> dict:
 def _band_cells(a, nrows) -> int:
     """In-band DP cells of the pairs in `a` (numpy arrays) over rows
     i < nrows (per pair), with the kernels' band (anchor_get_x_range)."""
-    ax, ay, alen, awid, glen = (a[k].astype(np.int64) for k in
-                                ("ax", "ay", "alen", "awid", "glen"))
+    from shrimp_tpu_torch.dataset import bands
     nrows = np.asarray(nrows, np.int64)
-    ay2 = ay - (awid - 1)
-    total = 0
-    for i in range(int(nrows.max())):
-        x_min = np.where(i < ay, 0, np.where(i <= ay + alen - 1,
-                                             ax + (i - ay), ax + alen))
-        x_max = np.where(i < ay2, ax + awid - 2,
-                         np.where(i <= ay2 + alen - 1,
-                                  ax + (awid - 1) + (i - ay2), glen - 1))
-        x_min = np.clip(x_min, 0, glen - 1)
-        x_max = np.clip(x_max, 0, glen - 1)
-        total += int(np.where(i < nrows, np.maximum(x_max - x_min + 1, 0),
-                              0).sum())
-    return total
+    x_min, x_max = bands(a, max(int(nrows.max()), 0))
+    live = np.arange(x_min.shape[1])[None, :] < nrows[:, None]
+    return int(np.where(live, np.maximum(x_max - x_min + 1, 0), 0).sum())
 
 
 def _with_edge_bands(a, rng, lo, n, G, R):
@@ -170,12 +173,13 @@ def _print_launch_config(name, entry, *args):
     point `entry` (occupancy from the CUDA runtime)."""
     from shrimp_tpu_torch import _build
     c = _build.launch_config(entry, *args)
+    warps = (c["blocks_per_sm"] * c["pairs_per_block"]
+             * c["threads_per_pair"] // 32)
     print(f"{name} launch {args}: {c['pairs_per_block']} pairs per block, "
           f"{c['threads_per_pair']} threads per pair, {c['smem_bytes']} B "
           f"dynamic shared memory per block, {c['blocks_per_sm']} resident "
-          f"blocks per SM ({c['blocks_per_sm'] * c['pairs_per_block']} "
-          f"warps), {c['registers']} registers and {c['local_bytes']} B "
-          f"local memory per thread")
+          f"blocks per SM ({warps} warps), {c['registers']} registers and "
+          f"{c['local_bytes']} B local memory per thread")
 
 
 def _cs_dp_bytes(B, R, G) -> int:
@@ -190,26 +194,36 @@ def _bp_bytes(B, R, G) -> int:
     return B * (G + R + 28 + 16) + B * R * G
 
 
-def _first_launch(m, reads, stream, module, fn):
-    """The band geometry (numpy glen, rlen, ax, ay, alen, awid) and
-    (B, R, G) of the first launch that one batch of `reads` makes through
-    `stream`: the arguments the flow passes to the DP wrapper
-    `module.<fn>` (genome [B, G], glen, read [B, (4,) R], rlen, ax, ay,
-    alen, awid, ...), pad rows included, copied to the host."""
+def _first_call(m, reads, stream, module, fn):
+    """The tensor arguments (copies) of the first call that one batch of
+    `reads` makes through `stream` to the kernel wrapper `module.<fn>`
+    (module: where the flow looks the wrapper up)."""
     from shrimp_tpu_torch.fastpath import auto_batch_size
     wrapper = getattr(module, fn)
     seen = []
 
     def record(*args, **kw):
         if not seen:
-            seen.append([x.cpu().numpy() for x in args[:8]])
+            seen.append([x.clone() for x in args
+                         if isinstance(x, torch.Tensor)])
         return wrapper(*args, **kw)
     setattr(module, fn, record)
     try:
         _map(m, reads[:auto_batch_size(m)], stream)
     finally:
         setattr(module, fn, wrapper)
-    genome, glen, read, rlen, ax, ay, alen, awid = seen[0]
+    return seen[0]
+
+
+def _first_launch(m, reads, stream, module, fn):
+    """The band geometry (numpy glen, rlen, ax, ay, alen, awid) and
+    (B, R, G) of the first launch that one batch of `reads` makes through
+    `stream`: the arguments the flow passes to the DP wrapper
+    `module.<fn>` (genome [B, G], glen, read [B, (4,) R], rlen, ax, ay,
+    alen, awid, ...), pad rows included, copied to the host."""
+    genome, glen, read, rlen, ax, ay, alen, awid = (
+        x.cpu().numpy() for x in _first_call(m, reads, stream, module,
+                                             fn)[:8])
     a = dict(glen=glen, rlen=rlen, ax=ax, ay=ay, alen=alen, awid=awid)
     return a, genome.shape[0], read.shape[-1], genome.shape[1]
 
@@ -231,6 +245,24 @@ def _print_flow_bound(name, m, reads, stream, module, fn, test_bound,
           f"R x G cells; bound {b['bound_ms']!r} ms ({b['bound_by']}; all "
           f"cells {b['bound_all_ms']!r} ms); test pairs' bound "
           f"{test_bound!r} ms")
+
+
+def _walks(steps) -> str:
+    """The distribution of a traceback launch's walk lengths (int
+    tensor of steps per pair)."""
+    q = [float(x) for x in np.percentile(steps.cpu().numpy(), (50, 90, 99))]
+    return (f"{int(steps.sum())} steps over {steps.numel()} walks, median "
+            f"{q[0]!r}, p90 {q[1]!r}, p99 {q[2]!r}, longest "
+            f"{int(steps.max())}")
+
+
+def _tb_bound(steps, B, R, G) -> dict:
+    """The traceback's bound over the steps its walks take: the walked
+    backpointer, window and read bytes and 4 int32 in; 10 int32 and the
+    op bytes of each pair out."""
+    n = int(steps.sum())
+    return _bound(3 * n + B * (16 + 40 + (R + G + 3) // 4),
+                  OPS["ls_traceback"] * n, OPS["ls_traceback"] * B * (R + G))
 
 
 def _vector_bound(a, B, G, R, cs=False) -> dict:
@@ -268,13 +300,23 @@ def _pairs(rng, B, G, R):
             for k, v in a.items()}
 
 
+def _stats_bytes(B, R, G) -> int:
+    """Full-SW stats: windows, reads and 7 int32 per pair in; 8 int32
+    out."""
+    return B * (G + R + 28 + 32)
+
+
 def check_kernels(dev):
     """Phase 3: kernels vs plain versions on the card."""
     from shrimp_tpu_torch.core import sw_full, sw_vector
     rec = {"sw_vector": dict(err=0), "sw_full_stats": dict(err=0)}
     rng = np.random.default_rng(20261016)
-    for G, R in ((64, 40), (256, 40)):
+    for G, R in STATS_SHAPES:
+        _print_launch_config("sw_full_stats", "sw_full_stats_config",
+                             B_CHUNK, G, R)
+    for G, R in STATS_SHAPES:
         a = _pairs(rng, B_CHUNK, G, R)
+        _with_edge_bands(a, rng, 256, B_CHUNK // 16, G, R)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
         full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
@@ -306,19 +348,21 @@ def check_kernels(dev):
                 _time_ms(lambda: sw_full.sw_full_stats(*full, **KW)),
                 _time_ms(lambda: sw_full.sw_full_stats_ref(*full, **KW),
                          reps=5)))
-        for name, (k_ms, p_ms) in times.items():
-            print(f"{name} B={B_CHUNK} G={G} R={R}: kernel {k_ms!r} ms, "
-                  f"plain {p_ms!r} ms")
-            if G == 64:     # the main path's shape
-                rec[name].update(ms=k_ms, plain_ms=p_ms)
-        if G == 64:
-            rec["sw_vector"].update(_vector_bound(a, B_CHUNK, G, R))
-            # in: windows, reads, 7 int32 per pair; out: 8 int32
-            rec["sw_full_stats"].update(_bound(
-                B_CHUNK * (G + R + 28 + 32),
+        bounds = dict(
+            sw_vector=_vector_bound(a, B_CHUNK, G, R),
+            sw_full_stats=_bound(
+                _stats_bytes(B_CHUNK, R, G),
                 OPS["sw_full_stats"]
                 * _band_cells(a, np.minimum(a["rlen"], R)),
                 OPS["sw_full_stats"] * B_CHUNK * R * G))
+        for name, (k_ms, p_ms) in times.items():
+            b = bounds[name]
+            print(f"{name} B={B_CHUNK} G={G} R={R}: kernel {k_ms!r} ms, "
+                  f"plain {p_ms!r} ms, bound {b['bound_ms']!r} ms "
+                  f"({b['bound_by']}; all R x G cells: "
+                  f"{b['bound_all_ms']!r} ms)")
+            if G == 64:     # the main path's shape
+                rec[name].update(ms=k_ms, plain_ms=p_ms, **b)
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -426,7 +470,7 @@ def _device_busy_share(m, reads, stream=_ls_stream) -> str:
             + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top))
 
 
-def run_slice(dev, counters):
+def run_slice(dev, counters, test_bound):
     """Phase 5: bench.py's workload through the port's entry point."""
     from shrimp_tpu_torch.dataset import ecoli_unpaired_ls
     t0 = time.perf_counter()
@@ -463,6 +507,9 @@ def run_slice(dev, counters):
                              "unmapped")
     print("device busy share (profiled run on the first 32768 reads): "
           + _device_busy_share(_mapper(idx, dev), reads[:4 * B_CHUNK]))
+    from shrimp_tpu_torch.core import sw
+    _print_flow_bound("sw_full_stats", m, reads, _ls_stream, sw,
+                      "sw_full_stats", test_bound, _stats_bytes, True)
     sam_cpu, secs_cpu = _map(_mapper(idx, "cpu"), reads)
     print(f"slice on cpu (plain versions): {secs_cpu!r} s; SAM identical "
           f"to the CUDA run: {sam_cpu == sam}")
@@ -603,13 +650,17 @@ def check_cs_kernels(dev):
                       f"plain {p_ms!r} ms")
                 if (B, G) == (CS_B_MAIN, CS_G_MAIN):   # the main path's
                     rec[name].update(ms=k_ms, plain_ms=p_ms)
+            dp_bound = _bound(
+                _cs_dp_bytes(B, R, G), OPS["sw_cs_full"]
+                * _band_cells(an, np.minimum(an["rlen"], R)),
+                OPS["sw_cs_full"] * B * R * G)
+            print(f"sw_cs_full B={B} G={G} R={R}: bound "
+                  f"{dp_bound['bound_ms']!r} ms ({dp_bound['bound_by']}; "
+                  f"all R x G cells: {dp_bound['bound_all_ms']!r} ms)")
             if (B, G) == (CS_B_MAIN, CS_G_MAIN):
                 rec["sw_vector_cs"].update(_vector_bound(vn, B, G, R,
                                                          cs=True))
-                rec["sw_cs_full"].update(_bound(
-                    _cs_dp_bytes(B, R, G), OPS["sw_cs_full"]
-                    * _band_cells(an, np.minimum(an["rlen"], R)),
-                    OPS["sw_cs_full"] * B * R * G))
+                rec["sw_cs_full"].update(dp_bound)
                 steps = int((sw_cs_full.cs_traceback(*tb)[1] != 0).sum())
                 # the walked backpointer, window and read bytes; out:
                 # [12] int16 and R + G step bytes per pair
@@ -787,6 +838,17 @@ def _long_pairs(rng, B, G, R):
             for k, v in a.items()}
 
 
+def _with_long_gaps(a, rng, lo, n):
+    """Rows [lo, lo + n) of the long pairs `a` take the reads and band
+    geometries of dataset.long_gaps: one gap of 33 to 120 columns each,
+    so that the traceback's walks cross several tiles and leave them
+    through their left side too."""
+    from shrimp_tpu_torch.dataset import long_gaps
+    R = a["read"].shape[1]
+    for k, v in long_gaps(rng, a["genome"][lo:lo + n], R).items():
+        a[k][lo:lo + n] = v
+
+
 def check_long_kernels(dev):
     """Phase 9: the long-read kernels vs their plain versions on the
     card, at the 250 bp and the 1000 bp launch shapes."""
@@ -796,7 +858,10 @@ def check_long_kernels(dev):
     rng = np.random.default_rng(20261018)
     for B, R, G in LONG_SHAPES:
         _print_launch_config("sw_full_bp", "sw_full_bp_config", B, G, R)
+        _print_launch_config("ls_traceback", "ls_traceback_config", B, G, R)
+    for B, R, G in LONG_SHAPES:
         a = _long_pairs(rng, B, G, R)
+        _with_long_gaps(a, rng, B // 2, B // 8)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
         full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
@@ -806,7 +871,6 @@ def check_long_kernels(dev):
         err = _err([got], [sw_vector.sw_vector_batch_ref(*v4, **KW)])
         rec["sw_vector_g352"]["err"] = max(rec["sw_vector_g352"]["err"], err)
         print(f"sw_vector B={B} G={G} R={R}: max |kernel - plain| = {err}")
-        steps = 0
         for local in (False, True):
             got = sw_full.sw_full_bp(*full, local_alignment=local, **KW)
             torch.cuda.synchronize()
@@ -823,12 +887,13 @@ def check_long_kernels(dev):
                                              err_tb)
             pk = want_tb[0]
             if not local:
-                steps = int(pk[:, 3].sum())
+                steps = pk[:, 3]
             print(f"sw_full_bp B={B} G={G} R={R} local={local}: max |kernel "
                   f"- plain| = {err}; ls_traceback: {err_tb} (rows with "
                   f"score > 0: {int((pk[:, 0] > 0).sum())}, with indels "
-                  f"{int(((pk[:, 8] + pk[:, 9]) > 0).sum())}, walk steps "
-                  f"{int(pk[:, 3].sum())})")
+                  f"{int(((pk[:, 8] + pk[:, 9]) > 0).sum())}, with a gap "
+                  f"over 32: {int(((pk[:, 8] > 32) | (pk[:, 9] > 32)).sum())}"
+                  f", walk steps {int(pk[:, 3].sum())})")
             del want, tb
         # times at the main path's mode: global
         want = sw_full.sw_full_bp(*full, **KW)
@@ -846,18 +911,13 @@ def check_long_kernels(dev):
                 _time_ms(lambda: sw_full.traceback_pack(*tb), reps=10),
                 _time_ms(lambda: sw_full.traceback_pack_ref(*tb), reps=2)))
         del want, tb
-        W = (R + G + 3) // 4
         bounds = dict(
             sw_vector_g352=_vector_bound(a, B, G, R),
             sw_full_bp=_bound(
                 _bp_bytes(B, R, G),
                 OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
                 OPS["sw_full_bp"] * B * R * G),
-            # the walked backpointer, window and read bytes, 4 int32 in;
-            # out: 10 int32 and W op bytes per pair
-            ls_traceback=_bound(3 * steps + B * (16 + 40 + W),
-                                OPS["ls_traceback"] * steps,
-                                OPS["ls_traceback"] * B * (R + G)))
+            ls_traceback=_tb_bound(steps, B, R, G))
         for name, (k_ms, p_ms) in times.items():
             print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms, plain "
                   f"{p_ms!r} ms, bound {bounds[name]['bound_ms']!r} ms "
@@ -865,13 +925,70 @@ def check_long_kernels(dev):
                   f"{bounds[name]['bound_all_ms']!r} ms)")
             if (B, R, G) == LONG_SHAPES[0]:     # the main path's shape
                 rec[name].update(ms=k_ms, plain_ms=p_ms, **bounds[name])
+        walks = _walks(steps)
+        print(f"ls_traceback B={B} G={G} R={R}, the test pairs' global "
+              f"walks: {walks}")
+        if (B, R, G) == LONG_SHAPES[0]:
+            rec["ls_traceback"]["walks"] = walks
         del t, full, v4
         torch.cuda.empty_cache()
+    # the full SW's byte stores of a backpointer row: G not a multiple of
+    # 16 (the flows' windows are multiples of 32)
+    B, R, G = 256, 256, 360
+    t = {k: torch.from_numpy(v).to(dev)
+         for k, v in _long_pairs(rng, B, G, R).items()}
+    full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax", "ay",
+                                "alen", "awid", "revcmpl"))
+    for local in (False, True):
+        got = sw_full.sw_full_bp(*full, local_alignment=local, **KW)
+        torch.cuda.synchronize()
+        err = _err(got, sw_full.sw_full_bp_ref(*full, local_alignment=local,
+                                               **KW))
+        rec["sw_full_bp"]["err"] = max(rec["sw_full_bp"]["err"], err)
+        print(f"sw_full_bp B={B} G={G} R={R} local={local}: max |kernel - "
+              f"plain| = {err}")
+    del t, full, got
+    _check_tb_refuses(dev)
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max abs err {r['err']})")
     return rec
+
+
+def _check_tb_refuses(dev):
+    """The traceback's C entry point refuses what its 16-byte tile loads
+    cannot take: G = 360 (not a multiple of 16), and backpointers one
+    byte off a 16-byte boundary; the wrapper raises before it."""
+    from shrimp_tpu_torch import _build
+    from shrimp_tpu_torch.core import sw_full
+    lib = _build.load().lib
+    B, R = 64, 256
+    stream = torch.cuda.current_stream().cuda_stream
+    for G, off in ((360, 0), (352, 1)):
+        buf = torch.zeros(B * R * G + 16, dtype=torch.uint8, device=dev)
+        bp = buf[off:off + B * R * G].view(B, R, G)
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        g = torch.zeros((B, G), dtype=torch.uint8, device=dev)
+        r = torch.zeros((B, R), dtype=torch.uint8, device=dev)
+        packed = torch.empty((B, 10), dtype=torch.int32, device=dev)
+        ops = torch.empty((B, (R + G + 3) // 4), dtype=torch.uint8,
+                          device=dev)
+        rc = lib.ls_traceback_launch(
+            g.data_ptr(), r.data_ptr(), z.data_ptr(), z.data_ptr(),
+            z.data_ptr(), z.data_ptr(), bp.data_ptr(), packed.data_ptr(),
+            ops.data_ptr(), B, G, R, stream)
+        try:
+            sw_full.traceback_pack(g, r, z, z, z, z, bp)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        print(f"ls_traceback G={G}, bp offset {off} B: launch returns "
+              f"cudaError {rc}, the wrapper raises: {raised}")
+        if rc != 1 or not raised:     # cudaErrorInvalidValue
+            raise AssertionError("ls_traceback: an input its tile loads "
+                                 "cannot take was not refused")
+    torch.cuda.synchronize()
 
 
 def check_tb_packed_step(dev):
@@ -927,7 +1044,7 @@ def check_tb_packed_step(dev):
         raise AssertionError("traceback step: CUDA and CPU outputs differ")
 
 
-def run_long_slice(dev, counters, test_bound):
+def run_long_slice(dev, counters, test_bound, test_walks):
     """Phase 11: 250 bp reads through the port's entry point, which takes
     the traceback flow."""
     from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
@@ -972,6 +1089,18 @@ def run_long_slice(dev, counters, test_bound):
     from shrimp_tpu_torch.core import sw
     _print_flow_bound("sw_full_bp", m, reads, _ls_stream, sw, "sw_full_bp",
                       test_bound, _bp_bytes, False)
+    # the traceback on the flow's own first launch: its walks, time and
+    # bound
+    from shrimp_tpu_torch.core import sw_full
+    tb = _first_call(m, reads, _ls_stream, sw, "traceback_pack")
+    B, R, G = tb[-1].shape
+    steps = sw_full.traceback_pack(*tb)[0][:, 3]
+    b = _tb_bound(steps, B, R, G)
+    print(f"ls_traceback on the flow's first launch (B, R, G) = ({B}, {R}, "
+          f"{G}): kernel {_time_ms(lambda: sw_full.traceback_pack(*tb), 10)!r}"
+          f" ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); walks: "
+          f"{_walks(steps)}; the test pairs' walks: {test_walks}")
+    del tb, steps
     first = reads[:LONG_CPU_READS]
 
     def stream(mm, rr):
@@ -1017,7 +1146,8 @@ def main() -> None:
     rec = check_kernels(dev)
     check_packed_step(dev)
     launches = run_slice(dev, {"sw_vector": sw_vector.LAUNCHES,
-                               "sw_full_stats": sw_full.LAUNCHES})
+                               "sw_full_stats": sw_full.LAUNCHES},
+                         rec["sw_full_stats"]["bound_ms"])
     rec.update(check_cs_kernels(dev))
     check_cs_packed_step(dev)
     launches.update(run_cs_slice(dev, {
@@ -1031,7 +1161,7 @@ def main() -> None:
         "sw_vector_g352": sw_vector.LAUNCHES,
         "sw_full_bp": sw_full.BP_LAUNCHES,
         "ls_traceback": sw_full.TB_LAUNCHES},
-        rec["sw_full_bp"]["bound_ms"]))
+        rec["sw_full_bp"]["bound_ms"], rec["ls_traceback"]["walks"]))
 
     kernels = [
         dict(name=name, route="cuda", source=f"shrimp_tpu_torch/csrc/{src}",

@@ -1,0 +1,282 @@
+#!/usr/bin/env python3
+"""A/B timing of three of shrimp_tpu_torch's CUDA kernels against other
+builds of the same entry points, on one NVIDIA GPU: the full-SW stats
+kernel (csrc/sw_full.cu), the full SW with backpointers
+(csrc/sw_full_bp.cu) and the long-read traceback (csrc/ls_traceback.cu).
+
+Run from the repository root:
+
+    python3 kernel_ab.py [--src NAME=DIR ...] [--scaling]
+
+It builds, with nvcc for sm_90a (shrimp_tpu_torch._build.build: one
+process per library, all started together), the package's three
+sources ("new") and those of each --src DIR (a directory holding the
+three sources and the headers they include: a parent commit's
+`shrimp_tpu_torch/csrc` unpacked with `git archive`, or an edited copy
+of the package's, under a gitignored directory such as `build/`). On
+seeded inputs from chip_smoke.py's generators (edge bands, pad rows,
+revcmpl rows, long gaps) at the main paths' shapes and the extra ones,
+every build's output must equal the plain PyTorch version bit for bit,
+global and local; then the builds are timed in turns (A B ... B A) with
+CUDA events, global mode. The traceback is also timed on the long-read
+flow's own first launch (8192 reads of dataset.ecoli_unpaired_ls_long,
+recorded where the flow calls the wrapper). Prints one line per kernel,
+shape and build, the card's name and power limit, and a JSON line of
+every time.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SOURCES = ("sw_full.cu", "sw_full_bp.cu", "ls_traceback.cu")
+STATS_SHAPES = ((8192, 40, 64), (8192, 40, 128), (8192, 40, 256))
+LONG_SHAPES = ((4096, 256, 352), (256, 1000, 1408))
+# pairs per launch of --scaling, below the main shapes' B
+SCALING_N = (1, 132, 1056)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _stats_call(lib, full, out, local, kw):
+    B, G = full[0].shape
+    R = full[2].shape[1]
+    rc = lib.sw_full_stats_launch(
+        *(x.data_ptr() for x in full), out.data_ptr(), B, G, R,
+        kw["match"], kw["mismatch"], -kw["a_gap_open"], -kw["a_gap_ext"],
+        -kw["b_gap_open"], -kw["b_gap_ext"], int(local), _stream())
+    if rc != 0:
+        raise RuntimeError(f"sw_full_stats_launch: cudaError {rc}")
+
+
+def _bp_call(lib, full, st, bp, local, kw):
+    B, G = full[0].shape
+    R = full[2].shape[1]
+    rc = lib.sw_full_bp_launch(
+        *(x.data_ptr() for x in full), st.data_ptr(), bp.data_ptr(), B, G,
+        R, kw["match"], kw["mismatch"], -kw["a_gap_open"],
+        -kw["a_gap_ext"], -kw["b_gap_open"], -kw["b_gap_ext"], int(local),
+        _stream())
+    if rc != 0:
+        raise RuntimeError(f"sw_full_bp_launch: cudaError {rc}")
+
+
+def _tb_call(lib, tb, packed, ops):
+    B, R, G = tb[-1].shape
+    rc = lib.ls_traceback_launch(*(x.data_ptr() for x in tb),
+                                 packed.data_ptr(), ops.data_ptr(), B, G, R,
+                                 _stream())
+    if rc != 0:
+        raise RuntimeError(f"ls_traceback_launch: cudaError {rc}")
+
+
+def _turns(libs, fn, reps):
+    """{build: [ms, ms]}: each build timed twice, in the order A B .. B A."""
+    import chip_smoke as cs
+    names = list(libs)
+    t = {n: [] for n in names}
+    for n in names + names[::-1]:
+        t[n].append(cs._time_ms(lambda: fn(libs[n]), reps=reps))
+    return t
+
+
+def _report(kernel, shape, t, rec):
+    for n, ms in t.items():
+        mean = sum(ms) / len(ms)
+        print(f"{kernel} {shape} {n}: {mean!r} ms (turns {ms[0]!r}, "
+              f"{ms[1]!r})")
+        rec.append(dict(kernel=kernel, shape=list(shape), build=n, ms=mean,
+                        turns=ms))
+
+
+def _full(a, dev):
+    t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+    return t, tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
+                                   "ay", "alen", "awid", "revcmpl"))
+
+
+def ab_stats(dev, libs, rec, scaling):
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw_full
+    rng = np.random.default_rng(20261019)
+    for B, R, G in STATS_SHAPES:
+        a = cs._pairs(rng, B, G, R)
+        cs._with_edge_bands(a, rng, 256, B // 16, G, R)
+        _, full = _full(a, dev)
+        out = torch.empty((B, 8), dtype=torch.int32, device=dev)
+        for local in (False, True):
+            want = sw_full.sw_full_stats_ref(*full, local_alignment=local,
+                                             **cs.KW)
+            for n, lib in libs.items():
+                out.fill_(-7)
+                _stats_call(lib, full, out, local, cs.KW)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    bad = int((out != want).any(1).sum())
+                    raise AssertionError(f"sw_full_stats {n} {(B, R, G)} "
+                                         f"local={local}: {bad} rows differ")
+        print(f"sw_full_stats {(B, R, G)}: every build equals the plain "
+              f"version, global and local")
+        _report("sw_full_stats", (B, R, G), _turns(
+            libs, lambda lib: _stats_call(lib, full, out, False, cs.KW),
+            20), rec)
+        if scaling and G == 64:
+            # n pairs past the pad rows: the time of one pair's rows is
+            # the latency floor; the full launch adds the throughput
+            for n in SCALING_N:
+                sub = tuple(x[256:256 + n] for x in full)
+                _report(f"sw_full_stats[{n} pairs]", (n, R, G), _turns(
+                    libs, lambda lib: _stats_call(lib, sub, out, False,
+                                                  cs.KW), 20), rec)
+
+
+def ab_long(dev, libs, rec, scaling):
+    """sw_full_bp and the traceback at the long-read shapes."""
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw_full
+    rng = np.random.default_rng(20261020)
+    for B, R, G in LONG_SHAPES:
+        a = cs._long_pairs(rng, B, G, R)
+        cs._with_long_gaps(a, rng, B // 2, B // 8)
+        t, full = _full(a, dev)
+        W = (R + G + 3) // 4
+        st = torch.empty((4, B), dtype=torch.int32, device=dev)
+        bp = torch.empty((B, R, G), dtype=torch.uint8, device=dev)
+        packed = torch.empty((B, 10), dtype=torch.int32, device=dev)
+        ops = torch.empty((B, W), dtype=torch.uint8, device=dev)
+        for local in (True, False):     # global last: it is timed
+            want = sw_full.sw_full_bp_ref(*full, local_alignment=local,
+                                          **cs.KW)
+            for n, lib in libs.items():
+                st.fill_(-7)
+                bp.fill_(0xEE)
+                _bp_call(lib, full, st, bp, local, cs.KW)
+                torch.cuda.synchronize()
+                if not (torch.equal(st, torch.stack(want[:4]))
+                        and torch.equal(bp, want[4])):
+                    raise AssertionError(f"sw_full_bp {n} {(B, R, G)} "
+                                         f"local={local}: differs")
+            tb = (t["genome"], t["read"], *want)
+            want_tb = sw_full.traceback_pack_ref(*tb)
+            for n, lib in libs.items():
+                packed.fill_(-7)
+                ops.fill_(0xEE)
+                _tb_call(lib, tb, packed, ops)
+                torch.cuda.synchronize()
+                if not (torch.equal(packed, want_tb[0])
+                        and torch.equal(ops, want_tb[1])):
+                    raise AssertionError(f"ls_traceback {n} {(B, R, G)} "
+                                         f"local={local}: differs")
+            del want
+        pk = want_tb[0]
+        print(f"sw_full_bp and ls_traceback {(B, R, G)}: every build equals "
+              f"the plain version, global and local; global walks: "
+              f"{cs._walks(pk[:, 3])}, most insertions "
+              f"{int(pk[:, 8].max())}, most deletions {int(pk[:, 9].max())}")
+        _report("sw_full_bp", (B, R, G), _turns(
+            libs, lambda lib: _bp_call(lib, full, st, bp, False, cs.KW),
+            10), rec)
+        _report("ls_traceback", (B, R, G), _turns(
+            libs, lambda lib: _tb_call(lib, tb, packed, ops), 10), rec)
+        if scaling and (B, R, G) == LONG_SHAPES[0]:
+            # the n pairs with the longest walks: one walk is the latency
+            # floor; the full launch adds the throughput
+            order = torch.argsort(pk[:, 3], descending=True)
+            for n in SCALING_N:
+                sub = tuple(x.index_select(0, order[:n]).contiguous()
+                            for x in tb)
+                _report(f"ls_traceback[{n} longest walks]", (n, R, G),
+                        _turns(libs, lambda lib: _tb_call(
+                            lib, sub, packed, ops), 10), rec)
+                del sub
+        del tb, want_tb, t, full, st, bp
+        torch.cuda.empty_cache()
+
+
+def ab_flow_traceback(dev, libs, rec):
+    """The traceback on the long-read flow's own first launch."""
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw, sw_full
+    from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
+    idx, reads = ecoli_unpaired_ls_long(cs.B_CHUNK)
+    tb = cs._first_call(cs._mapper(idx, dev), reads, cs._ls_stream, sw,
+                        "traceback_pack")
+    B, R, G = tb[-1].shape
+    want = sw_full.traceback_pack_ref(*tb)
+    packed = torch.empty((B, 10), dtype=torch.int32, device=dev)
+    ops = torch.empty_like(want[1])
+    for n, lib in libs.items():
+        packed.fill_(-7)
+        ops.fill_(0xEE)
+        _tb_call(lib, tb, packed, ops)
+        torch.cuda.synchronize()
+        if not (torch.equal(packed, want[0]) and torch.equal(ops, want[1])):
+            raise AssertionError(f"ls_traceback {n} on the flow's launch: "
+                                 f"differs")
+    print(f"ls_traceback on the flow's first launch {(B, R, G)}: every "
+          f"build equals the plain version; walks: "
+          f"{cs._walks(want[0][:, 3])}")
+    _report("ls_traceback[flow]", (B, R, G), _turns(
+        libs, lambda lib: _tb_call(lib, tb, packed, ops), 10), rec)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", action="append", default=[],
+                    help="NAME=DIR: the three sources in DIR as one more "
+                         "build")
+    ap.add_argument("--scaling", action="store_true",
+                    help="also time every build on the first pairs of the "
+                         "main shapes (sw_full_stats) and on the pairs with "
+                         "the longest walks (ls_traceback): 1, 132, 1056")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from shrimp_tpu_torch import _build
+    dev = torch.device("cuda", 0)
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{cs._smi()}")
+    specs = [("new", _build.SRC_DIR)]
+    specs += [tuple(v.split("=", 1)) for v in args.src]
+    out = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_ab")
+    libs = {}
+    for name, src_dir in specs:
+        built = _build.build(os.path.abspath(src_dir),
+                             os.path.join(out, name), SOURCES)
+        libs[name] = built.lib
+        for ln in built.log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {name}: {ln.strip()}")
+    for n, lib in libs.items():
+        for entry, shapes in (("sw_full_stats_config", STATS_SHAPES),
+                              ("sw_full_bp_config", LONG_SHAPES),
+                              ("ls_traceback_config", LONG_SHAPES)):
+            if not hasattr(lib, entry):
+                continue
+            for B, R, G in shapes:
+                c = (ctypes.c_int * len(_build.CONFIG_KEYS))()
+                _build.check(getattr(lib, entry)(B, G, R, ctypes.addressof(c)),
+                             entry)
+                print(f"{n} {entry} {(B, R, G)}: "
+                      f"{dict(zip(_build.CONFIG_KEYS, c))}")
+    rec = []
+    ab_stats(dev, libs, rec, args.scaling)
+    ab_long(dev, libs, rec, args.scaling)
+    ab_flow_traceback(dev, libs, rec)
+    print(cs._smi())
+    print(json.dumps({"ab": rec}))
+
+
+if __name__ == "__main__":
+    main()

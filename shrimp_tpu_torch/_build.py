@@ -34,12 +34,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P],
     "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
+    "sw_full_stats_config": [_I, _I, _I, _P],
     "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
     "sw_cs_full_config": [_I, _P],
     "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
     "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P],
     "sw_full_bp_config": [_I, _I, _I, _P],
     "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P],
+    "ls_traceback_config": [_I, _I, _I, _P],
 }
 
 
@@ -73,11 +75,6 @@ _LOCK = threading.Lock()
 _BUILT: Optional[Built] = None
 
 
-def _sources():
-    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
-                  if f.endswith((".cu", ".cuh")))
-
-
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
@@ -86,7 +83,7 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _so_path(src: str, headers) -> str:
+def _so_path(src: str, headers, out_dir: str) -> str:
     """The library of one source, keyed by its bytes, the headers' and
     the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -94,55 +91,66 @@ def _so_path(src: str, headers) -> str:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     stem = os.path.splitext(os.path.basename(src))[0]
-    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+    return os.path.join(out_dir, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build(src_dir: str, out_dir: str, names=None) -> Built:
+    """Build (or reuse) the libraries of the `.cu` sources in `src_dir`
+    (those named in `names`, every one when None) into `out_dir`, one
+    nvcc process per source, all started together, and bind the entry
+    points of _SIGNATURES that they export. Raises on failure."""
+    srcs = sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
+                  if f.endswith((".cu", ".cuh")))
+    headers = [s for s in srcs if s.endswith(".cuh")]
+    sos = [(s, _so_path(s, headers, out_dir)) for s in srcs
+           if s.endswith(".cu")
+           and (names is None or os.path.basename(s) in names)]
+    os.makedirs(out_dir, exist_ok=True)
+    todo = [(s, so) for s, so in sos if not os.path.exists(so)]
+    t0 = time.perf_counter()
+    procs = [(so, subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", f"{so}.tmp{os.getpid()}", s],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for s, so in todo]
+    logs, failed = [], []
+    for so, p in procs:
+        out = p.communicate()[0]
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(so)} ({p.returncode})")
+    secs = time.perf_counter() - t0 if todo else 0.0
+    log = "".join(logs)
+    if failed:
+        for so, _ in procs:
+            if os.path.exists(f"{so}.tmp{os.getpid()}"):
+                os.remove(f"{so}.tmp{os.getpid()}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    for so, _ in procs:
+        os.replace(f"{so}.tmp{os.getpid()}", so)
+    lib = SimpleNamespace()
+    for _, so in sos:
+        dll = ctypes.CDLL(so)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(lib, name, fn)
+    return Built(lib, [so for _, so in sos], secs, log)
 
 
 def load() -> Built:
-    """Build (or reuse) and load the kernel libraries; raises on
-    failure."""
+    """Build (or reuse) and load the package's kernel libraries; raises
+    on failure."""
     global _BUILT
     with _LOCK:
-        if _BUILT is not None:
-            return _BUILT
-        srcs = _sources()
-        headers = [s for s in srcs if s.endswith(".cuh")]
-        sos = [(s, _so_path(s, headers)) for s in srcs if s.endswith(".cu")]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        todo = [(s, so) for s, so in sos if not os.path.exists(so)]
-        t0 = time.perf_counter()
-        procs = [(so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", f"{so}.tmp{os.getpid()}", s],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for s, so in todo]
-        logs, failed = [], []
-        for so, p in procs:
-            out = p.communicate()[0]
-            logs.append(out)
-            if p.returncode != 0:
-                failed.append(f"{os.path.basename(so)} ({p.returncode})")
-        secs = time.perf_counter() - t0 if todo else 0.0
-        log = "".join(logs)
-        if failed:
-            for so, _ in procs:
-                if os.path.exists(f"{so}.tmp{os.getpid()}"):
-                    os.remove(f"{so}.tmp{os.getpid()}")
-            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
-                               f"{log}")
-        for so, _ in procs:
-            os.replace(f"{so}.tmp{os.getpid()}", so)
-        lib = SimpleNamespace()
-        for _, so in sos:
-            dll = ctypes.CDLL(so)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(dll, name, None)
-                if fn is not None:
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    setattr(lib, name, fn)
-        missing = sorted(set(_SIGNATURES) - set(vars(lib)))
-        if missing:
-            raise RuntimeError(f"kernel entry points not built: {missing}")
-        _BUILT = Built(lib, [so for _, so in sos], secs, log)
+        if _BUILT is None:
+            built = build(SRC_DIR, BUILD_DIR)
+            missing = sorted(set(_SIGNATURES) - set(vars(built.lib)))
+            if missing:
+                raise RuntimeError(f"kernel entry points not built: "
+                                   f"{missing}")
+            _BUILT = built
         return _BUILT
 
 

@@ -422,6 +422,11 @@ def _launch_tb(genome, read, score, max_i, max_j, plane, bp):
     for name, t in (("score", score), ("max_i", max_i), ("max_j", max_j),
                     ("plane", plane)):
         check_tensor(name, t, torch.int32, (B,), dev)
+    if G % 16 or bp.data_ptr() % 16:
+        raise NotImplementedError(
+            f"traceback_pack: the CUDA kernel loads the backpointers in "
+            f"16-byte pieces: G = {G} must be a multiple of 16 and bp "
+            f"16-byte aligned")
     lib = _build.load().lib
     W = (R + G + 3) // 4
     packed = torch.empty((B, 10), dtype=torch.int32, device=dev)
@@ -445,7 +450,8 @@ def traceback_pack(genome: torch.Tensor, read: torch.Tensor,
     """(packed [B, 10] int32, ops [B, (R+G+3)//4] uint8) of the walk from
     each pair's best cell. CPU tensors take the plain version; CUDA
     tensors launch the kernel (uint8 windows, reads and backpointers,
-    int32 best cells, contiguous) or raise."""
+    int32 best cells, contiguous; G a multiple of 16, as the flows'
+    windows are) or raise."""
     if bp.device.type == "cpu":
         return traceback_pack_ref(genome, read, score, max_i, max_j, plane,
                                   bp)

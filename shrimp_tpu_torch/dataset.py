@@ -168,3 +168,59 @@ def edge_bands(rng: np.random.Generator, n: int, G: int, R: int) -> dict:
     return {name: v.astype(np.int32) for name, v in
             (("glen", glen), ("ax", ax), ("ay", ay), ("alen", alen),
              ("awid", awid))}
+
+
+def bands(a: dict, R: int) -> tuple:
+    """The band [x_min, x_max] of rows 0 .. R - 1 of the pairs whose
+    geometry `a` holds (numpy glen, ax, ay, alen, awid [n]), as the DP
+    kernels compute it (anchor_get_x_range clipped to [0, glen - 1]): two
+    int64 [n, R]."""
+    i = np.arange(R)[None, :]
+    ax, ay, alen, awid, glen = (np.asarray(a[k], np.int64)[:, None] for k in
+                                ("ax", "ay", "alen", "awid", "glen"))
+    x_min = np.where(i < ay, 0, np.where(i <= ay + alen - 1, ax + (i - ay),
+                                         ax + alen))
+    ay2 = ay - (awid - 1)
+    x_max = np.where(i < ay2, ax + awid - 2,
+                     np.where(i <= ay2 + alen - 1, ax + (awid - 1) + (i - ay2),
+                              glen - 1))
+    return (np.minimum(np.maximum(x_min, 0), glen - 1),
+            np.minimum(np.maximum(x_max, 0), glen - 1))
+
+
+def long_gaps(rng: np.random.Generator, genome: np.ndarray, R: int) -> dict:
+    """Reads and band geometry (uint8 read [n, R]; int32 glen, rlen, ax,
+    ay, alen, awid [n]) for the windows `genome` [n, G], G >= R + 35 and
+    R >= 64: each read is copied from its window with two substitutions
+    and one gap of 33 to 120 columns, so that a traceback walk runs a long
+    straight stretch. Odd rows miss window bases (a run of W moves,
+    insertions in the walk's ops; the gap is at most G - R - 1), even
+    rows carry extra read bases (N moves, deletions; the gap is at most
+    3R/4 - 1). The anchor starts at the read's first base and the band is
+    wide enough to hold the gap."""
+    n, G = genome.shape
+    read = rng.integers(0, 4, (n, R)).astype(np.uint8)
+    geo = {k: np.zeros(n, np.int32) for k in
+           ("glen", "rlen", "ax", "ay", "alen", "awid")}
+    for k in range(n):
+        odd = k % 2 == 1
+        room = G - R if odd else R - R // 4
+        gap = int(rng.integers(33, max(34, min(121, room))))
+        # the first `cut` read bases follow the window from o; the rest
+        # follow it from o + cut + gap (odd), or from o + cut after gap
+        # extra read bases (even)
+        cut_hi = 3 * R // 4 if odd else R - gap - R // 8
+        cut = int(rng.integers(R // 8, max(R // 8 + 1, cut_hi)))
+        o = int(rng.integers(0, max(1, G - R - gap)))
+        g = genome[k]
+        read[k, :cut] = g[o:o + cut]
+        if odd:
+            m = min(R - cut, G - (o + cut + gap))
+            read[k, cut:cut + m] = g[o + cut + gap:o + cut + gap + m]
+        else:
+            read[k, cut + gap:] = g[o + cut:o + R - gap]
+        read[k, rng.integers(0, R, 2)] = rng.integers(0, 4, 2)
+        for name, v in (("glen", G), ("rlen", R), ("ax", o), ("ay", 0),
+                        ("alen", max(1, cut // 2)), ("awid", gap + 40)):
+            geo[name][k] = v
+    return dict(read=read, **geo)

@@ -45,6 +45,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "kernel_ab.py")
 
 
 def test_port_sources_import_no_jax():

@@ -23,6 +23,7 @@ from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.mapper import Mapper as RefMapper
 from shrimp_tpu_torch.core import sw as port_sw
 from shrimp_tpu_torch.core import sw_full, sw_vector
+from shrimp_tpu_torch.dataset import bands, edge_bands
 from shrimp_tpu_torch.device import get_device
 from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
 from shrimp_tpu_torch.index import build as port_index
@@ -93,9 +94,20 @@ def test_sw_vector_ref_matches_pallas_and_xla(G, R):
 
 
 @pytest.mark.parametrize("local", [False, True])
-@pytest.mark.parametrize("seed,G,R", [(1, 32, 16), (2, 64, 40)])
-def test_sw_full_stats_ref_matches_pallas(local, seed, G, R):
+@pytest.mark.parametrize("seed,G,R,edge", [
+    pytest.param(seed, G, R, edge,
+                 id=("edge-" if edge else "") + f"{seed}-{G}-{R}")
+    for edge in (False, True) for seed, G, R in ((1, 32, 16), (2, 64, 40))])
+def test_sw_full_stats_ref_matches_pallas(local, seed, G, R, edge):
+    """`edge` gives a quarter of the pairs the band geometries of
+    dataset.edge_bands, and checks that some best cells chain from an
+    out-of-band cell: deq runs along the whole diagonal, band or not, so
+    their base is that cell's deq."""
     a = _full_inputs(seed, 1024, G, R)
+    if edge:
+        rng = np.random.default_rng(seed + 200)
+        for k, v in edge_bands(rng, 256, G, R).items():
+            a[k][:256] = v
     args = [a[k] for k in _FULL_ORDER]
     assert 0 < a["revcmpl"].sum() < len(a["revcmpl"])   # both ways
     want = np.asarray(sw_full_stats_pallas(*args, local_alignment=local,
@@ -105,6 +117,17 @@ def test_sw_full_stats_ref_matches_pallas(local, seed, G, R):
     assert got.shape == (1024, 8) and got.dtype == np.int32
     assert np.array_equal(got, want)
     assert (got[:, 0] > 0).sum() > 10
+    if edge:
+        # the cell before each best cell's chain, and whether it lies
+        # outside its row's band (row -1 and column -1 excluded)
+        score, bi, bj, _, run, _, deq, base = got.T
+        ci, cj = bi - run, bj - run
+        x_min, x_max = (x[np.arange(1024), np.maximum(ci, 0)]
+                        for x in bands(a, R))
+        out = (score > 0) & (ci >= 0) & (cj >= 0) & ((cj < x_min)
+                                                     | (cj > x_max))
+        assert out.sum() > 0
+        assert (base[out] > 0).any() and (deq >= base).all()
 
 
 @pytest.mark.parametrize("local", [False, True])
@@ -270,12 +293,16 @@ def test_wrappers_raise_off_cpu_without_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,R", [(64, 40), (256, 40)])
+@pytest.mark.parametrize("G,R", [(64, 40), (128, 40), (256, 40)])
 def test_cuda_kernels_match_plain(G, R):
+    """The stats flow's G buckets, a quarter of the pairs at the edge
+    bands of dataset.edge_bands (tolerance 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
     a = _full_inputs(G, 8192, G, R)
+    for k, v in edge_bands(np.random.default_rng(G), 2048, G, R).items():
+        a[k][:2048] = v
     full = [torch.from_numpy(a[k]).to(dev) for k in _FULL_ORDER]
     vec = full[:4]
     n0 = sw_vector.LAUNCHES.n

@@ -23,7 +23,7 @@ from shrimp_tpu.core.sw_full_pallas import sw_full_batch_pallas
 from shrimp_tpu_torch.core import sw as port_sw
 from shrimp_tpu_torch.core import sw_full, sw_vector
 from shrimp_tpu_torch.core.sw import cat_word_plane
-from shrimp_tpu_torch.dataset import edge_bands
+from shrimp_tpu_torch.dataset import bands, edge_bands, long_gaps
 from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
 from shrimp_tpu_torch.mapper import Mapper
 
@@ -77,28 +77,13 @@ def _t(a):
     return [torch.from_numpy(np.ascontiguousarray(a[k])) for k in ORDER]
 
 
-def _bands(a, R):
-    """[n, R] clipped anchor_get_x_range bounds of the geometry `a`."""
-    i = np.arange(R)[None, :]
-    ax, ay, alen, awid, glen = (a[k].astype(np.int64)[:, None] for k in
-                                ("ax", "ay", "alen", "awid", "glen"))
-    x_min = np.where(i < ay, 0, np.where(i <= ay + alen - 1, ax + (i - ay),
-                                         ax + alen))
-    ay2 = ay - (awid - 1)
-    x_max = np.where(i < ay2, ax + awid - 2,
-                     np.where(i <= ay2 + alen - 1, ax + (awid - 1) + (i - ay2),
-                              glen - 1))
-    return (np.minimum(np.maximum(x_min, 0), glen - 1),
-            np.minimum(np.maximum(x_max, 0), glen - 1))
-
-
 @pytest.mark.parametrize("G,R", [(32, 16), (64, 24), (352, 256)])
 def test_edge_bands_reach_the_special_cases(G, R):
     """dataset.edge_bands gives the bands the banded kernels special-case:
     one-column bands at the last column and at column 0, pad rows, awid =
     1, a band that widens in one step at the anchor's end, glen = 1."""
     e = edge_bands(np.random.default_rng(G), 96, G, R)
-    x_min, x_max = _bands(e, R)
+    x_min, x_max = bands(e, R)
     one = x_min == x_max
     k = np.arange(96) % 6
     glen = e["glen"][:, None]
@@ -137,12 +122,32 @@ def test_sw_full_bp_ref_matches_pallas(local, seed, G, R, edge):
     assert set(np.unique((bp >> 4) & 3)) == {0, 1, 2}
 
 
+def _with_long_gaps(a, lo, seed):
+    """Rows [lo, B) of `a` take the reads and bands of dataset.long_gaps:
+    one gap of 33 or more columns each, insertions and deletions."""
+    rng = np.random.default_rng(seed)
+    R = a["read"].shape[1]
+    for k, v in long_gaps(rng, a["genome"][lo:], R).items():
+        a[k][lo:] = v
+    return a
+
+
 @pytest.mark.parametrize("local", [False, True])
-@pytest.mark.parametrize("seed,G,R", [(1, 32, 16), (2, 64, 24)])
-def test_traceback_ref_matches_jax(local, seed, G, R):
+@pytest.mark.parametrize("seed,G,R,case", [
+    pytest.param(seed, G, R, case,
+                 id=(f"{case}-" if case else "") + f"{seed}-{G}-{R}")
+    for seed, G, R, case in ((1, 32, 16, None), (2, 64, 24, None),
+                             (3, 32, 16, "edge"), (4, 160, 64, "gaps"))])
+def test_traceback_ref_matches_jax(local, seed, G, R, case):
     """Every row, score-0 rows included (their walk starts at (0, 0),
-    as the reference's does)."""
-    a = _mk(seed, 1024, G, R)
+    as the reference's does). `edge` gives a quarter of the pairs the
+    band geometries of dataset.edge_bands; `gaps` gives half of them one
+    gap longer than 32 columns (the CUDA walk's tiles are 32 rows high),
+    so that walks run long straight stretches of W or N moves."""
+    B = 256 if case == "gaps" else 1024
+    a = _mk(seed, B, G, R, edge=case == "edge")
+    if case == "gaps":
+        _with_long_gaps(a, B // 2, seed)
     score, mi, mj, plane, bp = sw_full.sw_full_bp(*_t(a),
                                                   local_alignment=local, **KW)
     want_pk, want_ops = (np.asarray(x) for x in sw_jax._traceback_pack(
@@ -153,7 +158,7 @@ def test_traceback_ref_matches_jax(local, seed, G, R):
         torch.from_numpy(a["genome"]), torch.from_numpy(a["read"]), score,
         mi, mj, plane, bp)
     assert got_pk.dtype == torch.int32 and got_ops.dtype == torch.uint8
-    assert got_ops.shape == (1024, (R + G + 3) // 4)
+    assert got_ops.shape == (B, (R + G + 3) // 4)
     assert np.array_equal(got_pk.numpy(), want_pk)
     assert np.array_equal(got_ops.numpy(), want_ops)
     pk = want_pk
@@ -161,6 +166,8 @@ def test_traceback_ref_matches_jax(local, seed, G, R):
     assert (pk[:, 8] + pk[:, 9] > 0).sum() > 10     # walks with gaps
     if not local:   # a local DP clamps (0, 0) to no backpointer
         assert ((pk[:, 0] == 0) & (pk[:, 3] > 0)).sum() > 0   # score-0 walks
+    if case == "gaps" and not local:    # a local alignment skips the gap
+        assert (pk[:, 8] > 32).sum() > 5 and (pk[:, 9] > 32).sum() > 5
 
 
 def _long_plane_case(seed, G, L, B, k, n_reads=256):
@@ -238,11 +245,13 @@ def test_long_wrappers_raise_off_cpu_without_kernel():
 @pytest.mark.parametrize("B,R,G", [(4096, 256, 352), (256, 1000, 1408)])
 def test_cuda_long_kernels_match_plain(B, R, G):
     """sw_vector, sw_full_bp and the traceback on the card against their
-    plain versions at the two long-read launch shapes (tolerance 0)."""
+    plain versions at the two long-read launch shapes (tolerance 0), with
+    edge bands and, in the last eighth of the pairs, gaps longer than
+    32 columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    a = _mk(G + R, B, G, R, edge=True)
+    a = _with_long_gaps(_mk(G + R, B, G, R, edge=True), B - B // 8, G)
     t = [x.to(dev) for x in _t(a)]
     assert torch.equal(sw_vector.sw_vector_batch(*t[:4], **KW),
                        sw_vector.sw_vector_batch_ref(*t[:4], **KW))
@@ -254,4 +263,38 @@ def test_cuda_long_kernels_match_plain(B, R, G):
         tb = (t[0], t[2], *want)
         for g, w in zip(sw_full.traceback_pack(*tb),
                         sw_full.traceback_pack_ref(*tb)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,off", [(360, 0), (352, 1)])
+def test_cuda_traceback_refuses_unaligned(G, off):
+    """The traceback kernel loads its tiles of backpointers in 16-byte
+    pieces: a G that is not a multiple of 16, or backpointers off a
+    16-byte boundary, raise instead of launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    B, R = 8, 64
+    buf = torch.zeros(B * R * G + 16, dtype=torch.uint8, device=dev)
+    bp = buf[off:off + B * R * G].view(B, R, G)
+    z = torch.zeros(B, dtype=torch.int32, device=dev)
+    g = torch.zeros((B, G), dtype=torch.uint8, device=dev)
+    r = torch.zeros((B, R), dtype=torch.uint8, device=dev)
+    with pytest.raises(NotImplementedError, match="16-byte"):
+        sw_full.traceback_pack(g, r, z, z, z, z, bp)
+
+
+@pytest.mark.cuda
+def test_cuda_sw_full_bp_byte_rows():
+    """sw_full_bp at G = 360, whose backpointer rows leave in byte stores
+    (G not a multiple of 16), against its plain version (tolerance 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    t = [x.to(dev) for x in _t(_mk(7, 256, 360, 256, edge=True))]
+    for local in (False, True):
+        got = sw_full.sw_full_bp(*t, local_alignment=local, **KW)
+        want = sw_full.sw_full_bp_ref(*t, local_alignment=local, **KW)
+        for g, w in zip(got, want):
             assert torch.equal(g, w)
