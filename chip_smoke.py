@@ -12,9 +12,11 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    path's chunk (B = 8192) with G = 64, 128 and 256 (the stats flow's
    buckets), R = 40, global and local, with revcmpl rows, pad rows and
    the edge bands of dataset.edge_bands: outputs must be bit-equal
-   (tolerance 0; all integer). Prints the stats kernel's launch
-   configuration. Times kernel and plain with CUDA events, and the
-   stats kernel's bound at each G.
+   (tolerance 0; all integer). The vector SW, both modes, also at G =
+   40, 96 and 200 (no bucket) with B = 8191 and the length edges of
+   dataset.length_edges (glen = 1, glen = G, rlen = 1). Prints both
+   kernels' launch configurations. Times kernel and plain, and the
+   kernels' bounds at each G.
 4. The packed device step (core/sw.py) on CUDA tensors against the same
    call on CPU tensors: [B, 3] rows bit-equal.
 5. The letter-space slice: bench.py's E. coli-scale workload (seed
@@ -26,11 +28,15 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    in-band share and bound on the flow's own bands.
 6. The colour-space kernels (CS-mode vector SW, the 4-layer DP, the
    traceback) against their plain versions on the card, at B = 2048 and
-   8192, G = 64 and 128, R = 36, global and local, taboo 0 and 4, with
-   revcmpl rows, BASE_N cells, pad rows and the edge bands of
-   dataset.edge_bands: bit-equal (tolerance 0). Prints the 4-layer DP's
-   launch configuration and its bound at each shape. Times kernel and
-   plain with CUDA events.
+   8192, G = 64 and 128, R = 36, and at (B, R, G) = (2048, 36, 256) and
+   (2048, 72, 128), global and local, taboo 0 and 4, with revcmpl rows,
+   BASE_N cells, pad rows and the edge bands of dataset.edge_bands:
+   bit-equal (tolerance 0). The traceback also on dataset.cs_walk_pairs
+   (walks that reach row 0 and column 0, leave its band, start outside
+   layer 0; bfrm = 0; scores below thresh), each kind present; it
+   refuses G = 60, unaligned backpointers and unaligned windows. Prints
+   the three kernels' launch configurations. Times kernel and plain, and
+   each kernel's bound at each shape.
 7. The fused colour-space step (core/sw_cs.py) on CUDA tensors against
    the same call on CPU tensors, on a synthetic plane with windows at
    both ends of both strands: all three outputs bit-equal.
@@ -52,7 +58,7 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    (tolerance 0); the full SW also at G = 360, whose backpointer rows
    leave in byte stores. The traceback refuses G = 360 and unaligned
    backpointers. Prints the launch configuration of the full SW and
-   of the traceback. Times kernel and plain with CUDA events.
+   of the traceback. Times kernel and plain.
 10. The fused traceback step (core/sw.py) on CUDA tensors against the
    same call on CPU tensors, on a synthetic plane with windows at both
    ends of both strands: all three outputs bit-equal.
@@ -66,6 +72,13 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    and bound of the full SW with backpointers on the flow's own bands,
    and the traceback's time, bound and walk lengths on the flow's own
    walks beside the test pairs'.
+
+A kernel's time ("ms" in the record) is its device time per launch,
+with its wrapper's calls queued behind a sleep kernel between two CUDA
+events (_device_ms): a short kernel runs in less time than the host
+takes to make one call, so CUDA events over calls made back to back
+(printed beside it) time the host. The plain versions are timed by CUDA
+events.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. Any failure raises, so the exit code is non-zero and
@@ -136,6 +149,43 @@ def _time_ms(fn, reps: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of fn, whose calls only enqueue CUDA work,
+    with the calls queued back to back: a sleep kernel holds the stream
+    while the host enqueues `reps` calls between two CUDA events, so the
+    host's time to make a call (longer than a short kernel's run, which
+    bounds _time_ms) does not count. If the sleep ended before the host
+    had enqueued every call, it sleeps longer and measures again."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    secs = 4 * reps * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(secs * 2e9))    # SM cycles, at most 2 GHz
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        queued = not e0.query()   # the sleep still runs: no gaps
+        torch.cuda.synchronize()
+        if queued:
+            return e0.elapsed_time(e1) / reps
+        secs *= 4
+    raise AssertionError("the host could not enqueue the calls before "
+                         "the sleep kernel ended")
+
+
+def _kernel_times(fn, plain, reps=20, plain_reps=5) -> tuple:
+    """(device ms per launch, CUDA-event ms per call, plain ms per call)
+    of a kernel's wrapper call `fn` and its plain version."""
+    return (_device_ms(fn, reps), _time_ms(fn, reps),
+            _time_ms(plain, plain_reps))
 
 
 def _bound(nbytes: float, ops: float, ops_all: float) -> dict:
@@ -306,12 +356,42 @@ def _stats_bytes(B, R, G) -> int:
     return B * (G + R + 28 + 32)
 
 
+def _check_vector_edges(dev, rng, rec):
+    """The narrow vector kernel, both modes, on windows that are not a
+    G bucket (40, 96, 200), B = 8191 (not a multiple of the pairs per
+    block) and the length edges of dataset.length_edges: bit-equal."""
+    from shrimp_tpu_torch.core import sw_vector
+    from shrimp_tpu_torch.dataset import length_edges
+    vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
+    for B, G, R in ((B_CHUNK - 1, 40, 40), (B_CHUNK - 1, 96, 72),
+                    (B_CHUNK - 1, 200, 40), (B_CHUNK, 64, 40)):
+        for cs in (False, True):
+            a = (_cs_vec_pairs if cs else _pairs)(rng, B, G, R)
+            length_edges(rng, a["glen"], a["rlen"], G, R)
+            keys = ("genome", "glen", "read", "rlen") + (
+                ("g_row0",) if cs else ())
+            v = tuple(torch.from_numpy(a[k]).to(dev) for k in keys)
+            kw = vkw if cs else KW
+            got = sw_vector.sw_vector_batch(*v, cs_mode=cs, **kw)
+            torch.cuda.synchronize()
+            want = sw_vector.sw_vector_batch_ref(*v, cs_mode=cs, **kw)
+            err = _err([got], [want])
+            name = "sw_vector_cs" if cs else "sw_vector"
+            rec[name]["err"] = max(rec[name]["err"], err)
+            print(f"{name} edges B={B} G={G} R={R}: max |kernel - plain| "
+                  f"= {err} (rows with glen = 1: "
+                  f"{int((a['glen'] == 1).sum())}, rlen = 1: "
+                  f"{int((a['rlen'] == 1).sum())}, best {int(want.max())})")
+
+
 def check_kernels(dev):
     """Phase 3: kernels vs plain versions on the card."""
     from shrimp_tpu_torch.core import sw_full, sw_vector
-    rec = {"sw_vector": dict(err=0), "sw_full_stats": dict(err=0)}
+    rec = {"sw_vector": dict(err=0), "sw_full_stats": dict(err=0),
+           "sw_vector_cs": dict(err=0)}
     rng = np.random.default_rng(20261016)
     for G, R in STATS_SHAPES:
+        _print_launch_config("sw_vector", "sw_vector_config", B_CHUNK, G, R)
         _print_launch_config("sw_full_stats", "sw_full_stats_config",
                              B_CHUNK, G, R)
     for G, R in STATS_SHAPES:
@@ -340,14 +420,12 @@ def check_kernels(dev):
                   f"- plain| = {err} (rows with score > 0: "
                   f"{int((want[:, 0] > 0).sum())})")
         times = dict(
-            sw_vector=(
-                _time_ms(lambda: sw_vector.sw_vector_batch(*v4, **KW)),
-                _time_ms(lambda: sw_vector.sw_vector_batch_ref(*v4, **KW),
-                         reps=5)),
-            sw_full_stats=(
-                _time_ms(lambda: sw_full.sw_full_stats(*full, **KW)),
-                _time_ms(lambda: sw_full.sw_full_stats_ref(*full, **KW),
-                         reps=5)))
+            sw_vector=_kernel_times(
+                lambda: sw_vector.sw_vector_batch(*v4, **KW),
+                lambda: sw_vector.sw_vector_batch_ref(*v4, **KW)),
+            sw_full_stats=_kernel_times(
+                lambda: sw_full.sw_full_stats(*full, **KW),
+                lambda: sw_full.sw_full_stats_ref(*full, **KW)))
         bounds = dict(
             sw_vector=_vector_bound(a, B_CHUNK, G, R),
             sw_full_stats=_bound(
@@ -355,14 +433,16 @@ def check_kernels(dev):
                 OPS["sw_full_stats"]
                 * _band_cells(a, np.minimum(a["rlen"], R)),
                 OPS["sw_full_stats"] * B_CHUNK * R * G))
-        for name, (k_ms, p_ms) in times.items():
+        for name, (k_ms, ev_ms, p_ms) in times.items():
             b = bounds[name]
-            print(f"{name} B={B_CHUNK} G={G} R={R}: kernel {k_ms!r} ms, "
-                  f"plain {p_ms!r} ms, bound {b['bound_ms']!r} ms "
+            print(f"{name} B={B_CHUNK} G={G} R={R}: kernel {k_ms!r} ms "
+                  f"(device; {ev_ms!r} ms a call by CUDA events), plain "
+                  f"{p_ms!r} ms, bound {b['bound_ms']!r} ms "
                   f"({b['bound_by']}; all R x G cells: "
                   f"{b['bound_all_ms']!r} ms)")
             if G == 64:     # the main path's shape
                 rec[name].update(ms=k_ms, plain_ms=p_ms, **b)
+    _check_vector_edges(dev, rng, rec)
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -580,6 +660,97 @@ def _err(got, want) -> int:
                for x, w in zip(got, want))
 
 
+# (B, R, G) of phase 6: the main path's launch first, the wider buckets,
+# 8192-row launches, windows of 256 and 72-colour reads
+CS_SHAPES = ((CS_B_MAIN, CS_R, CS_G_MAIN), (CS_B_MAIN, CS_R, 2 * CS_G_MAIN),
+             (4 * CS_B_MAIN, CS_R, CS_G_MAIN),
+             (4 * CS_B_MAIN, CS_R, 2 * CS_G_MAIN),
+             (CS_B_MAIN, CS_R, 4 * CS_G_MAIN), (CS_B_MAIN, 2 * CS_R, 128))
+
+
+def _cs_tb_bound(packed, B, R, G) -> dict:
+    """The CS traceback's bound over the steps its walks take: per step
+    the walked backpointer (2 bytes), window and read bytes; 6 int32 per
+    pair in; [12] int16 and R + G step bytes per pair out."""
+    n = int(packed[:, 4].to(torch.int64).sum())
+    return _bound(4 * n + B * (24 + 24 + R + G), OPS["cs_traceback"] * n,
+                  OPS["cs_traceback"] * B * (R + G))
+
+
+def _check_cs_tb_edges(dev, rng, rec):
+    """The traceback on dataset.cs_walk_pairs at the main shape's R and G
+    and at R = 72: bit-equal, and each kind of edge occurs."""
+    from shrimp_tpu_torch.core import sw_cs_full
+    from shrimp_tpu_torch.dataset import cs_walk_pairs
+    for B, R, G in ((CS_B_MAIN // 2, CS_R, CS_G_MAIN),
+                    (CS_B_MAIN // 4, 2 * CS_R, 128)):
+        a = cs_walk_pairs(rng, B, R, G)
+        tb = tuple(torch.from_numpy(a[k]).to(dev) for k in (
+            "genome", "qr", "best", "bi", "bj", "bk", "bfrm", "bp",
+            "thresh"))
+        got = sw_cs_full.cs_traceback(*tb)
+        torch.cuda.synchronize()
+        want = sw_cs_full.cs_traceback_ref(*tb)
+        err = _err(got, want)
+        rec["cs_traceback"]["err"] = max(rec["cs_traceback"]["err"], err)
+        pk = want[0].cpu().numpy().astype(np.int64)
+        walked = pk[:, 4] > 0
+        # the alignment's first op (the walk's last step) with its
+        # crossover bit: the leading crossover, or one of the walk's own
+        first_xo = walked & ((want[1].cpu().numpy()[
+            np.arange(B), np.maximum(pk[:, 4] - 1, 0)] & 16) != 0)
+        kinds = {"row 0": int((walked & (pk[:, 5] == 0)).sum()),
+                 "column 0": int((walked & (pk[:, 6] == 0)).sum()),
+                 "a crossover on the first op": int(first_xo.sum()),
+                 "bfrm = 0": int((a["bfrm"] == 0).sum()),
+                 "score below thresh": int((a["best"] < a["thresh"]).sum()),
+                 "walks": int(walked.sum()),
+                 "longest walk": int(pk[:, 4].max())}
+        print(f"cs_traceback edge walks B={B} R={R} G={G}: max |kernel - "
+              f"plain| = {err}; " + ", ".join(
+                  f"{k} {v}" for k, v in kinds.items()))
+        if min(kinds.values()) == 0:
+            raise AssertionError("cs_traceback edge walks: a kind of edge "
+                                 "did not occur")
+
+
+def _check_cs_tb_refuses(dev):
+    """The CS traceback's C entry point refuses what its cp.async copies
+    cannot take: G = 60 (not a multiple of 8), backpointers 2 bytes off
+    a 16-byte boundary, windows 1 byte off a 4-byte one; the wrapper
+    raises before it."""
+    from shrimp_tpu_torch import _build
+    from shrimp_tpu_torch.core import sw_cs_full
+    lib = _build.load().lib
+    B, R = 64, CS_R
+    stream = torch.cuda.current_stream().cuda_stream
+    for G, off, goff in ((60, 0, 0), (64, 1, 0), (64, 0, 1)):
+        buf = torch.zeros(B * R * 4 * G + 8, dtype=torch.int16, device=dev)
+        bp = buf[off:off + B * R * 4 * G].view(B, R, 4, G)
+        gbuf = torch.zeros(B * G + 4, dtype=torch.uint8, device=dev)
+        g = gbuf[goff:goff + B * G].view(B, G)
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        qr = torch.zeros((B, 4, R), dtype=torch.uint8, device=dev)
+        packed = torch.empty((B, 12), dtype=torch.int16, device=dev)
+        steps = torch.empty((B, R + G), dtype=torch.int8, device=dev)
+        rc = lib.cs_traceback_launch(
+            g.data_ptr(), qr.data_ptr(), *[z.data_ptr()] * 5, bp.data_ptr(),
+            z.data_ptr(), packed.data_ptr(), steps.data_ptr(), B, G, R,
+            stream)
+        try:
+            sw_cs_full.cs_traceback(g, qr, z, z, z, z, z, bp, z)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        print(f"cs_traceback G={G}, bp offset {2 * off} B, window offset "
+              f"{goff} B: launch returns cudaError {rc}, the wrapper "
+              f"raises: {raised}")
+        if rc != 1 or not raised:     # cudaErrorInvalidValue
+            raise AssertionError("cs_traceback: an input its copies cannot "
+                                 "take was not refused")
+    torch.cuda.synchronize()
+
+
 def check_cs_kernels(dev):
     """Phase 6: the colour-space kernels vs their plain versions."""
     from shrimp_tpu_torch.core import sw_cs_full, sw_vector
@@ -588,86 +759,86 @@ def check_cs_kernels(dev):
     vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
     rng = np.random.default_rng(20261017)
     for G in (CS_G_MAIN, 2 * CS_G_MAIN):
+        _print_launch_config("sw_vector (colour space)", "sw_vector_config",
+                             CS_B_MAIN, G, CS_R)
         _print_launch_config("sw_cs_full", "sw_cs_full_config", G)
-    for B in (CS_B_MAIN, 4 * CS_B_MAIN):
-        for G in (CS_G_MAIN, 2 * CS_G_MAIN):
-            R = CS_R
-            vn = _cs_vec_pairs(rng, B, G, R)
-            v = {k: torch.from_numpy(x).to(dev) for k, x in vn.items()}
-            v4 = (v["genome"], v["glen"], v["read"], v["rlen"], v["g_row0"])
-            got = sw_vector.sw_vector_batch(*v4, cs_mode=True, **vkw)
-            torch.cuda.synchronize()
-            want = sw_vector.sw_vector_batch_ref(*v4, cs_mode=True, **vkw)
-            err = _err([got], [want])
-            rec["sw_vector_cs"]["err"] = max(rec["sw_vector_cs"]["err"], err)
-            print(f"sw_vector_cs B={B} G={G} R={R}: max |kernel - plain| = "
-                  f"{err} (best score {int(want.max())})")
-            an = _cs_dp_pairs(rng, B, G, R)
-            a = {k: torch.from_numpy(x).to(dev) for k, x in an.items()}
-            dp = tuple(a[k] for k in _DP_ORDER)
-            for local in (False, True):
-                for taboo in (0, 4):
-                    kw = dict(CS_KW, local_alignment=local,
-                              indel_taboo_len=taboo)
-                    *st, bp = sw_cs_full.sw_full_cs_dp(*dp, **kw)
-                    torch.cuda.synchronize()
-                    *st_w, bp_w = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
-                    err = _err([*st, bp], [*st_w, bp_w])
-                    del bp_w
-                    rec["sw_cs_full"]["err"] = max(rec["sw_cs_full"]["err"],
-                                                   err)
-                    tb = (a["genome"], a["qr"], *st, bp, a["thresh"])
-                    got = sw_cs_full.cs_traceback(*tb)
-                    torch.cuda.synchronize()
-                    want = sw_cs_full.cs_traceback_ref(*tb)
-                    err_tb = _err(got, want)
-                    rec["cs_traceback"]["err"] = max(
-                        rec["cs_traceback"]["err"], err_tb)
-                    print(f"sw_cs_full B={B} G={G} R={R} local={local} "
-                          f"taboo={taboo}: max |kernel - plain| = {err}; "
-                          f"cs_traceback: {err_tb} (aligned rows "
-                          f"{int((want[0][:, 0] > 0).sum())}, with "
-                          f"crossovers {int((want[0][:, 11] > 0).sum())})")
-            # times at the main path's modes: global, taboo 0
-            st_bp = sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)
-            tb = (a["genome"], a["qr"], *st_bp, a["thresh"])
-            times = dict(
-                sw_vector_cs=(
-                    _time_ms(lambda: sw_vector.sw_vector_batch(
-                        *v4, cs_mode=True, **vkw)),
-                    _time_ms(lambda: sw_vector.sw_vector_batch_ref(
-                        *v4, cs_mode=True, **vkw), reps=5)),
-                sw_cs_full=(
-                    _time_ms(lambda: sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)),
-                    _time_ms(lambda: sw_cs_full.sw_full_cs_dp_ref(
-                        *dp, **CS_KW), reps=3)),
-                cs_traceback=(
-                    _time_ms(lambda: sw_cs_full.cs_traceback(*tb)),
-                    _time_ms(lambda: sw_cs_full.cs_traceback_ref(*tb),
-                             reps=5)))
-            for name, (k_ms, p_ms) in times.items():
-                print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms, "
-                      f"plain {p_ms!r} ms")
-                if (B, G) == (CS_B_MAIN, CS_G_MAIN):   # the main path's
-                    rec[name].update(ms=k_ms, plain_ms=p_ms)
-            dp_bound = _bound(
+    for B, R, G in CS_SHAPES[:1] + CS_SHAPES[3:]:
+        _print_launch_config("cs_traceback", "cs_traceback_config", B, G, R)
+    for B, R, G in CS_SHAPES:
+        vn = _cs_vec_pairs(rng, B, G, R)
+        v = {k: torch.from_numpy(x).to(dev) for k, x in vn.items()}
+        v4 = (v["genome"], v["glen"], v["read"], v["rlen"], v["g_row0"])
+        got = sw_vector.sw_vector_batch(*v4, cs_mode=True, **vkw)
+        torch.cuda.synchronize()
+        want = sw_vector.sw_vector_batch_ref(*v4, cs_mode=True, **vkw)
+        err = _err([got], [want])
+        rec["sw_vector_cs"]["err"] = max(rec["sw_vector_cs"]["err"], err)
+        print(f"sw_vector_cs B={B} G={G} R={R}: max |kernel - plain| = "
+              f"{err} (best score {int(want.max())})")
+        an = _cs_dp_pairs(rng, B, G, R)
+        a = {k: torch.from_numpy(x).to(dev) for k, x in an.items()}
+        dp = tuple(a[k] for k in _DP_ORDER)
+        for local in (False, True):
+            for taboo in (0, 4):
+                kw = dict(CS_KW, local_alignment=local,
+                          indel_taboo_len=taboo)
+                *st, bp = sw_cs_full.sw_full_cs_dp(*dp, **kw)
+                torch.cuda.synchronize()
+                *st_w, bp_w = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
+                err = _err([*st, bp], [*st_w, bp_w])
+                del bp_w
+                rec["sw_cs_full"]["err"] = max(rec["sw_cs_full"]["err"],
+                                               err)
+                tb = (a["genome"], a["qr"], *st, bp, a["thresh"])
+                got = sw_cs_full.cs_traceback(*tb)
+                torch.cuda.synchronize()
+                want = sw_cs_full.cs_traceback_ref(*tb)
+                err_tb = _err(got, want)
+                rec["cs_traceback"]["err"] = max(
+                    rec["cs_traceback"]["err"], err_tb)
+                print(f"sw_cs_full B={B} G={G} R={R} local={local} "
+                      f"taboo={taboo}: max |kernel - plain| = {err}; "
+                      f"cs_traceback: {err_tb} (aligned rows "
+                      f"{int((want[0][:, 0] > 0).sum())}, with "
+                      f"crossovers {int((want[0][:, 11] > 0).sum())})")
+        # times at the main path's modes: global, taboo 0
+        st_bp = sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)
+        tb = (a["genome"], a["qr"], *st_bp, a["thresh"])
+        times = dict(
+            sw_vector_cs=_kernel_times(
+                lambda: sw_vector.sw_vector_batch(
+                    *v4, cs_mode=True, **vkw),
+                lambda: sw_vector.sw_vector_batch_ref(
+                    *v4, cs_mode=True, **vkw)),
+            sw_cs_full=_kernel_times(
+                lambda: sw_cs_full.sw_full_cs_dp(*dp, **CS_KW),
+                lambda: sw_cs_full.sw_full_cs_dp_ref(*dp, **CS_KW),
+                plain_reps=3),
+            cs_traceback=_kernel_times(
+                lambda: sw_cs_full.cs_traceback(*tb),
+                lambda: sw_cs_full.cs_traceback_ref(*tb)))
+        packed = sw_cs_full.cs_traceback(*tb)[0]
+        bounds = dict(
+            sw_vector_cs=_vector_bound(vn, B, G, R, cs=True),
+            sw_cs_full=_bound(
                 _cs_dp_bytes(B, R, G), OPS["sw_cs_full"]
                 * _band_cells(an, np.minimum(an["rlen"], R)),
-                OPS["sw_cs_full"] * B * R * G)
-            print(f"sw_cs_full B={B} G={G} R={R}: bound "
-                  f"{dp_bound['bound_ms']!r} ms ({dp_bound['bound_by']}; "
-                  f"all R x G cells: {dp_bound['bound_all_ms']!r} ms)")
-            if (B, G) == (CS_B_MAIN, CS_G_MAIN):
-                rec["sw_vector_cs"].update(_vector_bound(vn, B, G, R,
-                                                         cs=True))
-                rec["sw_cs_full"].update(dp_bound)
-                steps = int((sw_cs_full.cs_traceback(*tb)[1] != 0).sum())
-                # the walked backpointer, window and read bytes; out:
-                # [12] int16 and R + G step bytes per pair
-                rec["cs_traceback"].update(_bound(
-                    3 * steps + B * (24 + R + G),
-                    OPS["cs_traceback"] * steps,
-                    OPS["cs_traceback"] * B * (R + G)))
+                OPS["sw_cs_full"] * B * R * G),
+            cs_traceback=_cs_tb_bound(packed, B, R, G))
+        for name, (k_ms, ev_ms, p_ms) in times.items():
+            b = bounds[name]
+            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms (device; "
+                  f"{ev_ms!r} ms a call by CUDA events), plain {p_ms!r} "
+                  f"ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; all "
+                  f"R x G cells: {b['bound_all_ms']!r} ms)")
+            if (B, R, G) == CS_SHAPES[0]:   # the main path's
+                rec[name].update(ms=k_ms, plain_ms=p_ms, **b)
+        print(f"cs_traceback B={B} G={G} R={R}, the test pairs' global "
+              f"walks: {_walks(packed[:, 4][packed[:, 4] > 0])}")
+        del a, dp, tb, st_bp, v, v4
+        torch.cuda.empty_cache()
+    _check_cs_tb_edges(dev, rng, rec)
+    _check_cs_tb_refuses(dev)
     for name, r in rec.items():
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -899,17 +1070,18 @@ def check_long_kernels(dev):
         want = sw_full.sw_full_bp(*full, **KW)
         tb = (t["genome"], t["read"], *want)
         times = dict(
-            sw_vector_g352=(
-                _time_ms(lambda: sw_vector.sw_vector_batch(*v4, **KW)),
-                _time_ms(lambda: sw_vector.sw_vector_batch_ref(*v4, **KW),
-                         reps=3)),
-            sw_full_bp=(
-                _time_ms(lambda: sw_full.sw_full_bp(*full, **KW), reps=10),
-                _time_ms(lambda: sw_full.sw_full_bp_ref(*full, **KW),
-                         reps=2)),
-            ls_traceback=(
-                _time_ms(lambda: sw_full.traceback_pack(*tb), reps=10),
-                _time_ms(lambda: sw_full.traceback_pack_ref(*tb), reps=2)))
+            sw_vector_g352=_kernel_times(
+                lambda: sw_vector.sw_vector_batch(*v4, **KW),
+                lambda: sw_vector.sw_vector_batch_ref(*v4, **KW),
+                plain_reps=3),
+            sw_full_bp=_kernel_times(
+                lambda: sw_full.sw_full_bp(*full, **KW),
+                lambda: sw_full.sw_full_bp_ref(*full, **KW), reps=10,
+                plain_reps=2),
+            ls_traceback=_kernel_times(
+                lambda: sw_full.traceback_pack(*tb),
+                lambda: sw_full.traceback_pack_ref(*tb), reps=10,
+                plain_reps=2))
         del want, tb
         bounds = dict(
             sw_vector_g352=_vector_bound(a, B, G, R),
@@ -918,8 +1090,9 @@ def check_long_kernels(dev):
                 OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
                 OPS["sw_full_bp"] * B * R * G),
             ls_traceback=_tb_bound(steps, B, R, G))
-        for name, (k_ms, p_ms) in times.items():
-            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms, plain "
+        for name, (k_ms, ev_ms, p_ms) in times.items():
+            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms (device; "
+                  f"{ev_ms!r} ms a call by CUDA events), plain "
                   f"{p_ms!r} ms, bound {bounds[name]['bound_ms']!r} ms "
                   f"({bounds[name]['bound_by']}; all R x G cells: "
                   f"{bounds[name]['bound_all_ms']!r} ms)")
@@ -1096,10 +1269,11 @@ def run_long_slice(dev, counters, test_bound, test_walks):
     B, R, G = tb[-1].shape
     steps = sw_full.traceback_pack(*tb)[0][:, 3]
     b = _tb_bound(steps, B, R, G)
+    k_ms = _device_ms(lambda: sw_full.traceback_pack(*tb), 10)
     print(f"ls_traceback on the flow's first launch (B, R, G) = ({B}, {R}, "
-          f"{G}): kernel {_time_ms(lambda: sw_full.traceback_pack(*tb), 10)!r}"
-          f" ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); walks: "
-          f"{_walks(steps)}; the test pairs' walks: {test_walks}")
+          f"{G}): kernel {k_ms!r} ms (device), bound {b['bound_ms']!r} ms "
+          f"({b['bound_by']}); walks: {_walks(steps)}; the test pairs' "
+          f"walks: {test_walks}")
     del tb, steps
     first = reads[:LONG_CPU_READS]
 

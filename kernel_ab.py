@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""A/B timing of three of shrimp_tpu_torch's CUDA kernels against other
-builds of the same entry points, on one NVIDIA GPU: the full-SW stats
-kernel (csrc/sw_full.cu), the full SW with backpointers
-(csrc/sw_full_bp.cu) and the long-read traceback (csrc/ls_traceback.cu).
+"""A/B timing of five of shrimp_tpu_torch's CUDA kernels against other
+builds of the same entry points, on one NVIDIA GPU: the vector SW
+(csrc/sw_vector.cu, its narrow kernel in letter and colour space), the
+full-SW stats kernel (csrc/sw_full.cu), the full SW with backpointers
+(csrc/sw_full_bp.cu), the long-read traceback (csrc/ls_traceback.cu) and
+the colour-space traceback (csrc/cs_traceback.cu).
 
 Run from the repository root:
 
-    python3 kernel_ab.py [--src NAME=DIR ...] [--scaling]
+    python3 kernel_ab.py [--src NAME=DIR ...] [--scaling] [--kernels K ...]
 
 It builds, with nvcc for sm_90a (shrimp_tpu_torch._build.build: one
-process per library, all started together), the package's three
+process per library, all started together), the package's five
 sources ("new") and those of each --src DIR (a directory holding the
-three sources and the headers they include: a parent commit's
+five sources and the headers they include: a parent commit's
 `shrimp_tpu_torch/csrc` unpacked with `git archive`, or an edited copy
 of the package's, under a gitignored directory such as `build/`). On
 seeded inputs from chip_smoke.py's generators (edge bands, pad rows,
-revcmpl rows, long gaps) at the main paths' shapes and the extra ones,
-every build's output must equal the plain PyTorch version bit for bit,
-global and local; then the builds are timed in turns (A B ... B A) with
-CUDA events, global mode. The traceback is also timed on the long-read
-flow's own first launch (8192 reads of dataset.ecoli_unpaired_ls_long,
-recorded where the flow calls the wrapper). Prints one line per kernel,
-shape and build, the card's name and power limit, and a JSON line of
+revcmpl rows, long gaps, colour-space pairs with BASE_N cells and the
+4-layer DP's own backpointers) at the main paths' shapes and the extra
+ones, every build's output must equal the plain PyTorch version bit for
+bit, global and local; then the builds are timed in turns (A B ... B A),
+global mode, by their device time per launch (chip_smoke._device_ms:
+calls queued behind a sleep kernel) and by CUDA events over calls made
+back to back: the vector SW in letter space at (B, R, G) = (8192, 40,
+64 / 128 / 256) and in colour space at (2048, 36, 64), the colour-space
+traceback at (2048, 36, 64) and (8192, 36, 128). The
+long-read traceback is also timed on the long-read flow's own first
+launch (8192 reads of dataset.ecoli_unpaired_ls_long, recorded where the
+flow calls the wrapper). --scaling adds the time of 1, 132 and 1056
+pairs (one pair is the latency floor). --kernels picks the groups to
+run (vector, stats, long, flow, cs_traceback; all by default). Prints
+one line per kernel, shape and build, each build's launch
+configurations, the card's name and power limit, and a JSON line of
 every time.
 """
 from __future__ import annotations
@@ -36,7 +47,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("sw_full.cu", "sw_full_bp.cu", "ls_traceback.cu")
+SOURCES = ("sw_vector.cu", "sw_full.cu", "sw_full_bp.cu",
+           "ls_traceback.cu", "cs_traceback.cu")
+# (B, R, G, colour space) of the vector SW
+VEC_SHAPES = ((8192, 40, 64, False), (8192, 40, 128, False),
+              (8192, 40, 256, False), (2048, 36, 64, True))
+CS_TB_SHAPES = ((2048, 36, 64), (8192, 36, 128))
 STATS_SHAPES = ((8192, 40, 64), (8192, 40, 128), (8192, 40, 256))
 LONG_SHAPES = ((4096, 256, 352), (256, 1000, 1408))
 # pairs per launch of --scaling, below the main shapes' B
@@ -79,29 +95,137 @@ def _tb_call(lib, tb, packed, ops):
         raise RuntimeError(f"ls_traceback_launch: cudaError {rc}")
 
 
+def _vec_call(lib, v, out, kw):
+    B, G = v[0].shape
+    R = v[2].shape[1]
+    rc = lib.sw_vector_launch(
+        v[0].data_ptr(), None if len(v) < 5 else v[4].data_ptr(),
+        v[1].data_ptr(), v[2].data_ptr(), v[3].data_ptr(), out.data_ptr(),
+        B, G, R, kw["match"], kw["mismatch"],
+        -kw["a_gap_open"] - kw["a_gap_ext"], -kw["a_gap_ext"],
+        -kw["b_gap_open"] - kw["b_gap_ext"], -kw["b_gap_ext"], _stream())
+    if rc != 0:
+        raise RuntimeError(f"sw_vector_launch: cudaError {rc}")
+
+
+def _cs_tb_call(lib, tb, packed, steps):
+    B, G = tb[0].shape
+    R = tb[1].shape[2]
+    rc = lib.cs_traceback_launch(*(x.data_ptr() for x in tb),
+                                 packed.data_ptr(), steps.data_ptr(), B, G,
+                                 R, _stream())
+    if rc != 0:
+        raise RuntimeError(f"cs_traceback_launch: cudaError {rc}")
+
+
 def _turns(libs, fn, reps):
-    """{build: [ms, ms]}: each build timed twice, in the order A B .. B A."""
+    """{build: [(event ms, device ms), ...]}: each build timed twice, in
+    the order A B .. B A, by CUDA events over calls made back to back
+    (chip_smoke._time_ms) and over calls queued behind a sleep kernel
+    (chip_smoke._device_ms: the host's time per call hidden)."""
     import chip_smoke as cs
     names = list(libs)
     t = {n: [] for n in names}
     for n in names + names[::-1]:
-        t[n].append(cs._time_ms(lambda: fn(libs[n]), reps=reps))
+        t[n].append((cs._time_ms(lambda: fn(libs[n]), reps=reps),
+                     cs._device_ms(lambda: fn(libs[n]), reps)))
     return t
 
 
 def _report(kernel, shape, t, rec):
-    for n, ms in t.items():
-        mean = sum(ms) / len(ms)
-        print(f"{kernel} {shape} {n}: {mean!r} ms (turns {ms[0]!r}, "
-              f"{ms[1]!r})")
-        rec.append(dict(kernel=kernel, shape=list(shape), build=n, ms=mean,
-                        turns=ms))
+    for n, turns in t.items():
+        ev = [x[0] for x in turns]
+        dv = [x[1] for x in turns]
+        mean, dmean = sum(ev) / len(ev), sum(dv) / len(dv)
+        print(f"{kernel} {shape} {n}: device {dmean!r} ms (turns "
+              f"{dv[0]!r}, {dv[1]!r}); events {mean!r} ms a call (turns "
+              f"{ev[0]!r}, {ev[1]!r})")
+        rec.append(dict(kernel=kernel, shape=list(shape), build=n,
+                        dev_ms=dmean, dev_turns=dv, ms=mean, turns=ev))
 
 
 def _full(a, dev):
     t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
     return t, tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
                                    "ay", "alen", "awid", "revcmpl"))
+
+
+def ab_vector(dev, libs, rec, scaling):
+    """The vector SW's narrow kernel, letter and colour space."""
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw_vector
+    rng = np.random.default_rng(20261021)
+    for B, R, G, cmode in VEC_SHAPES:
+        if cmode:
+            a = cs._cs_vec_pairs(rng, B, G, R)
+            kw = dict(cs.CS_KW, mismatch=cs.CS_KW["match"] + cs.XOVER)
+            keys = ("genome", "glen", "read", "rlen", "g_row0")
+        else:
+            a = cs._pairs(rng, B, G, R)
+            kw = cs.KW
+            keys = ("genome", "glen", "read", "rlen")
+        v = tuple(torch.from_numpy(a[k]).to(dev) for k in keys)
+        want = sw_vector.sw_vector_batch_ref(*v, cs_mode=cmode, **kw)
+        out = torch.empty(B, dtype=torch.int32, device=dev)
+        for n, lib in libs.items():
+            out.fill_(-7)
+            _vec_call(lib, v, out, kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"sw_vector {n} {(B, R, G)} cs={cmode}:"
+                                     f" {int((out != want).sum())} differ")
+        name = "sw_vector_cs" if cmode else "sw_vector"
+        print(f"{name} {(B, R, G)}: every build equals the plain version")
+        _report(name, (B, R, G), _turns(
+            libs, lambda lib: _vec_call(lib, v, out, kw), 20), rec)
+        if scaling and G == 64:
+            # n pairs past the pad rows: one pair's rows are the latency
+            # floor; the full launch adds the throughput
+            for n in SCALING_N:
+                sub = tuple(x[256:256 + n] for x in v)
+                _report(f"{name}[{n} pairs]", (n, R, G), _turns(
+                    libs, lambda lib: _vec_call(lib, sub, out, kw), 20),
+                    rec)
+
+
+def ab_cs_traceback(dev, libs, rec, scaling):
+    """The colour-space traceback on the 4-layer DP's own backpointers."""
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw_cs_full
+    rng = np.random.default_rng(20261022)
+    for B, R, G in CS_TB_SHAPES:
+        an = cs._cs_dp_pairs(rng, B, G, R)
+        a = {k: torch.from_numpy(x).to(dev) for k, x in an.items()}
+        dp = tuple(a[k] for k in cs._DP_ORDER)
+        tb = (a["genome"], a["qr"], *sw_cs_full.sw_full_cs_dp(*dp, **cs.CS_KW),
+              a["thresh"])
+        want = sw_cs_full.cs_traceback_ref(*tb)
+        packed = torch.empty((B, 12), dtype=torch.int16, device=dev)
+        steps = torch.empty((B, R + G), dtype=torch.int8, device=dev)
+        for n, lib in libs.items():
+            packed.fill_(-7)
+            steps.fill_(99)
+            _cs_tb_call(lib, tb, packed, steps)
+            torch.cuda.synchronize()
+            if not (torch.equal(packed, want[0])
+                    and torch.equal(steps, want[1])):
+                raise AssertionError(f"cs_traceback {n} {(B, R, G)}: "
+                                     f"differs")
+        nops = want[0][:, 4].to(torch.int32)
+        print(f"cs_traceback {(B, R, G)}: every build equals the plain "
+              f"version; walks: {cs._walks(nops[nops > 0])}")
+        _report("cs_traceback", (B, R, G), _turns(
+            libs, lambda lib: _cs_tb_call(lib, tb, packed, steps), 20), rec)
+        if scaling and (B, R, G) == CS_TB_SHAPES[0]:
+            order = torch.argsort(nops, descending=True)
+            for n in SCALING_N:
+                sub = tuple(x.index_select(0, order[:n]).contiguous()
+                            for x in tb)
+                _report(f"cs_traceback[{n} longest walks]", (n, R, G),
+                        _turns(libs, lambda lib: _cs_tb_call(
+                            lib, sub, packed, steps), 20), rec)
+        del tb, want, dp, a
+        torch.cuda.empty_cache()
 
 
 def ab_stats(dev, libs, rec, scaling):
@@ -229,15 +353,21 @@ def ab_flow_traceback(dev, libs, rec):
         libs, lambda lib: _tb_call(lib, tb, packed, ops), 10), rec)
 
 
+GROUPS = ["vector", "cs_traceback", "stats", "long", "flow"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", action="append", default=[],
-                    help="NAME=DIR: the three sources in DIR as one more "
+                    help="NAME=DIR: the five sources in DIR as one more "
                          "build")
     ap.add_argument("--scaling", action="store_true",
                     help="also time every build on the first pairs of the "
-                         "main shapes (sw_full_stats) and on the pairs with "
-                         "the longest walks (ls_traceback): 1, 132, 1056")
+                         "main shapes (sw_vector, sw_full_stats) and on the "
+                         "pairs with the longest walks (ls_traceback, "
+                         "cs_traceback): 1, 132, 1056")
+    ap.add_argument("--kernels", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the groups to run (all by default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
@@ -259,10 +389,13 @@ def main() -> None:
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
     for n, lib in libs.items():
-        for entry, shapes in (("sw_full_stats_config", STATS_SHAPES),
-                              ("sw_full_bp_config", LONG_SHAPES),
-                              ("ls_traceback_config", LONG_SHAPES)):
-            if not hasattr(lib, entry):
+        for group, entry, shapes in (
+                ("vector", "sw_vector_config", [s[:3] for s in VEC_SHAPES]),
+                ("cs_traceback", "cs_traceback_config", CS_TB_SHAPES),
+                ("stats", "sw_full_stats_config", STATS_SHAPES),
+                ("long", "sw_full_bp_config", LONG_SHAPES),
+                ("long", "ls_traceback_config", LONG_SHAPES)):
+            if group not in args.kernels or not hasattr(lib, entry):
                 continue
             for B, R, G in shapes:
                 c = (ctypes.c_int * len(_build.CONFIG_KEYS))()
@@ -271,9 +404,12 @@ def main() -> None:
                 print(f"{n} {entry} {(B, R, G)}: "
                       f"{dict(zip(_build.CONFIG_KEYS, c))}")
     rec = []
-    ab_stats(dev, libs, rec, args.scaling)
-    ab_long(dev, libs, rec, args.scaling)
-    ab_flow_traceback(dev, libs, rec)
+    for g in GROUPS:
+        if g in args.kernels:
+            if g == "flow":
+                ab_flow_traceback(dev, libs, rec)
+            else:
+                globals()[f"ab_{g}"](dev, libs, rec, args.scaling)
     print(cs._smi())
     print(json.dumps({"ab": rec}))
 

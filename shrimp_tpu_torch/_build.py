@@ -33,11 +33,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (a plain int would be cut to 32 bits); sizes and scores int.
 _SIGNATURES = {
     "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P],
+    "sw_vector_config": [_I, _I, _I, _P],
     "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
     "sw_full_stats_config": [_I, _I, _I, _P],
     "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
     "sw_cs_full_config": [_I, _P],
     "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
+    "cs_traceback_config": [_I, _I, _I, _P],
     "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P],
     "sw_full_bp_config": [_I, _I, _I, _P],
     "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P],

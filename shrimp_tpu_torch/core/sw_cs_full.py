@@ -379,6 +379,13 @@ def _launch_tb(genome_ls, qr, best, bi, bj, bk, bfrm, bp, thresh):
     for name, t in (("best", best), ("bi", bi), ("bj", bj), ("bk", bk),
                     ("bfrm", bfrm), ("thresh", thresh)):
         check_tensor(name, t, torch.int32, (B,), dev)
+    if (G % 8 or bp.data_ptr() % 16 or genome_ls.data_ptr() % 4
+            or qr.data_ptr() % 4):
+        raise NotImplementedError(
+            f"cs_traceback: the CUDA kernel loads the backpointers in "
+            f"16-byte pieces and the windows and read layers in 4-byte "
+            f"ones: G = {G} must be a multiple of 8, bp 16-byte aligned "
+            f"and genome_ls and qr 4-byte aligned")
     lib = _build.load().lib
     packed = torch.empty((B, 12), dtype=torch.int16, device=dev)
     steps = torch.empty((B, R + G), dtype=torch.int8, device=dev)
@@ -401,7 +408,8 @@ def cs_traceback(genome_ls: torch.Tensor, qr: torch.Tensor,
     """(packed [B, 12] int16, steps_rev [B, R + G] int8) from the DP's
     best cells and [B, R, 4, G] int16 backpointers. CPU tensors take the
     plain version; CUDA tensors launch the kernel (uint8 windows and
-    layers, int32 per-pair values, contiguous) or raise."""
+    layers, int32 per-pair values, contiguous; G a multiple of 8, as the
+    flows' windows are) or raise."""
     args = (genome_ls, qr, best, bi, bj, bk, bfrm, bp, thresh)
     if genome_ls.device.type == "cpu":
         return cs_traceback_ref(*args)

@@ -9,26 +9,39 @@
 // lstocs(genome letter, initbp), and every other row against the colour
 // window (sw_pallas.py:81-83, sw_jax.py:89-93).
 //
-// What bounds it on an H100: integer ALU. A DP cell costs about ten
-// int32 operations (compare, adds, maxes) and a launch computes B*R*G
-// cells, while device memory supplies only the window and read bytes of
-// each pair: a few bytes per cell at most, and L1/L2 serve the repeats.
+// What bounds it on an H100: integer ALU and the chain of a row. A DP
+// cell costs about ten int32 operations (adds and maxes) and a launch
+// computes up to B*R*G cells, while device memory supplies only the
+// window and read bytes of each pair; inside a row, each column's E gap
+// depends on the column before it.
 //
-// What the simple design does about it: one thread per (window, read)
-// pair, the inter-task layout the TPU kernel used with one lane per
-// pair, so no thread waits on another. The thread walks rows i and,
-// inside a row, columns j in order; the E-gap chain that the TPU kernel
-// resolves with a log-doubling cummax is then a scalar carried along j.
-// The previous row's H and F live in per-thread arrays sized by the G
-// bucket (a template parameter), in local memory that L1 caches. Rows
-// i >= rlen and columns j >= glen score 0 in the reference, so the
-// loops stop there. Blocks are small (64 threads) so that the main
-// path's 8192-pair launches spread over all 132 SMs.
+// What the design does about it, for windows of G <= 256: a segment of
+// L lanes per (window, read) pair, several pairs to a warp. Lane l owns
+// the S = GMAX / L consecutive columns [l*S, l*S + S) of the G bucket
+// GMAX, and S is a compile-time constant, so its strip of the previous
+// row's H and F and its window bytes (and, in colour space, its row-0
+// colours) live in registers. The segment sweeps an anti-diagonal
+// wavefront: at step t lane l scores row i = t - l over its strip with
+// the recurrence of the plain loop, cell by cell in column order. From
+// lane l - 1 it takes, by a shuffle, the two values the row loop carries
+// into the strip: c, the running max of h0[k] + k*gea over the columns
+// left of it in row i, and H[i][l*S - 1]; what it took one step earlier,
+// H[i-1][l*S - 1], is its diagonal. Lane 0 takes FILL and the pad
+// column's 0. A pair takes rlen + L - 1 steps of S cells, where one
+// thread would take rlen * glen cells in a row, with the same arithmetic
+// in the same order, so the scores stay bit-equal. Hopper's DPX
+// add-max instructions (__viaddmax_s32, __viaddmax_s32_relu) do an add
+// and a max of a cell in one. Columns at or past glen score but never
+// reach the best (a mask per column: they lie right of every column that
+// counts, so they feed only each other); lanes wholly past glen and rows
+// at or past rlen skip their step; the warp runs to its longest pair.
+// The read byte of the next row is loaded one step ahead. Blocks hold up
+// to 128 threads, halved while some SM would get no block.
 //
 // Windows wider than 256 (long reads: G = 352 at 250 bp, up to 4095 in
-// the packed flow) take a second kernel, one warp per pair, because a
-// thread per pair would keep G-wide rows in local memory and leave a
-// launch of a few hundred long pairs on a handful of SMs. Lane l owns a
+// the packed flow) take a second kernel, one warp per pair, because
+// their rows do not fit a segment's registers and a launch of a few
+// hundred long pairs needs all the lanes it can get. Lane l owns a
 // strip of S consecutive columns (S odd: distinct shared-memory banks);
 // the previous row's H and F and the genome window sit in shared memory.
 // A row runs in two passes over each strip: (1) h0 = max(0, H diagonal
@@ -39,15 +52,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "banded_sw.cuh"
+
 namespace {
 
 constexpr int NEG = -(1 << 30);
 constexpr int FILL = -(1 << 28);
-constexpr int BLOCK = 64;
+constexpr int THREADS = 128;   // threads per block of the narrow kernel
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// lanes per pair of each G bucket: S = GMAX / L = 8 columns a lane, in
+// both modes (8 columns a lane beat 4 and 16 on the card: PERF.md)
+constexpr int LANES_64 = 8, LANES_128 = 16, LANES_256 = 32;
 
-template <int GMAX>
-__global__ void __launch_bounds__(BLOCK)
+template <int GMAX, int L>
+__global__ void __launch_bounds__(THREADS)
 sw_vector_kernel(const uint8_t* __restrict__ genome,
                  const uint8_t* __restrict__ g_row0,
                  const int32_t* __restrict__ glen,
@@ -55,41 +73,82 @@ sw_vector_kernel(const uint8_t* __restrict__ genome,
                  const int32_t* __restrict__ rlen,
                  int32_t* __restrict__ out, int B, int G, int R, int m,
                  int mm, int goa, int gea, int gob, int geb) {
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* g = genome + (size_t)b * G;
-  const uint8_t* r = read + (size_t)b * R;
-  const int nj = min(glen[b], G);
-  const int ni = min(rlen[b], R);
-  int h[GMAX];   // H of the previous row, columns 0..nj-1
-  int f[GMAX];   // F (vertical gap) of the previous row
-  for (int j = 0; j < nj; ++j) {
-    h[j] = 0;
-    f[j] = NEG;
+  constexpr int S = GMAX / L;
+  static_assert(S * L == GMAX && (L & (L - 1)) == 0 && L <= 32, "lanes");
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = tid / L, l = tid % L;
+  const bool live = b < B;   // a segment past B runs no step
+  const int nj = live ? min(glen[b], G) : 0;
+  const int ni = live ? min(rlen[b], R) : 0;
+  const int j0 = l * S;
+  // columns of the strip below glen; steps this lane needs (rows 0 ..
+  // ni - 1 at steps l .. l + ni - 1), and the warp's count of steps.
+  // Both pass through the empty asm statement: ptxas 12.8/12.9 folds
+  // min/max bounds wrongly (banded_sw.cuh)
+  int nv = min(max(nj - j0, 0), S);
+  int T = nv > 0 && ni > 0 ? ni + l : 0;
+  asm volatile("" : "+r"(nv), "+r"(T));
+  T = __reduce_max_sync(FULL_MASK, T);
+
+  const uint8_t* gp = genome + (size_t)b * G;
+  const uint8_t* rd = read + (size_t)b * R;
+  int h[S], f[S], gw[S], gc[S], mk[S], jg[S], ej[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    // the window's bytes up to G, loaded while glen and rlen are (the
+    // columns at or past glen are masked)
+    const int j = j0 + k;
+    h[k] = 0;
+    f[k] = NEG;
+    gw[k] = live && j < G ? gp[j] : 0;
+    // colour space: row 0 compares against g_row0
+    gc[k] = live && j < G && g_row0 != nullptr ? g_row0[(size_t)b * G + j]
+                                                : gw[k];
+    mk[k] = k < nv ? -1 : 0;
+    jg[k] = j * gea;                // h0 + j*gea enters the E chain
+    ej[k] = -(goa - gea) - j * gea; // E of column j is c + ej
   }
+  int rch = live && R > 0 ? rd[0] : 0;   // the read byte of this row
   int best = 0;
-  for (int i = 0; i < ni; ++i) {
-    const int rch = r[i];
-    // colour space: row 0 compares against g_row0 (one select per row)
-    const uint8_t* gi = (i == 0 && g_row0 != nullptr)
-                            ? g_row0 + (size_t)b * G : g;
-    int hdiag = 0;   // H[i-1][j-1]; the j = -1 pad column is always 0
-    int c = FILL;    // running max of h0[k] + k*gea over k < j
-    for (int j = 0; j < nj; ++j) {
-      const int hp = h[j];
-      const int fj = max(hp - gob, f[j] - geb);
-      const int s = (gi[j] == rch) ? m : mm;
-      const int h0 = max(max(0, hdiag + s), fj);
-      const int e = c - (goa - gea) - j * gea;
-      const int hj = max(h0, e);
-      c = max(c, h0 + j * gea);
-      best = max(best, hj);
-      hdiag = hp;
-      h[j] = hj;
-      f[j] = fj;
+  int cout = FILL, hout = 0;   // c and H at the strip's end, last row
+  int hup = 0;                 // H[i-1][j0-1], from the lane to the left
+  for (int t = 0; t < T; ++t) {
+    int cin = __shfl_up_sync(FULL_MASK, cout, 1, L);
+    int hin = __shfl_up_sync(FULL_MASK, hout, 1, L);
+    if (l == 0) {   // the row starts here: no E chain, the pad column
+      cin = FILL;
+      hin = 0;
     }
+    const int i = t - l;
+    if (i >= 0 && i < ni && nv > 0) {
+      int hdiag = hup, c = cin;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const int hp = h[k];
+        const int fj = __viaddmax_s32(hp, -gob, f[k] - geb);
+        const int s = gc[k] == rch ? m : mm;
+        const int h0 = __viaddmax_s32_relu(hdiag, s, fj);
+        const int hj = __viaddmax_s32(c, ej[k], h0);
+        c = __viaddmax_s32(h0, jg[k], c);
+        best = max(best, hj & mk[k]);
+        hdiag = hp;
+        h[k] = hj;
+        f[k] = fj;
+      }
+      cout = c;
+      hout = h[S - 1];
+      if (i == 0) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) gc[k] = gw[k];
+      }
+      if (i + 1 < ni) rch = rd[i + 1];
+    }
+    hup = hin;
   }
-  out[b] = best;
+#pragma unroll
+  for (int d = L / 2; d > 0; d >>= 1)
+    best = max(best, __shfl_xor_sync(FULL_MASK, best, d, L));
+  if (live && l == 0) out[b] = best;
 }
 
 // max over the values of the lanes below this one (FILL for lane 0)
@@ -168,16 +227,40 @@ sw_vector_wide_kernel(const uint8_t* __restrict__ genome,
   if (lane == 0) out[b] = best;
 }
 
-template <int GMAX>
-void launch(const void* genome, const void* g_row0, const void* glen,
-            const void* read, const void* rlen, void* out, int B, int G,
-            int R, int m, int mm, int goa, int gea, int gob, int geb,
-            cudaStream_t stream) {
-  sw_vector_kernel<GMAX><<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+// Threads per block of the narrow kernel for B pairs of L lanes: THREADS,
+// halved (down to one warp) while some SM would get no block.
+template <int GMAX, int L>
+cudaError_t narrow_threads(int B, int* threads) {
+  const decltype(&sw_vector_kernel<GMAX, L>) ks[] = {
+      sw_vector_kernel<GMAX, L>};
+  int smem = 0;
+  return banded::prepare(ks, B, L, THREADS, 0, threads, &smem);
+}
+
+template <int GMAX, int L>
+int launch(const void* genome, const void* g_row0, const void* glen,
+           const void* read, const void* rlen, void* out, int B, int G,
+           int R, int m, int mm, int goa, int gea, int gob, int geb,
+           cudaStream_t stream) {
+  int threads = THREADS;
+  const cudaError_t e = narrow_threads<GMAX, L>(B, &threads);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = (long long)B * L;
+  sw_vector_kernel<GMAX, L><<<(int)((n + threads - 1) / threads), threads, 0,
+                              stream>>>(
       static_cast<const uint8_t*>(genome),
       static_cast<const uint8_t*>(g_row0), static_cast<const int32_t*>(glen),
       static_cast<const uint8_t*>(read), static_cast<const int32_t*>(rlen),
       static_cast<int32_t*>(out), B, G, R, m, mm, goa, gea, gob, geb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int GMAX, int L>
+int narrow_config(int B, int* o) {
+  int threads = THREADS;
+  const cudaError_t e = narrow_threads<GMAX, L>(B, &threads);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return banded::config(sw_vector_kernel<GMAX, L>, L, threads, 0, o);
 }
 
 }  // namespace
@@ -185,33 +268,47 @@ void launch(const void* genome, const void* g_row0, const void* glen,
 // genome [B, G] u8, g_row0 [B, G] u8 or null (letter space), glen [B]
 // i32, read [B, R] u8, rlen [B] i32 -> out [B] i32. goa/gob are open +
 // extend costs and gea/geb extend costs, all as positive penalties.
-// G <= 256 takes the thread-per-pair kernel, 256 < G <= 4095 the
-// warp-per-pair kernel. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for G > 4095).
+// G <= 256 takes the narrow kernel (a segment of lanes per pair),
+// 256 < G <= 4095 the warp-per-pair kernel. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for G outside [1, 4095]).
 extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
                                 const void* glen, const void* read,
                                 const void* rlen, void* out, int B, int G,
                                 int R, int m, int mm, int goa, int gea,
                                 int gob, int geb, void* stream) {
   if (B <= 0) return 0;
+  if (G < 1 || G > 4095) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G <= 64)
-    launch<64>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
-               gea, gob, geb, st);
-  else if (G <= 128)
-    launch<128>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
-                gea, gob, geb, st);
-  else if (G <= 256)
-    launch<256>(genome, g_row0, glen, read, rlen, out, B, G, R, m, mm, goa,
-                gea, gob, geb, st);
-  else if (G <= 4095)
-    sw_vector_wide_kernel<<<B, 32, wide_smem(G), st>>>(
-        static_cast<const uint8_t*>(genome),
-        static_cast<const uint8_t*>(g_row0),
-        static_cast<const int32_t*>(glen), static_cast<const uint8_t*>(read),
-        static_cast<const int32_t*>(rlen), static_cast<int32_t*>(out), G, R,
-        m, mm, goa, gea, gob, geb);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<64, LANES_64>(genome, g_row0, glen, read, rlen, out, B, G,
+                                R, m, mm, goa, gea, gob, geb, st);
+  if (G <= 128)
+    return launch<128, LANES_128>(genome, g_row0, glen, read, rlen, out, B,
+                                  G, R, m, mm, goa, gea, gob, geb, st);
+  if (G <= 256)
+    return launch<256, LANES_256>(genome, g_row0, glen, read, rlen, out, B,
+                                  G, R, m, mm, goa, gea, gob, geb, st);
+  sw_vector_wide_kernel<<<B, 32, wide_smem(G), st>>>(
+      static_cast<const uint8_t*>(genome),
+      static_cast<const uint8_t*>(g_row0),
+      static_cast<const int32_t*>(glen), static_cast<const uint8_t*>(read),
+      static_cast<const int32_t*>(rlen), static_cast<int32_t*>(out), G, R,
+      m, mm, goa, gea, gob, geb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch configuration of B pairs of G columns (R is not read; the
+// signature is every <kernel>_config's): out[0..5] = pairs per block,
+// threads per pair, dynamic shared memory bytes per block, resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers per thread and local (spill) bytes per thread, of the
+// kernel that sw_vector_launch takes for G. Returns a cudaError_t.
+extern "C" int sw_vector_config(int B, int G, int R, void* out) {
+  if (G < 1 || G > 4095 || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int* o = static_cast<int*>(out);
+  if (G <= 64) return narrow_config<64, LANES_64>(B, o);
+  if (G <= 128) return narrow_config<128, LANES_128>(B, o);
+  if (G <= 256) return narrow_config<256, LANES_256>(B, o);
+  return banded::config(sw_vector_wide_kernel, 32, 32, wide_smem(G), o);
 }

@@ -224,3 +224,48 @@ def long_gaps(rng: np.random.Generator, genome: np.ndarray, R: int) -> dict:
                         ("alen", max(1, cut // 2)), ("awid", gap + 40)):
             geo[name][k] = v
     return dict(read=read, **geo)
+
+
+def length_edges(rng: np.random.Generator, glen: np.ndarray,
+                 rlen: np.ndarray, G: int, R: int) -> None:
+    """Give a sixteenth of the (window, read) pairs each length edge of
+    the vector SW, in place in the int32 arrays glen and rlen [n]:
+    glen = 1, glen = G, rlen = 1, and glen = G with rlen = R."""
+    k = rng.permutation(len(glen))[:4 * (len(glen) // 16)].reshape(4, -1)
+    glen[k[0]] = 1
+    glen[k[1]] = G
+    rlen[k[2]] = 1
+    glen[k[3]], rlen[k[3]] = G, R
+
+
+def cs_walk_pairs(rng: np.random.Generator, B: int, R: int, G: int) -> dict:
+    """Colour-space traceback inputs whose walks reach the edges (uint8
+    genome [B, G] and qr [B, 4, R]; int16 bp [B, R, 4, G]; int32 best, bi,
+    bj, bk, bfrm, thresh [B]): random backpointers, mostly diagonal codes
+    with now and then a gap, a layer switch or a stop, so walks wander off
+    the diagonal; best cells at the last row and column for a quarter of
+    the pairs and left of column R / 2 for another (walks that end at
+    column 0); start layers other than 0 and layer switches (the leading
+    crossover); bfrm = 0 in every sixteenth pair; scores below thresh;
+    BASE_N cells."""
+    g = rng.integers(0, 4, (B, G)).astype(np.uint8)
+    qr = rng.integers(0, 4, (B, 4, R)).astype(np.uint8)
+    g[rng.random((B, G)) < 0.02] = C.BASE_N
+    qr[rng.random((B, 4, R)) < 0.02] = C.BASE_N
+    code = rng.choice(8, size=(B, R, 4, G, 3),
+                      p=[0.005, 0.06, 0.06, 0.06, 0.06, 0.5, 0.205, 0.05])
+    lyr = rng.choice(4, size=(B, R, 4, G, 3), p=[0.91, 0.03, 0.03, 0.03])
+    f = code << 2 | lyr
+    bp = (f[..., 0] | f[..., 1] << 5 | f[..., 2] << 10).astype(np.int16)
+    bi = rng.integers(0, R, B)
+    bj = rng.integers(0, G, B)
+    q = B // 4
+    bi[:q], bj[:q] = R - 1, G - 1
+    bj[q:2 * q] = rng.integers(0, max(1, R // 2), q)
+    bfrm = rng.integers(1, 8, B) << 2 | rng.integers(0, 4, B)
+    bfrm[::16] = 0
+    i32 = {k: v.astype(np.int32) for k, v in dict(
+        best=rng.integers(1, 400, B), bi=bi, bj=bj,
+        bk=rng.integers(0, 4, B), bfrm=bfrm,
+        thresh=rng.integers(0, 100, B)).items()}
+    return dict(genome=g, qr=qr, bp=bp, **i32)

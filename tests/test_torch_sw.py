@@ -23,7 +23,7 @@ from shrimp_tpu.index.seeds import default_seeds
 from shrimp_tpu.mapper import Mapper as RefMapper
 from shrimp_tpu_torch.core import sw as port_sw
 from shrimp_tpu_torch.core import sw_full, sw_vector
-from shrimp_tpu_torch.dataset import bands, edge_bands
+from shrimp_tpu_torch.dataset import bands, edge_bands, length_edges
 from shrimp_tpu_torch.device import get_device
 from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
 from shrimp_tpu_torch.index import build as port_index
@@ -81,7 +81,8 @@ _FULL_ORDER = ("genome", "glen", "read", "rlen", "ax", "ay", "alen", "awid",
                "revcmpl")
 
 
-@pytest.mark.parametrize("G,R", [(32, 24), (32, 40), (64, 24), (64, 40)])
+@pytest.mark.parametrize("G,R", [(32, 24), (32, 40), (64, 24), (64, 40),
+                                 (128, 40), (256, 40)])
 def test_sw_vector_ref_matches_pallas_and_xla(G, R):
     a = _vec_inputs(G * 100 + R, 1024, G, R)
     pallas = np.asarray(sw_vector_batch_pallas(*a, interpret=True, **KW))
@@ -293,18 +294,31 @@ def test_wrappers_raise_off_cpu_without_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,R", [(64, 40), (128, 40), (256, 40)])
-def test_cuda_kernels_match_plain(G, R):
-    """The stats flow's G buckets, a quarter of the pairs at the edge
-    bands of dataset.edge_bands (tolerance 0)."""
+@pytest.mark.parametrize("G,R,B", [
+    pytest.param(64, 40, 8192, id="64-40"),
+    pytest.param(128, 40, 8192, id="128-40"),
+    pytest.param(256, 40, 8192, id="256-40"),
+    # windows that are no G bucket; B not a multiple of the pairs a block
+    pytest.param(40, 40, 8191, id="40-40-8191"),
+    pytest.param(96, 72, 8191, id="96-72-8191"),
+    pytest.param(200, 40, 8191, id="200-40-8191")])
+def test_cuda_kernels_match_plain(G, R, B):
+    """The stats flow's G buckets and windows between them, a quarter of
+    the pairs at the edge bands of dataset.edge_bands, the vector SW's
+    pairs also at the length edges of dataset.length_edges (tolerance
+    0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    a = _full_inputs(G, 8192, G, R)
-    for k, v in edge_bands(np.random.default_rng(G), 2048, G, R).items():
+    a = _full_inputs(G, B, G, R)
+    rng = np.random.default_rng(G)
+    for k, v in edge_bands(rng, 2048, G, R).items():
         a[k][:2048] = v
     full = [torch.from_numpy(a[k]).to(dev) for k in _FULL_ORDER]
-    vec = full[:4]
+    glen, rlen = a["glen"].copy(), a["rlen"].copy()
+    length_edges(rng, glen, rlen, G, R)
+    vec = [full[0], torch.from_numpy(glen).to(dev), full[2],
+           torch.from_numpy(rlen).to(dev)]
     n0 = sw_vector.LAUNCHES.n
     assert torch.equal(sw_vector.sw_vector_batch(*vec, **KW),
                        sw_vector.sw_vector_batch_ref(*vec, **KW))

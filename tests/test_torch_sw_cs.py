@@ -24,7 +24,7 @@ from shrimp_tpu.core.sw_cs_jax import (sw_full_cs_tpu, sw_full_cs_tpu_pallas,
 from shrimp_tpu.core.sw_pallas import sw_vector_batch_pallas
 from shrimp_tpu_torch.core import sw_cs, sw_cs_full, sw_vector
 from shrimp_tpu_torch.core.sw import cat_word_plane
-from shrimp_tpu_torch.dataset import edge_bands
+from shrimp_tpu_torch.dataset import cs_walk_pairs, edge_bands, length_edges
 from shrimp_tpu_torch.mapper import Mapper
 
 # gmapper-cs's default scores (constants.DEF_CS_*)
@@ -104,7 +104,7 @@ def _dp_inputs(seed, B, G, R, edge=False):
     return a
 
 
-@pytest.mark.parametrize("G,R", [(32, 24), (64, 36)])
+@pytest.mark.parametrize("G,R", [(32, 24), (64, 36), (128, 36)])
 def test_sw_vector_cs_ref_matches_pallas_and_xla(G, R):
     g, glen, r, rlen, g0 = _vec_cs_inputs(G * 100 + R, 1024, G, R)
     kw = dict(KW, mismatch=KW["match"] + XOVER)
@@ -150,24 +150,31 @@ def test_sw_full_cs_dp_ref_matches_pallas(local, taboo, edge):
     assert np.array_equal(bp.numpy(), want[5])
 
 
-@pytest.mark.parametrize("local,taboo", [(False, 4), (True, 0)])
-def test_sw_full_cs_matches_jax(local, taboo):
-    """DP + traceback against the scan formulation and the Pallas kernel
-    with the shared traceback: packed rows and step strings."""
-    a = _dp_inputs(20 + local, 1024, 64, 36)
+@pytest.mark.parametrize("local,taboo,G,B,pallas,aligned", [
+    pytest.param(False, 4, 64, 1024, True, 200, id="False-4"),
+    pytest.param(True, 0, 64, 1024, True, 200, id="True-0"),
+    # the Pallas kernel's batch tile at G = 128 is more than 512 rows
+    pytest.param(False, 0, 128, 512, False, 50, id="g128-False-0")])
+def test_sw_full_cs_matches_jax(local, taboo, G, B, pallas, aligned):
+    """DP + traceback against the scan formulation and (`pallas`) the
+    Pallas kernel with the shared traceback: packed rows and step
+    strings; more than `aligned` rows align."""
+    R = 36
+    a = _dp_inputs(20 + local + (G != 64), B, G, R)
     args = [a[k] for k in _DP_ORDER] + [a["thresh"]]
     kw = dict(KW, local_alignment=local, indel_taboo_len=taboo)
     jargs = args[:8] + [args[8] != 0] + args[9:]
-    want = [np.asarray(x) for x in sw_full_cs_tpu(*jargs, **kw)]
-    want_p = [np.asarray(x) for x in sw_full_cs_tpu_pallas(
-        *jargs, interpret=True, **kw)]
+    wants = [[np.asarray(x) for x in sw_full_cs_tpu(*jargs, **kw)]]
+    if pallas:
+        wants.append([np.asarray(x) for x in sw_full_cs_tpu_pallas(
+            *jargs, interpret=True, **kw)])
     packed, steps = (x.numpy() for x in sw_cs.sw_full_cs(*_t(*args), **kw))
     assert packed.dtype == np.int16 and steps.dtype == np.int8
-    assert steps.shape == (1024, 36 + 64)
-    for w in (want, want_p):
+    assert steps.shape == (B, R + G)
+    for w in wants:
         assert np.array_equal(packed, w[0])
         assert np.array_equal(steps, w[1])
-    assert (packed[:, 0] > 0).sum() > 200
+    assert (packed[:, 0] > 0).sum() > aligned
     assert (packed[:, 11] > 0).any()       # crossovers walked
 
 
@@ -265,12 +272,22 @@ def test_cs_wrappers_raise_off_cpu_without_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("local,taboo", [(False, 0), (True, 4)])
-def test_cuda_cs_kernels_match_plain(local, taboo):
+@pytest.mark.parametrize("local,taboo,B,R,G", [
+    pytest.param(False, 0, 2048, 36, 64, id="False-0"),
+    pytest.param(True, 4, 2048, 36, 64, id="True-4"),
+    pytest.param(False, 0, 2048, 36, 256, id="g256-False-0"),
+    pytest.param(True, 0, 2048, 72, 128, id="r72-True-0")])
+def test_cuda_cs_kernels_match_plain(local, taboo, B, R, G):
+    """The CS kernels on the card against their plain versions (tolerance
+    0): the DP and the traceback on its backpointers, a quarter of the
+    pairs at the edge bands; the vector SW with the length edges of
+    dataset.length_edges; the traceback also on dataset.cs_walk_pairs
+    (walks that reach row 0 and column 0, leave the kernel's band, start
+    outside layer 0, or do not start)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    a = _dp_inputs(3, 2048, 64, 36, edge=True)
+    a = _dp_inputs(3, B, G, R, edge=True)
     args = [torch.from_numpy(a[k]).to(dev) for k in _DP_ORDER]
     thresh = torch.from_numpy(a["thresh"]).to(dev)
     kw = dict(KW, local_alignment=local, indel_taboo_len=taboo)
@@ -285,8 +302,38 @@ def test_cuda_cs_kernels_match_plain(local, taboo):
     for x, w in zip(sw_cs_full.cs_traceback(*tb),
                     sw_cs_full.cs_traceback_ref(*tb)):
         assert torch.equal(x, w)
-    v = [torch.from_numpy(x).to(dev) for x in _vec_cs_inputs(4, 2048, 64,
-                                                              36)]
+    rng = np.random.default_rng(G + R)
+    w = cs_walk_pairs(rng, 512, R, G)
+    tb = [torch.from_numpy(w[k]).to(dev) for k in (
+        "genome", "qr", "best", "bi", "bj", "bk", "bfrm", "bp", "thresh")]
+    for x, y in zip(sw_cs_full.cs_traceback(*tb),
+                    sw_cs_full.cs_traceback_ref(*tb)):
+        assert torch.equal(x, y)
+    g, glen, r, rlen, g0 = _vec_cs_inputs(4, B, G, R)
+    length_edges(rng, glen, rlen, G, R)
+    v = [torch.from_numpy(x).to(dev) for x in (g, glen, r, rlen, g0)]
     assert torch.equal(
         sw_vector.sw_vector_batch(*v, cs_mode=True, **KW),
         sw_vector.sw_vector_batch_ref(*v, cs_mode=True, **KW))
+
+
+@pytest.mark.cuda
+def test_cuda_cs_traceback_refuses_unaligned():
+    """The traceback kernel copies in 16- and 4-byte pieces: G not a
+    multiple of 8, backpointers off a 16-byte boundary and windows off a
+    4-byte one raise rather than launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    B, R = 64, 36
+    for G, off, goff in ((60, 0, 0), (64, 1, 0), (64, 0, 1)):
+        bp = torch.zeros(B * R * 4 * G + 8, dtype=torch.int16, device=dev)[
+            off:off + B * R * 4 * G].view(B, R, 4, G)
+        g = torch.zeros(B * G + 4, dtype=torch.uint8, device=dev)[
+            goff:goff + B * G].view(B, G)
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        qr = torch.zeros((B, 4, R), dtype=torch.uint8, device=dev)
+        n0 = sw_cs_full.TB_LAUNCHES.n
+        with pytest.raises(NotImplementedError, match="16-byte"):
+            sw_cs_full.cs_traceback(g, qr, z, z, z, z, z, bp, z)
+        assert sw_cs_full.TB_LAUNCHES.n == n0
