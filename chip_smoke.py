@@ -73,6 +73,33 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    and the traceback's time, bound and walk lengths on the flow's own
    walks beside the test pairs'.
 
+12. Letter space at human-genome candidate density: bin 0 of
+   bench_hg.py's synthetic genome (dataset.hg_bin: SINE-, LINE- and
+   satellite-like repeats) cut to HG_BIN_LEN bases, and bench_hg.py's
+   HG_READS 36 bp reads, through fastpath.map_unpaired_sam_stream; every
+   batch must take the two-phase dispatch (vector SW alone on every
+   window, then the full SW on the pass-1 survivors); prints the list
+   cutoff, windows per read, the vec-only launch rows, phase-B rows per
+   read, reads/s, stage seconds, peak device memory and the card's busy
+   share. The SAM of the first HG_GATE_OFF_READS reads must equal a card
+   run with the gate forced off, and that of the first HG_CPU_READS the
+   port's CPU run. The vector SW is held against its plain version on the
+   flow's own first vec-only launch (its time and bound there are the
+   `sw_vector_hg` record).
+13. The same in colour space: a CS index of the bin and bench_hg.py's CS
+   reads through fastpath_cs.map_unpaired_cs_sam_stream (`sw_vector_cs_hg`).
+14. LS paired, E. coli: bench_all.py's `ecoli-paired` workload
+   (dataset.ecoli_paired_ls, PAIRED_READS reads) through
+   fastpath.map_paired_sam_stream; the SAM of the first PAIRED_CPU_READS
+   reads must equal the port's CPU run.
+15. LS paired at hg-like density: bench_hg.py's `ls-paired` pairs on the
+   phase-12 bin; every batch must take the select-then-full dispatch;
+   checks as in phase 12.
+16. Long reads through two phases: the first LONG_CPU_READS reads of
+   phase 11 with the two-phase threshold forced to 1 window per read; the
+   full SW with backpointers and the traceback run on the selected rows
+   only, and the SAM must equal the fused card run's.
+
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
 events (_device_ms): a short kernel runs in less time than the host
@@ -82,9 +109,11 @@ events.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. Any failure raises, so the exit code is non-zero and
-no result line is printed. The last two lines are the kernels' JSON
-record (each kernel's launches on its slice, error, times and bound)
-and {"ok": true, "device": {...}}.
+no result line is printed. The last lines are the whole run's seconds,
+the card's name and power limit, the kernels' JSON record (each
+kernel's launches on its slice, error, times and bound) and {"ok": true,
+"device": {...}}. `--phases 12,13` runs only the phases listed (the
+build always runs) and then prints no result.
 """
 from __future__ import annotations
 
@@ -93,6 +122,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -118,6 +148,19 @@ BASE_N = 15
 # long slice mapped again on the CPU for the SAM comparison
 LONG_SHAPES = ((4096, 256, 352), (256, 1000, 1408))
 LONG_CPU_READS = 2048
+# hg-like density: one bin of bench_hg.py's 4 x 750 Mbp genome, cut to
+# HG_BIN_LEN bases, and its default read count; the reads held against
+# a gate-off card run (one batch) and against the CPU run
+HG_BIN_LEN = 100_000_000
+HG_READS = 50_000
+HG_GATE_OFF_READS = 8192
+HG_CPU_READS = 512
+# E. coli pairs: bench_all.py's ecoli-paired workload, cut to 100,000
+# reads; the reads of its CPU comparison
+PAIRED_READS = 100_000
+PAIRED_CPU_READS = 4096
+# a two-phase threshold no batch reaches: the fused dispatch
+GATE_OFF = 1 << 30
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and
 # int32 operations/s. The sheet's 67 TFLOP/s float32 counts an FMA as
@@ -244,25 +287,26 @@ def _bp_bytes(B, R, G) -> int:
     return B * (G + R + 28 + 16) + B * R * G
 
 
-def _first_call(m, reads, stream, module, fn):
+def _first_call(m, reads, stream, module, fn, with_kw=False):
     """The tensor arguments (copies) of the first call that one batch of
     `reads` makes through `stream` to the kernel wrapper `module.<fn>`
-    (module: where the flow looks the wrapper up)."""
+    (module: where the flow looks the wrapper up), and with `with_kw`
+    its keyword arguments too."""
     from shrimp_tpu_torch.fastpath import auto_batch_size
     wrapper = getattr(module, fn)
     seen = []
 
     def record(*args, **kw):
         if not seen:
-            seen.append([x.clone() for x in args
-                         if isinstance(x, torch.Tensor)])
+            seen.append(([x.clone() for x in args
+                          if isinstance(x, torch.Tensor)], kw))
         return wrapper(*args, **kw)
     setattr(module, fn, record)
     try:
         _map(m, reads[:auto_batch_size(m)], stream)
     finally:
         setattr(module, fn, wrapper)
-    return seen[0]
+    return seen[0] if with_kw else seen[0][0]
 
 
 def _first_launch(m, reads, stream, module, fn):
@@ -1291,7 +1335,397 @@ def run_long_slice(dev, counters, test_bound, test_walks):
           f"{sam.startswith(sam_gpu)}")
     if sam_cpu != sam_gpu or not sam.startswith(sam_gpu):
         raise AssertionError("long slice: CUDA and CPU SAM bytes differ")
+    return launches, dict(idx=idx, reads=first, fused_sam=sam_gpu)
+
+
+class _Dispatches:
+    """While active, records each batch's device dispatch: (windows,
+    reads, took two phases, rows of each vec-only launch). `cs` picks
+    the colour-space dispatch."""
+
+    def __init__(self, cs: bool):
+        from shrimp_tpu_torch import fastpath, fastpath_cs
+        self.owner, self.name = ((fastpath_cs.FastCS, "_fused_dispatch_cs")
+                                 if cs else (fastpath, "_fused_dispatch"))
+        self.log = []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.owner, self.name)
+        log = self.log
+
+        def record(*args, **kw):
+            out = orig(*args, **kw)
+            futures, win = out[0], out[1]
+            tp = "two_phase" in win
+            log.append((int(args[1].n), kw.get("n_reads"), tp,
+                        [res[0].shape[0] for _, _, res in futures]
+                        if tp else []))
+            return out
+        setattr(self.owner, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+    def summary(self) -> str:
+        tp = sum(1 for x in self.log if x[2])
+        rows = Counter(r for x in self.log for r in x[3])
+        return (f"{tp} of {len(self.log)} batches took two phases; "
+                f"vec-only launches (rows: count): {dict(sorted(rows.items()))}")
+
+    def all_two_phase(self) -> bool:
+        return bool(self.log) and all(x[2] for x in self.log)
+
+
+class _Gate:
+    """Sets the two-phase threshold (windows per read) of the LS or CS
+    dispatch while active."""
+
+    def __init__(self, cs: bool, wpr: int):
+        from shrimp_tpu_torch import fastpath, fastpath_cs
+        self.mod, self.name = ((fastpath_cs, "CS_TWO_PHASE_WPR") if cs
+                               else (fastpath, "LS_TWO_PHASE_WPR"))
+        self.wpr = wpr
+
+    def __enter__(self):
+        self.prev = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.wpr)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.prev)
+
+
+def _with_batch(stream, batch_size):
+    return lambda m, reads: stream(m, reads, batch_size=batch_size)
+
+
+def _peak_gib(dev) -> str:
+    return f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30!r} GiB"
+
+
+def _band_geometry(args) -> dict:
+    """The band geometry (numpy glen, rlen, ax, ay, alen, awid) of a DP
+    wrapper's arguments (genome, glen, read, rlen, ax, ay, alen, awid,
+    ...)."""
+    return {k: args[i].cpu().numpy() for k, i in (
+        ("glen", 1), ("rlen", 3), ("ax", 4), ("ay", 5), ("alen", 6),
+        ("awid", 7))}
+
+
+# the bounds of one launch from its wrapper's arguments and outputs:
+# ((B, R, G), _bound's dict)
+
+def _vec_launch_bound(args, out, cs):
+    (B, G), R = args[0].shape, args[2].shape[1]
+    a = dict(glen=args[1].cpu().numpy(), rlen=args[3].cpu().numpy())
+    return (B, R, G), _vector_bound(a, B, G, R, cs)
+
+
+def _stats_launch_bound(args, out, cs):
+    (B, G), R = args[0].shape, args[2].shape[1]
+    a = _band_geometry(args)
+    return (B, R, G), _bound(
+        _stats_bytes(B, R, G),
+        OPS["sw_full_stats"] * _band_cells(a, np.minimum(a["rlen"], R)),
+        OPS["sw_full_stats"] * B * R * G)
+
+
+def _cs_dp_launch_bound(args, out, cs):
+    (B, G), R = args[0].shape, args[2].shape[-1]
+    a = _band_geometry(args)
+    return (B, R, G), _bound(
+        _cs_dp_bytes(B, R, G),
+        OPS["sw_cs_full"] * _band_cells(a, np.minimum(a["rlen"], R)),
+        OPS["sw_cs_full"] * B * R * G)
+
+
+def _cs_tb_launch_bound(args, out, cs):
+    (B, G), R = args[0].shape, args[1].shape[-1]
+    return (B, R, G), _cs_tb_bound(out[0], B, R, G)
+
+
+def _check_flow_launch(name, m, reads, stream, module, fn, kernel, plain,
+                       bound, cs=False, plain_reps=3):
+    """A kernel against its plain version on the flow's own first launch
+    of it (the first call one batch makes to the wrapper `module.<fn>`),
+    with its device time, the plain version's time and its bound there
+    (`bound(args, out, cs)` -> ((B, R, G), bound))."""
+    args, kw = _first_call(m, reads, stream, module, fn, with_kw=True)
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    err = (_err(got, want) if isinstance(got, tuple)
+           else _err([got], [want]))
+    k_ms = _device_ms(lambda: kernel(*args, **kw), 10)
+    p_ms = _time_ms(lambda: plain(*args, **kw), plain_reps)
+    (B, R, G), b = bound(args, got, cs)
+    print(f"{name} on the flow's first launch (B, R, G) = ({B}, {R}, {G}): "
+          f"max |kernel - plain| = {err}; kernel {k_ms!r} ms (device), "
+          f"plain {p_ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; "
+          f"all R x G cells {b['bound_all_ms']!r} ms)")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version on the flow's launch ({err})")
+    del args, got, want
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, shape=(B, R, G), **b)
+
+
+def run_dense_slice(title, dev, counters, mapper, reads, stream, cs):
+    """Phases 12, 13 and 15: a stream at hg-like candidate density. The
+    gate-off card run of the first batch (which also warms the
+    allocator), the timed two-phase run of every read with the launch
+    counts set to 0 just before it, then the SAM checks."""
+    from shrimp_tpu_torch.fastpath import auto_batch_size
+    m = mapper(dev)
+    bs = auto_batch_size(m)
+    if bs != HG_GATE_OFF_READS:
+        raise AssertionError(f"{title}: batches of {bs} reads, not "
+                             f"{HG_GATE_OFF_READS}")
+    with _Gate(cs, GATE_OFF), _Dispatches(cs) as off:
+        sam_off, secs_off = _map(mapper(dev), reads[:HG_GATE_OFF_READS],
+                                 stream)
+    if off.log[0][2]:
+        raise AssertionError(f"{title}: the gate-off run took two phases")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    with _Dispatches(cs) as disp:
+        batches, secs = _map_batches(m, reads, stream)
+    launches = {k: c.n for k, c in counters.items()}
+    st = m.stats
+    print(f"{title} on {dev}: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; list cutoff {m.cutoff}; "
+          f"{st.vec_invocs / st.reads!r} windows per read; "
+          f"{disp.summary()}; phase-B rows {st.full_invocs} = "
+          f"{st.full_invocs / st.reads!r} per read; launches {launches}; "
+          f"peak device memory {_peak_gib(dev)}")
+    print(f"{title} stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in st.stage_secs.items()))
+    print(f"{title} gate-off card run of the first {HG_GATE_OFF_READS} "
+          f"reads (fused dispatch): {secs_off!r} s")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the {title} path")
+    if not disp.all_two_phase():
+        raise AssertionError(f"{title}: not every batch took two phases")
+    if st.vec_invocs < 8 * st.reads or st.reads != len(reads):
+        raise AssertionError(f"{title}: under 8 windows per read, or reads "
+                             "lost")
+    sam = b"".join(batches)
+    lines = sam.split(b"\n")[:-1]
+    if not lines or any(len(ln.split(b"\t")) < 11 for ln in lines):
+        raise AssertionError(f"{title}: malformed SAM")
+    mapped = st.reads_mapped / st.reads
+    print(f"{title} SAM: {len(lines)} records, {mapped!r} of reads mapped")
+    if mapped < 0.8:
+        raise AssertionError(f"{title}: mostly unmapped")
+    same_off = batches[0] == sam_off
+    print(f"{title}: the first {HG_GATE_OFF_READS} reads' SAM equals the "
+          f"gate-off card run's: {same_off}")
+    if not same_off:
+        raise AssertionError(f"{title}: two-phase and fused SAM differ")
+    print(f"{title} device busy share (profiled run on the first "
+          f"{2 * bs} reads): "
+          + _device_busy_share(mapper(dev), reads[:2 * bs], stream))
+    first = reads[:HG_CPU_READS]
+    small = _with_batch(stream, HG_CPU_READS)
+    with _Dispatches(cs) as d_gpu:
+        sam_gpu, _ = _map(mapper(dev), first, small)
+    with _Dispatches(cs) as d_cpu:
+        sam_cpu, secs_cpu = _map(mapper("cpu"), first, small)
+    same = sam_cpu == sam_gpu and sam.startswith(sam_gpu)
+    print(f"{title} on cpu (plain versions), first {HG_CPU_READS} reads: "
+          f"{secs_cpu!r} s, {d_cpu.summary()}; SAM identical to the CUDA "
+          f"run's and a prefix of the full run's: {same}")
+    if not (same and d_gpu.all_two_phase() and d_cpu.all_two_phase()):
+        raise AssertionError(f"{title}: CUDA and CPU SAM bytes differ")
     return launches
+
+
+def _hg_mapper(idx, cfg):
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.paired import PairedMapper
+    cls = Mapper if cfg.pair_mode == "none" else PairedMapper
+    return lambda device: cls(idx, cfg, device)
+
+
+def run_hg_slices(dev, hg):
+    """Phases 12, 13 and 15 on one hg-like bin: returns the launches of
+    each phase's kernels and the vector SW's records on each flow's
+    first vec-only launch."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch import dataset, fastpath, fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw, sw_cs, sw_cs_full, sw_full
+    from shrimp_tpu_torch.core import sw_vector
+    t0 = time.perf_counter()
+    codes = dataset.hg_bin(HG_BIN_LEN)
+    t1 = time.perf_counter()
+    idx = dataset.hg_index(codes)
+    t2 = time.perf_counter()
+    print(f"hg-like bin: {HG_BIN_LEN} bases generated in {t1 - t0!r} s, "
+          f"LS index in {t2 - t1!r} s")
+    print(f"reduced: bench_hg.py maps 4 bins of 750 Mbp (3 Gbp); here bin "
+          f"0 alone, cut to {HG_BIN_LEN} bases, and {HG_READS} reads "
+          f"(bench_hg.py's default)")
+    launches, rec = {}, {}
+    if 12 in hg:
+        reads = dataset.hg_reads(codes, HG_READS)
+        mk = _hg_mapper(idx, MapperConfig())
+        launches.update(sw_vector_hg=run_dense_slice(
+            "hg LS", dev, {"sw_vector": sw_vector.LAUNCHES,
+                           "sw_full_stats": sw_full.LAUNCHES},
+            mk, reads, fastpath.map_unpaired_sam_stream, False)[
+                "sw_vector"])
+        print(f"hg LS peak device memory over the phase: {_peak_gib(dev)}")
+        flow = (mk(dev), reads, fastpath.map_unpaired_sam_stream, sw)
+        rec["sw_vector_hg"] = _check_flow_launch(
+            "sw_vector_hg", *flow, "sw_vector_batch",
+            sw_vector.sw_vector_batch, sw_vector.sw_vector_batch_ref,
+            _vec_launch_bound, plain_reps=2)
+        # phase B: the stats kernel on the pass-1 survivors
+        _check_flow_launch("sw_full_stats (phase B)", *flow, "sw_full_stats",
+                           sw_full.sw_full_stats, sw_full.sw_full_stats_ref,
+                           _stats_launch_bound)
+    if 15 in hg:
+        pairs = dataset.hg_pairs(codes, HG_READS)
+        mk = _hg_mapper(idx, MapperConfig(pair_mode="opp-in",
+                                          min_insert_size=0,
+                                          max_insert_size=1000))
+        run_dense_slice(
+            "hg LS paired", dev, {"sw_vector": sw_vector.LAUNCHES,
+                                  "sw_full_stats": sw_full.LAUNCHES},
+            mk, pairs, fastpath.map_paired_sam_stream, False)
+    del idx
+    if 13 in hg:
+        t0 = time.perf_counter()
+        cidx = dataset.hg_index(codes, C.MODE_COLOUR_SPACE)
+        print(f"hg-like bin: CS index in {time.perf_counter() - t0!r} s")
+        reads = dataset.hg_reads(codes, HG_READS, C.MODE_COLOUR_SPACE)
+        mk = _hg_mapper(cidx, MapperConfig(mode=C.MODE_COLOUR_SPACE))
+        launches.update(sw_vector_cs_hg=run_dense_slice(
+            "hg CS", dev, {"sw_vector_cs": sw_vector.CS_LAUNCHES,
+                           "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+                           "cs_traceback": sw_cs_full.TB_LAUNCHES},
+            mk, reads, fastpath_cs.map_unpaired_cs_sam_stream, True)[
+                "sw_vector_cs"])
+        flow = (mk(dev), reads, fastpath_cs.map_unpaired_cs_sam_stream,
+                sw_cs)
+        rec["sw_vector_cs_hg"] = _check_flow_launch(
+            "sw_vector_cs_hg", *flow, "sw_vector_batch",
+            sw_vector.sw_vector_batch, sw_vector.sw_vector_batch_ref,
+            _vec_launch_bound, cs=True)
+        # phase B: the 4-layer DP and the traceback on the survivors
+        _check_flow_launch("sw_cs_full (phase B)", *flow, "sw_full_cs_dp",
+                           sw_cs_full.sw_full_cs_dp,
+                           sw_cs_full.sw_full_cs_dp_ref, _cs_dp_launch_bound,
+                           plain_reps=1)
+        _check_flow_launch("cs_traceback (phase B)", *flow, "cs_traceback",
+                           sw_cs_full.cs_traceback,
+                           sw_cs_full.cs_traceback_ref, _cs_tb_launch_bound,
+                           plain_reps=1)
+    return launches, rec
+
+
+def run_paired_slice(dev, counters):
+    """Phase 14: bench_all.py's ecoli-paired workload through the port's
+    paired entry point."""
+    from shrimp_tpu_torch import fastpath
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.dataset import ecoli_paired_ls
+    from shrimp_tpu_torch.paired import PairedMapper
+    t0 = time.perf_counter()
+    idx, reads = ecoli_paired_ls(PAIRED_READS)
+    print(f"paired dataset + index: {time.perf_counter() - t0:.3f} s "
+          f"({idx.total_len} bp, {len(reads)} reads)")
+    cfg = MapperConfig(pair_mode="opp-in")
+
+    def mapper(device):
+        return PairedMapper(idx, cfg, device)
+    stream = fastpath.map_paired_sam_stream
+    _map(mapper(dev), reads[:2 * B_CHUNK], stream)      # warm-up
+    m = mapper(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    sam, secs = _map(m, reads, stream)
+    launches = {k: c.n for k, c in counters.items()}
+    st = m.stats
+    print(f"paired slice on {dev}: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; launches {launches}; windows "
+          f"{st.vec_invocs}; peak device memory {_peak_gib(dev)}")
+    print("paired stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in st.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the paired path")
+    lines = sam.split(b"\n")[:-1]
+    mapped = st.reads_mapped / st.reads
+    print(f"paired SAM: {len(lines)} records, {mapped!r} of reads mapped "
+          "in pairs")
+    if (not lines or any(len(ln.split(b"\t")) < 11 for ln in lines)
+            or st.reads != len(reads) or mapped < 0.9):
+        raise AssertionError("paired slice: malformed SAM, reads lost or "
+                             "mostly unpaired")
+    first = reads[:PAIRED_CPU_READS]
+    small = _with_batch(stream, PAIRED_CPU_READS)
+    sam_gpu, _ = _map(mapper(dev), first, small)
+    sam_cpu, secs_cpu = _map(mapper("cpu"), first, small)
+    same = sam_cpu == sam_gpu and sam.startswith(sam_gpu)
+    print(f"paired slice on cpu (plain versions), first {len(first)} reads: "
+          f"{secs_cpu!r} s; SAM identical to the CUDA run's and a prefix of "
+          f"the full run's: {same}")
+    if not same:
+        raise AssertionError("paired slice: CUDA and CPU SAM bytes differ")
+    return launches
+
+
+def run_long_two_phase(dev, counters, long_ctx):
+    """Phase 16: the long-read slice's first reads with the two-phase
+    threshold forced to 1 window per read; the SAM must equal the fused
+    card run's."""
+    from shrimp_tpu_torch import fastpath
+    if long_ctx is None:
+        from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
+        idx, reads = ecoli_unpaired_ls_long(LONG_CPU_READS)
+        with _Gate(False, GATE_OFF):
+            fused, _ = _map(_mapper(idx, dev), reads, _with_batch(
+                fastpath.map_unpaired_sam_stream, LONG_CPU_READS))
+        long_ctx = dict(idx=idx, reads=reads, fused_sam=fused)
+    m = _mapper(long_ctx["idx"], dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    with _Gate(False, 1), _Dispatches(False) as disp:
+        sam, secs = _map(m, long_ctx["reads"], _with_batch(
+            fastpath.map_unpaired_sam_stream, LONG_CPU_READS))
+    launches = {k: c.n for k, c in counters.items()}
+    st = m.stats
+    same = sam == long_ctx["fused_sam"]
+    print(f"long reads, two phases: {st.reads} reads in {secs!r} s; "
+          f"{disp.summary()}; phase-B rows {st.full_invocs} of "
+          f"{st.vec_invocs} windows; launches {launches}; peak device "
+          f"memory {_peak_gib(dev)}; SAM identical to the fused card "
+          f"run's: {same}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the two-phase long "
+                                 "path")
+    if not (same and disp.all_two_phase()
+            and "device full (2ph)" in st.stage_secs):
+        raise AssertionError("long reads, two phases: SAM differs from the "
+                             "fused run's, or the gate did not fire")
+    return launches
+
+
+def _phases(argv) -> set:
+    """The phases to run: all without arguments, else `--phases 12,13`."""
+    if not argv:
+        return set(range(1, 17))
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
+    return {int(x) for x in argv[1].split(",")}
 
 
 def main() -> None:
@@ -1302,6 +1736,7 @@ def main() -> None:
     from shrimp_tpu_torch.core import sw_cs_full, sw_full, sw_vector
     from shrimp_tpu_torch.device import get_device
 
+    t_start = time.perf_counter()
     dev = get_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _smi()
@@ -1317,25 +1752,54 @@ def main() -> None:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  " + ln.strip())
 
-    rec = check_kernels(dev)
-    check_packed_step(dev)
-    launches = run_slice(dev, {"sw_vector": sw_vector.LAUNCHES,
-                               "sw_full_stats": sw_full.LAUNCHES},
-                         rec["sw_full_stats"]["bound_ms"])
-    rec.update(check_cs_kernels(dev))
-    check_cs_packed_step(dev)
-    launches.update(run_cs_slice(dev, {
-        "sw_vector_cs": sw_vector.CS_LAUNCHES,
-        "sw_cs_full": sw_cs_full.DP_LAUNCHES,
-        "cs_traceback": sw_cs_full.TB_LAUNCHES},
-        rec["sw_cs_full"]["bound_ms"]))
-    rec.update(check_long_kernels(dev))
-    check_tb_packed_step(dev)
-    launches.update(run_long_slice(dev, {
-        "sw_vector_g352": sw_vector.LAUNCHES,
-        "sw_full_bp": sw_full.BP_LAUNCHES,
-        "ls_traceback": sw_full.TB_LAUNCHES},
-        rec["sw_full_bp"]["bound_ms"], rec["ls_traceback"]["walks"]))
+    phases = _phases(sys.argv[1:])
+    rec, launches, long_ctx = {}, {}, None
+    if 3 in phases:
+        rec.update(check_kernels(dev))
+    if 4 in phases:
+        check_packed_step(dev)
+    if 5 in phases:
+        launches.update(run_slice(dev, {"sw_vector": sw_vector.LAUNCHES,
+                                        "sw_full_stats": sw_full.LAUNCHES},
+                                  rec["sw_full_stats"]["bound_ms"]))
+    if 6 in phases:
+        rec.update(check_cs_kernels(dev))
+    if 7 in phases:
+        check_cs_packed_step(dev)
+    if 8 in phases:
+        launches.update(run_cs_slice(dev, {
+            "sw_vector_cs": sw_vector.CS_LAUNCHES,
+            "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+            "cs_traceback": sw_cs_full.TB_LAUNCHES},
+            rec["sw_cs_full"]["bound_ms"]))
+    if 9 in phases:
+        rec.update(check_long_kernels(dev))
+    if 10 in phases:
+        check_tb_packed_step(dev)
+    if 11 in phases:
+        ln, long_ctx = run_long_slice(dev, {
+            "sw_vector_g352": sw_vector.LAUNCHES,
+            "sw_full_bp": sw_full.BP_LAUNCHES,
+            "ls_traceback": sw_full.TB_LAUNCHES},
+            rec["sw_full_bp"]["bound_ms"], rec["ls_traceback"]["walks"])
+        launches.update(ln)
+    hg = phases & {12, 13, 15}
+    if hg:
+        ln, r = run_hg_slices(dev, hg)
+        launches.update(ln)
+        rec.update(r)
+    if 14 in phases:
+        run_paired_slice(dev, {"sw_vector": sw_vector.LAUNCHES,
+                               "sw_full_stats": sw_full.LAUNCHES})
+    if 16 in phases:
+        run_long_two_phase(dev, {"sw_vector": sw_vector.LAUNCHES,
+                                 "sw_full_bp": sw_full.BP_LAUNCHES,
+                                 "ls_traceback": sw_full.TB_LAUNCHES},
+                           long_ctx)
+    print(f"whole run: {time.perf_counter() - t_start!r} s")
+    if phases != set(range(1, 17)):
+        print(f"phases {sorted(phases)} only: no result")
+        return
 
     kernels = [
         dict(name=name, route="cuda", source=f"shrimp_tpu_torch/csrc/{src}",
@@ -1360,7 +1824,11 @@ def main() -> None:
             ("sw_full_bp", "sw_full_bp.cu",
              "shrimp_tpu/core/sw_full_pallas.py:298"),
             ("ls_traceback", "ls_traceback.cu",
-             "shrimp_tpu/core/sw_jax.py:785"))]
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("sw_vector_hg", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_vector_cs_hg", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

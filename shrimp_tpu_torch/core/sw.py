@@ -2,8 +2,9 @@
 
 Port of `shrimp_tpu/core/sw_jax.py`: `_unpack_rtab_nib`, `_unpack_args4`,
 `fast_window_gather`, `_vec_full_gather_packed`, `_pack_stats3` and the
-fused phases of `sw_vec_full_stats_packed` (the stats flow) and
-`sw_vec_full_tb_packed` (the traceback flow). Packed arguments go up
+three phases (fused; vec and full, of the two-phase dispatch) of
+`sw_vec_full_stats_packed` (the stats flow) and `sw_vec_full_tb_packed`
+(the traceback flow). Packed arguments go up
 (16 B per window, 4-bit reads) and the kernels run on windows gathered
 from the device-resident genome plane. The stats flow returns [B, 3]
 int32 rows in the reference's bit layout, so the host's
@@ -86,20 +87,32 @@ def fast_window_gather(cat_words: torch.Tensor, n_gen: int,
     clipped to [0, n_gen-1] first; the pads repeat each plane's last
     byte, which reproduces a per-element clip for the tails of windows
     that overrun a plane (those cells are glen-masked in both kernels).
-    Bytes past the end of the word plane read as the bytes of INT32_MIN
-    (0, 0, 0, 0x80), the fill of the reference's out-of-range word
-    gather; only windows wider than the pad reach them."""
+    Words past the end of the word plane read as INT32_MIN, the fill of
+    the reference's out-of-range word gather; only windows wider than
+    the pad reach them.
+
+    The gather runs at word granularity, as the reference's does: G/4 + 1
+    words a row (int64 indices), then each row's 4-byte phase picks its
+    G bytes. Its transients are about 17 bytes a window byte less than a
+    byte gather's, which matters at the vec-only phase's millions of
+    rows."""
     if G % 4:
         raise ValueError(f"fast_window_gather: G={G} is not a multiple "
                          "of 4 (the packed flow pads G to 32)")
-    cat = cat_words.view(torch.uint8)
-    eff = (gstart.clamp(0, n_gen - 1)
-           + torch.where(rc != 0, n_gen + PAD, 0)).long()
-    pos = eff[:, None] + torch.arange(G, device=eff.device)[None, :]
-    out = cat[pos.clamp(max=cat.numel() - 1)]
-    past = pos >= cat.numel()
-    return torch.where(past, torch.where((pos & 3) == 3, 0x80, 0).to(
-        torch.uint8), out)
+    nw = cat_words.numel()
+    eff = (gstart.clamp(0, n_gen - 1).long()
+           + torch.where(rc != 0, n_gen + PAD, 0))
+    W = G // 4 + 1
+    widx = (eff >> 2)[:, None] + torch.arange(W, device=eff.device)[None, :]
+    words = torch.where(widx < nw, cat_words[widx.clamp(max=nw - 1)],
+                        torch.iinfo(torch.int32).min)
+    del widx
+    by = words.view(torch.uint8)      # [B, 4W], little-endian bytes
+    sh = (eff & 3)[:, None]
+    out = by[:, 3:3 + G]
+    for k in (2, 1, 0):
+        out = torch.where(sh == k, by[:, k:k + G], out)
+    return out
 
 
 def _vec_full_gather_packed(codes_fwd, args4, rtab_pk, G: int, L: int,
@@ -132,6 +145,12 @@ def _pack_stats3(vec: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
     return torch.stack([w0, w1, w2], dim=1).to(torch.int32)
 
 
+def _check_phase(phase: str) -> None:
+    if phase not in ("fused", "vec", "full"):
+        raise ValueError(f"phase must be 'fused', 'vec' or 'full', not "
+                         f"{phase!r}")
+
+
 def sw_vec_full_stats_packed(codes_fwd: torch.Tensor,
                              codes_rc: torch.Tensor, args4: torch.Tensor,
                              rtab_pk: torch.Tensor,
@@ -139,12 +158,19 @@ def sw_vec_full_stats_packed(codes_fwd: torch.Tensor,
                              L: int, match: int, mismatch: int,
                              a_gap_open: int, a_gap_ext: int,
                              b_gap_open: int, b_gap_ext: int,
-                             local_alignment: bool = False) -> torch.Tensor:
+                             local_alignment: bool = False,
+                             phase: str = "fused"):
     """Fused filter 2 + speculative filter 3 on packed IO: [B, 4] int32
     args and the nibble-packed read table in, [B, 3] int32
     `_pack_stats3` rows out, all on the device of `args4`. `codes_fwd`
     gives the padded plane length; `codes_rc` is kept for the
-    reference's signature (the word plane holds both strands)."""
+    reference's signature (the word plane holds both strands).
+
+    `phase` splits the step for the two-phase dispatch: "vec" runs only
+    the vector SW and returns (int16 vec scores [B],); "full" runs only
+    the stats kernel and returns the [B, 3] rows with the vec field
+    zero; "fused" runs both."""
+    _check_phase(phase)
     if cat_words is None:
         raise NotImplementedError(
             "the concatenated word plane overflows int32 offsets (genome "
@@ -154,7 +180,11 @@ def sw_vec_full_stats_packed(codes_fwd: torch.Tensor,
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext)
-    vec = sw_vector_batch(gwin, glen, rwin, rlen, **kw)
+    if phase == "vec":
+        return (sw_vector_batch(gwin, glen, rwin, rlen, **kw).to(
+            torch.int16),)
+    vec = (torch.zeros_like(glen) if phase == "full"
+           else sw_vector_batch(gwin, glen, rwin, rlen, **kw))
     stats = sw_full_stats(gwin, glen, rwin, rlen, rx, ry, rl_, rw_, rev,
                           local_alignment=local_alignment, **kw)
     return _pack_stats3(vec, stats)
@@ -165,11 +195,15 @@ def sw_vec_full_tb_packed(codes_fwd: torch.Tensor, codes_rc: torch.Tensor,
                           cat_words: Optional[torch.Tensor], *, G: int,
                           L: int, match: int, mismatch: int,
                           a_gap_open: int, a_gap_ext: int, b_gap_open: int,
-                          b_gap_ext: int, local_alignment: bool = False):
+                          b_gap_ext: int, local_alignment: bool = False,
+                          phase: str = "fused"):
     """Fused filter 2 + speculative filter 3 with the traceback on the
     device, on packed input: (vec int16 [B], packed [B, 10] int32, ops
     [B, (R+G+3)//4] uint8), all on the device of `args4`. The [B, R, G]
-    backpointers live only inside this call."""
+    backpointers live only inside this call. `phase` "vec" returns
+    (vec,) and launches only the vector SW; "full" returns (packed, ops)
+    and launches only the full SW and the traceback."""
+    _check_phase(phase)
     if cat_words is None:
         raise NotImplementedError(
             "the concatenated word plane overflows int32 offsets (genome "
@@ -179,9 +213,14 @@ def sw_vec_full_tb_packed(codes_fwd: torch.Tensor, codes_rc: torch.Tensor,
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext)
-    vec = sw_vector_batch(gwin, glen, rwin, rlen, **kw)
+    if phase != "full":
+        vec = sw_vector_batch(gwin, glen, rwin, rlen, **kw).to(torch.int16)
+        if phase == "vec":
+            return (vec,)
     score, max_i, max_j, plane, bp = sw_full_bp(
         gwin, glen, rwin, rlen, rx, ry, rl_, rw_, rev,
         local_alignment=local_alignment, **kw)
     packed, ops = traceback_pack(gwin, rwin, score, max_i, max_j, plane, bp)
-    return vec.to(torch.int16), packed, ops
+    if phase == "full":
+        return packed, ops
+    return vec, packed, ops

@@ -2,7 +2,8 @@
 
 Port of the device half of `shrimp_tpu/core/sw_cs_jax.py`:
 `sw_full_cs_tpu_pallas` (the 4-layer DP followed by the traceback) and
-the fused phase of `sw_vec_cs_full_from_index`. Per chunk, [B, 12] int32
+the three phases of `sw_vec_cs_full_from_index` (fused; vec and full,
+of the two-phase dispatch). Per chunk, [B, 12] int32
 argument rows go up; colour and letter windows are gathered from the
 two device-resident cat-word planes; the CS vector SW scores every
 window and the 4-layer DP plus traceback align it; [B] int32 vector
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 
 from .. import constants as C
-from .sw import fast_window_gather
+from .sw import _check_phase, fast_window_gather
 from .sw_cs_full import cs_traceback, sw_full_cs_dp
 from .sw_vector import sw_vector_batch
 
@@ -64,7 +65,8 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
                               a_gap_open: int, a_gap_ext: int,
                               b_gap_open: int, b_gap_ext: int,
                               local_alignment: bool = False,
-                              indel_taboo_len: int = 0):
+                              indel_taboo_len: int = 0,
+                              phase: str = "fused"):
     """Fused colour-space filter 2 + speculative filter 3 against the
     device-resident genome planes, on the device of `args`.
 
@@ -77,7 +79,11 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
     planes as cat words (core.sw.cat_word_plane); `cs_codes` and
     `ls_codes` give their plane lengths, and the `_rc` planes are kept
     for the reference's signature. Returns (vec [B] int32, packed
-    [B, 12] int16, steps_rev [B, R + G] int8)."""
+    [B, 12] int16, steps_rev [B, R + G] int8). `phase` "vec" runs only
+    the CS vector SW and returns (vec,) (the letter window is still
+    gathered: g_row0 needs it); "full" runs only the 4-layer DP and the
+    traceback and returns (packed, steps_rev)."""
+    _check_phase(phase)
     if cs_cat is None or ls_cat is None:
         raise NotImplementedError(
             "the concatenated word planes overflow int32 offsets (genome "
@@ -86,19 +92,25 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
     (gstart, glen, owner, eff_rc, rlen, rx, ry, rl, rw, rev, thresh,
      initbp) = args.t().contiguous().unbind(0)
     owner = owner.clamp(0, rtab.shape[0] - 1).long()
-    gwin_cs = fast_window_gather(cs_cat, cs_codes.shape[0], gstart, eff_rc,
-                                 G)
     lswin = fast_window_gather(ls_cat, ls_codes.shape[0], gstart, eff_rc, G)
-    # the flat index clips as the reference's gather does (254 pad bytes)
-    g_row0 = _colour_lut(lswin.device)[
-        (lswin.to(torch.int32) * 16 + initbp[:, None]).clamp(0, 255).long()]
-    # the vector filter's mismatch is match + crossover (gmapper.c
-    # f1_setup): a colour mismatch there is one crossover, so reads with
-    # dot colours still clear pass 1
-    vec = sw_vector_batch(gwin_cs, glen, rtab[owner], rlen, g_row0,
-                          cs_mode=True, match=match, mismatch=match + xover,
-                          a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
-                          b_gap_open=b_gap_open, b_gap_ext=b_gap_ext)
+    if phase != "full":
+        gwin_cs = fast_window_gather(cs_cat, cs_codes.shape[0], gstart,
+                                     eff_rc, G)
+        # the flat index clips as the reference's gather does (254 pad
+        # bytes)
+        g_row0 = _colour_lut(lswin.device)[
+            (lswin.to(torch.int32) * 16 + initbp[:, None]).clamp(0, 255)]
+        # the vector filter's mismatch is match + crossover (gmapper.c
+        # f1_setup): a colour mismatch there is one crossover, so reads
+        # with dot colours still clear pass 1
+        vec = sw_vector_batch(gwin_cs, glen, rtab[owner], rlen, g_row0,
+                              cs_mode=True, match=match,
+                              mismatch=match + xover, a_gap_open=a_gap_open,
+                              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+                              b_gap_ext=b_gap_ext)
+        del gwin_cs, g_row0
+        if phase == "vec":
+            return (vec,)
     gx_col = torch.full((B,), xover, dtype=torch.int32, device=args.device)
     packed, steps_rev = sw_full_cs(
         lswin, glen, qr_tab[owner], rlen, rx, ry, rl.clamp(min=1),
@@ -107,4 +119,6 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
         mismatch=mismatch, a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
         b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
         local_alignment=local_alignment, indel_taboo_len=indel_taboo_len)
+    if phase == "full":
+        return packed, steps_rev
     return vec, packed, steps_rev

@@ -5,12 +5,23 @@ Letter space (`bench.py::get_dataset`): a 4.6 Mbp random genome and
 36 bp reads sampled from it with 0-2 substitutions each, every odd read
 reverse-complemented. Colour space (`bench_all.py::bench_cs`, the
 `ecoli-cs` workload): the same genome bytes, SOLiD reads of a `T` primer
-and 36 colours from letters with 0-2 substitutions. Both are the
+and 36 colours from letters with 0-2 substitutions. Paired
+(`ecoli_paired_ls`, bench_all.py's `ecoli-paired` workload): 2x36 bp
+opp-in pairs of inserts 120-280 bp over the same genome. All are the
 generators of those scripts without their on-disk caches. Long reads
 (`ecoli_unpaired_ls_long`, no counterpart in the bench scripts): the
 same genome, 250 bp reads with substitutions and, in one read of ten,
 a short indel. The indexes are built with the port's
-`index.build.build_index`. `edge_bands` draws the band geometries at
+`index.build.build_index`.
+
+Human-genome candidate density (`hg_bin`, `hg_reads`, `hg_pairs`):
+one bin of bench_hg.py's synthetic genome (seed 20260818, bin 0), a
+random sequence with hg-like repeats: SINE-like 300 bp copies on 25 % of
+it (5-25 % divergence), 5'-truncated LINE-like fragments on 15 %,
+alpha-satellite-like tandem arrays on 5 % and N gaps on 1.5 %; and
+bench_hg.py's 36 bp reads (LS or CS rendering) and opp-in pairs drawn
+from that one bin. bench_hg.py maps 4 bins of 750 Mbp; the bin length
+is the caller's. `edge_bands` draws the band geometries at
 which the banded DP kernels take their special cases, for the tests and
 `chip_smoke.py`.
 """
@@ -22,6 +33,7 @@ import numpy as np
 
 from . import constants as C
 from .config import MapperConfig
+from .core.encode import decode_ls
 from .index.build import GenomeIndex, build_index
 from .index.seeds import default_seeds
 from .io.fasta import SeqRecord
@@ -269,3 +281,181 @@ def cs_walk_pairs(rng: np.random.Generator, B: int, R: int, G: int) -> dict:
         bk=rng.integers(0, 4, B), bfrm=bfrm,
         thresh=rng.integers(0, 100, B)).items()}
     return dict(genome=g, qr=qr, bp=bp, **i32)
+
+
+def ecoli_paired_ls(n_reads: int, seed: int = SEED
+                    ) -> Tuple[GenomeIndex, List[SeqRecord]]:
+    """(index, reads) of bench_all.py's `ecoli-paired` workload with
+    `n_reads` reads (n_reads // 2 interleaved opp-in pairs): the genome
+    of `ecoli_unpaired_ls` as contig `ecoli_synth2`, pairs from
+    default_rng(8), inserts of 120-280 bp, mate 2 reverse-complemented,
+    0-2 substitutions a mate. Map with MapperConfig(pair_mode="opp-in")
+    through a paired.PairedMapper."""
+    codes = np.random.default_rng(seed).integers(0, 4, GENOME_LEN).astype(
+        np.uint8)
+    idx = build_index([("ecoli_synth2", codes)], default_seeds())
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    rng = np.random.default_rng(8)
+    reads = []
+    for k in range(n_reads // 2):
+        isz = int(rng.integers(120, 280))
+        p = int(rng.integers(0, len(codes) - isz - READ_LEN))
+        a = codes[p:p + READ_LEN].copy()
+        b = comp[codes[p + isz - READ_LEN:p + isz][::-1]].copy()
+        for r in (a, b):
+            for _ in range(int(rng.integers(0, 3))):
+                r[int(rng.integers(READ_LEN))] = rng.integers(4)
+        reads.append(SeqRecord(f"p{k}/1", decode_ls(a)))
+        reads.append(SeqRecord(f"p{k}/2", decode_ls(b)))
+    return idx, reads
+
+
+HG_SEED = 20260818
+# bench_hg.py's complement LUT: codes 0-3 complement, BASE_N maps to
+# itself
+_HG_COMP = np.arange(16, dtype=np.uint8)
+_HG_COMP[:4] = [3, 2, 1, 0]
+
+
+def _mutate_copies(rng, copies: np.ndarray, div: np.ndarray) -> None:
+    """Per-copy point mutation at per-row divergence rates (in place)."""
+    n, L = copies.shape
+    for off in range(0, n, 100_000):      # bound the float mask's memory
+        end = min(off + 100_000, n)
+        mask = rng.random((end - off, L)) < div[off:end, None]
+        copies[off:end][mask] = rng.integers(
+            0, 4, int(mask.sum()), dtype=np.int64).astype(np.uint8)
+
+
+def hg_bin(slen: int, i: int = 0) -> np.ndarray:
+    """Bin `i` (`slen` bases, uint8 codes) of bench_hg.py's synthetic
+    genome (bench_hg.shard_codes without its on-disk cache): the repeat
+    library is shared across bins, the copies and their mutations are
+    the bin's own."""
+    lib = np.random.default_rng(HG_SEED)     # shared library
+    sine = lib.integers(0, 4, 300, dtype=np.int64).astype(np.uint8)
+    line = lib.integers(0, 4, 6000, dtype=np.int64).astype(np.uint8)
+    sat = lib.integers(0, 4, 171, dtype=np.int64).astype(np.uint8)
+    rng = np.random.default_rng(HG_SEED + 1000 + i)
+    codes = rng.integers(0, 4, slen, dtype=np.int64).astype(np.uint8)
+    # SINE-like: ~25% of bases, 300 bp copies, 5-25% divergence
+    n_sine = int(0.25 * slen) // 300
+    starts = rng.integers(0, slen - 300, n_sine)
+    copies = np.tile(sine, (n_sine, 1))
+    _mutate_copies(rng, copies, rng.uniform(0.05, 0.25, n_sine))
+    pos = starts[:, None] + np.arange(300)[None, :]
+    codes[pos.ravel()] = copies.ravel()
+    del copies, pos
+    # LINE-like: ~15% of bases, 5'-truncated 0.5-6 kb fragments, 5-20%
+    # divergence
+    budget = int(0.15 * slen)
+    while budget > 0:
+        L = int(rng.integers(500, 6001))
+        s = int(rng.integers(0, slen - L))
+        frag = line[-L:].copy()
+        d = float(rng.uniform(0.05, 0.20))
+        m = rng.random(L) < d
+        frag[m] = rng.integers(0, 4, int(m.sum()),
+                               dtype=np.int64).astype(np.uint8)
+        codes[s:s + L] = frag
+        budget -= L
+    # alpha-satellite-like tandem arrays: ~5%, 10-200 kb, 1-3%
+    # divergence
+    budget = int(0.05 * slen)
+    while budget > 0:
+        L = int(rng.integers(10_000, 200_001))
+        s = int(rng.integers(0, slen - L))
+        reps = -(-L // len(sat))
+        arr = np.tile(sat, reps)[:L].copy()
+        d = float(rng.uniform(0.01, 0.03))
+        m = rng.random(L) < d
+        arr[m] = rng.integers(0, 4, int(m.sum()),
+                              dtype=np.int64).astype(np.uint8)
+        codes[s:s + L] = arr
+        budget -= L
+    # N gaps: ~1.5% in 20 blocks
+    budget = int(0.015 * slen)
+    for _ in range(20):
+        L = budget // 20
+        s = int(rng.integers(0, slen - L))
+        codes[s:s + L] = C.BASE_N
+    return codes
+
+
+def _hg_render(mode: str, r: np.ndarray) -> str:
+    """bench_hg.py's rendering of a read: letters, or (colour space) a
+    `T` primer and the colours of its letters."""
+    if mode == C.MODE_COLOUR_SPACE:
+        cm = C.COLOUR_MAT
+        cols = [int(cm[3, r[0]])] + [int(cm[r[j], r[j + 1]])
+                                     for j in range(len(r) - 2)]
+        return "T" + "".join(str(c) if c <= 3 else "." for c in cols)
+    return decode_ls(r)
+
+
+def hg_reads(codes: np.ndarray, n_reads: int, mode: str = "ls"
+             ) -> List[SeqRecord]:
+    """bench_hg.py's gen_reads on one bin: 36 bp reads (37 letters in
+    colour space), 0-2 errors, odd reads reverse-complemented, resampled
+    out of N gaps."""
+    slen = len(codes)
+    rng = np.random.default_rng(HG_SEED)
+    plen = READ_LEN + (1 if mode == C.MODE_COLOUR_SPACE else 0)
+    picks = []
+    for k in range(n_reads):
+        picks.append((int(rng.integers(0, slen - plen - 1)), k % 2 == 1,
+                      [(int(rng.integers(plen)), int(rng.integers(4)))
+                       for _ in range(int(rng.integers(0, 3)))]))
+    recs = []
+    for k, (p, rc, errs) in enumerate(picks):
+        r = codes[p:p + plen].copy()
+        while (r == C.BASE_N).any():     # resample out of N gaps
+            p = int(rng.integers(0, slen - plen - 1))
+            r = codes[p:p + plen].copy()
+        if rc:
+            r = _HG_COMP[r[::-1]]
+        for pos, b in errs:
+            r[pos] = b
+        recs.append(SeqRecord(f"q{k}", _hg_render(mode, r)))
+    return recs
+
+
+def hg_pairs(codes: np.ndarray, n_reads: int, mode: str = "ls"
+             ) -> List[SeqRecord]:
+    """bench_hg.py's gen_pairs on one bin: n_reads // 2 opp-in pairs
+    (interleaved), inserts of 100-300 bp, 0-2 errors a mate, resampled
+    out of N gaps. Map with MapperConfig(pair_mode="opp-in",
+    min_insert_size=0, max_insert_size=1000), as bench_hg.py does."""
+    slen = len(codes)
+    rng = np.random.default_rng(HG_SEED + 77)
+    plen = READ_LEN + (1 if mode == C.MODE_COLOUR_SPACE else 0)
+    picks = []
+    for k in range(n_reads // 2):
+        isz = int(rng.integers(100, 300))
+        picks.append((int(rng.integers(0, slen - isz - 2)), isz,
+                      [(int(rng.integers(plen)), int(rng.integers(4)))
+                       for _ in range(int(rng.integers(0, 3)))],
+                      [(int(rng.integers(plen)), int(rng.integers(4)))
+                       for _ in range(int(rng.integers(0, 3)))]))
+    recs = []
+    for k, (p, isz, e1, e2) in enumerate(picks):
+        r1 = codes[p:p + plen].copy()
+        r2 = _HG_COMP[codes[p + isz - plen:p + isz][::-1]].copy()
+        while (r1 == C.BASE_N).any() or (r2 == C.BASE_N).any():
+            p = int(rng.integers(0, slen - isz - 2))
+            r1 = codes[p:p + plen].copy()
+            r2 = _HG_COMP[codes[p + isz - plen:p + isz][::-1]].copy()
+        for pos, b in e1:
+            r1[pos] = b
+        for pos, b in e2:
+            r2[pos] = b
+        recs.append(SeqRecord(f"q{k}/1", _hg_render(mode, r1)))
+        recs.append(SeqRecord(f"q{k}/2", _hg_render(mode, r2)))
+    return recs
+
+
+def hg_index(codes: np.ndarray, mode: str = "ls") -> GenomeIndex:
+    """The index of one hg-like bin, contig `chr1`, as bench_hg.py
+    builds bin 0's."""
+    return build_index([("chr1", codes)], default_seeds(mode=mode),
+                       mode=mode)

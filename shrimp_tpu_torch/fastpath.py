@@ -1,7 +1,7 @@
-"""Flat-array fast path for letter-space unpaired mapping to SAM, on
-torch devices.
+"""Flat-array fast path for letter-space mapping to SAM, unpaired and
+paired, on torch devices.
 
-Port of the two fused flows of `shrimp_tpu/fastpath.py`, on packed IO:
+Port of the flows of `shrimp_tpu/fastpath.py`, on packed IO:
 
     read prep + filter 1 (native)  ->  one fused device step per chunk
     ->  pass1_select (native)  ->  vector-score gate  ->  alignments
@@ -14,21 +14,29 @@ Port of the two fused flows of `shrimp_tpu/fastpath.py`, on packed IO:
 - the traceback flow, for wider windows (long reads): vector SW, the
   full SW with backpointers and the traceback on the device
   (`core/sw.py::sw_vec_full_tb_packed`), whose [B, 10] rows and packed
-  ops go to finalize_render as they are.
+  ops go to finalize_render as they are;
+- the two-phase dispatch of either flow, for batches at
+  LS_TWO_PHASE_WPR or more candidate windows per read: the vector SW
+  alone on every window (launches of up to LS_VEC_BATCH rows), then the
+  full SW on the pass-1 survivors only (`_tp_run_full`);
+- the paired stream (`FastPaired`, `map_paired_sam_stream`): the same
+  dispatch, then one native `paired_finalize_render` call; two-phase
+  batches run select-then-full.
 
 `_stats_flow_enabled` picks the flow from G alone, the same on every
 device. The host stages run through the port's own native library
 (`native/`, a copy of the reference's C++), so the SAM bytes are the
-reference's. Not ported here: two-phase dispatch, the unpacked-IO and
-byte-gather flows, read sharding and the sharded-index MQV hooks. A
-batch the flat encoder rejects raises NotImplementedError: there is no
-generic mapper behind this path.
+reference's. Not ported here: the unpacked-IO and byte-gather flows,
+read sharding and the sharded-index MQV hooks. A batch the flat encoder
+rejects raises NotImplementedError: there is no generic mapper behind
+this path.
 """
 from __future__ import annotations
 
 import ctypes
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,11 +45,19 @@ import torch
 from . import constants as C
 from .config import MapperConfig, abs_or_pct
 from .io.fasta import SeqRecord
+from .io.sam import _pair_qname
 from .native import get_lib
 from .native.filter1_py import generate_candidates_native
 from .core._args import MAX_G
 from .core.sw import sw_vec_full_stats_packed, sw_vec_full_tb_packed
 from .mapper import FULL_BATCH, FULL_BUCKETS, _round_up
+
+# windows per read at or above which a batch takes the two-phase
+# dispatch (the vector SW on every window, then the full SW on the
+# pass-1 survivors only) instead of the fused speculative launch; and the
+# vec-only launch's row cap
+LS_TWO_PHASE_WPR = 8
+LS_VEC_BATCH = 1 << 22
 
 # SAM seq cleaning LUTs (io/sam.py _CLEAN_TBL / _COMP_TBL as byte maps)
 _CLEAN_LUT = np.arange(256, dtype=np.uint8)
@@ -262,25 +278,46 @@ def _stats_flow_enabled(G: int) -> bool:
 
 
 def _chunk_bucket(k: int, eff_batch: int) -> int:
-    """Launch rows for a chunk of k windows: the FULL_BUCKETS row counts,
-    or under the traceback flow's long-read shrink the next power of two
-    >= k (at least 8), as the reference pads them."""
+    """Launch rows for a chunk of k windows: above FULL_BUCKETS[-1] (the
+    two-phase dispatch's vec-only launches) 5/8, 3/4 or all of the next
+    power of two >= k, which bounds the pad rows to about a quarter;
+    else the FULL_BUCKETS row counts, or under the traceback flow's
+    long-read shrink the next power of two >= k (at least 8), as the
+    reference pads them."""
+    if k > FULL_BUCKETS[-1]:
+        p2 = 1 << int(np.ceil(np.log2(k)))
+        return next(b for b in (5 * (p2 // 8), 3 * (p2 // 4), p2) if b >= k)
     if eff_batch >= FULL_BUCKETS[0]:
         return FULL_BUCKETS[int(np.searchsorted(FULL_BUCKETS, k))]
     return 1 << int(np.ceil(np.log2(max(k, 8))))
 
 
+def _tb_batch(R: int, G: int) -> int:
+    """Windows per chunk of the traceback flow: at most 2^28 backpointer
+    cells (bucket * R * G), as the reference's chunks hold."""
+    return max(8, min(FULL_BATCH, (1 << 28) // max(R * G, 1)))
+
+
 def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
-                    rcf: np.ndarray):
-    """Fused filter 2 + speculative filter 3 over every candidate window,
-    in chunks on m.device. `rcf` marks windows needing the reverse_hit
-    normalization (strand 1 for unpaired reads). Returns (futures, win,
-    G, stats_flow): futures are (off, k, result) with result the
+                    rcf: np.ndarray, n_reads: Optional[int] = None):
+    """Filter 2 + speculative filter 3 over every candidate window, in
+    chunks on m.device. `rcf` marks windows needing the reverse_hit
+    normalization (strand 1 for unpaired reads; paired legs may be
+    pre-flipped by the pair mode). Returns (futures, win, G,
+    stats_flow): futures are (off, k, result) with result the
     [bucket, 3] int32 stats rows (stats flow) or (vec, packed, ops)
     (traceback flow) on the device; `win` is the normalized window
     geometry that the host reconstruction stage reuses. The traceback
     flow's chunks hold at most 2^28 backpointer cells (bucket * R * G),
-    as the reference's do."""
+    as the reference's do.
+
+    At LS_TWO_PHASE_WPR or more windows per read of the `n_reads` reads
+    (None: never) the dispatch takes two phases, as the reference's
+    does: here the vector SW alone, up to LS_VEC_BATCH rows a launch
+    (futures hold (vec,)), and `win["two_phase"]` keeps what
+    `_tp_run_full` needs to run the full SW later on the pass-1
+    survivors only. A row's results do not depend on the launch it is
+    in, so both ways give the same bytes."""
     cfg = m.config
     idx = m.index
     sc = cfg.scores
@@ -305,11 +342,12 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
               b_gap_open=sc.b_gap_open, b_gap_ext=sc.b_gap_extend,
               local_alignment=False)
     stats_flow = _stats_flow_enabled(G)
-    if stats_flow:
-        fn, eff_batch = sw_vec_full_stats_packed, FULL_BATCH
-    else:
-        fn = sw_vec_full_tb_packed
-        eff_batch = max(8, min(FULL_BATCH, (1 << 28) // max(R * G, 1)))
+    fn = sw_vec_full_stats_packed if stats_flow else sw_vec_full_tb_packed
+    two_phase = (n_reads is not None
+                 and n >= LS_TWO_PHASE_WPR * max(n_reads, 1))
+    eff_batch = LS_VEC_BATCH if two_phase else FULL_BATCH
+    if not stats_flow:
+        eff_batch = _tb_batch(R, G)
     dev = m.device
     rtab_dev = torch.from_numpy(_pack_rtab(read_tab)).to(dev)
     futures = []
@@ -323,12 +361,88 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
             win["rcmask"][sl], win["rx"][sl], win["ry"][sl],
             win["rl_"][sl], win["rw_"][sl], win["rev"][sl])
         res = fn(m._dev_codes(), m._dev_codes_rc(),
-                 torch.from_numpy(args).to(dev), rtab_dev, cat_dev, **kw)
+                 torch.from_numpy(args).to(dev), rtab_dev, cat_dev, **kw,
+                 **(dict(phase="vec") if two_phase else {}))
         futures.append((off, k, res))
         off += k
+    if two_phase:
+        win["two_phase"] = dict(fn=fn, kw=kw, rtab_dev=rtab_dev,
+                                cat_dev=cat_dev)
     cells = int(fh.w_len.astype(np.int64).sum()) * L
-    m.tally(vec_invocs=n, vec_cells=cells, full_invocs=n, full_cells=cells)
+    m.tally(vec_invocs=n, vec_cells=cells)
+    if not two_phase:
+        m.tally(full_invocs=n, full_cells=cells)
     return futures, win, G, stats_flow
+
+
+def _tp_run_full(m, tp, win, G: int, rows: np.ndarray, stats_flow: bool,
+                 fh, L: int, R: int):
+    """Two-phase phase B: the full SW for the window rows `rows` only,
+    in launches of up to FULL_BUCKETS[-1] rows (the traceback flow keeps
+    its 2^28-cell chunks), fetched. Returns the [k, 7] stats rows (stats
+    flow) or (packed [k, 10], ops [k, W]) (traceback flow). No rows: no
+    launch. Shared by the unpaired pass-1 survivor flow
+    (FastLS.stage_finish) and the paired select-then-full flow
+    (FastPaired.stage_finish)."""
+    t0 = _time.perf_counter()
+    n_jobs = len(rows)
+    eff_batch = FULL_BUCKETS[-1] if stats_flow else _tb_batch(R, G)
+    dev = m.device
+    futures = []
+    for off in range(0, n_jobs, eff_batch):
+        k = min(n_jobs - off, eff_batch)
+        rws = rows[off:off + k]
+        args = _pack_args4(
+            _chunk_bucket(k, eff_batch), k, win["starts"][rws],
+            win["glen"][rws], win["ri"][rws], win["rcmask"][rws],
+            win["rx"][rws], win["ry"][rws], win["rl_"][rws],
+            win["rw_"][rws], win["rev"][rws])
+        futures.append((off, k, tp["fn"](
+            m._dev_codes(), m._dev_codes_rc(),
+            torch.from_numpy(args).to(dev), tp["rtab_dev"], tp["cat_dev"],
+            **tp["kw"], phase="full")))
+    if stats_flow:
+        out = np.empty((n_jobs, 7), np.int32)
+        for off, k, pk3 in futures:
+            out[off:off + k] = _unpack_stats3(pk3[:k].cpu().numpy())[1]
+    else:
+        W = (R + G + 3) // 4
+        out = (np.empty((n_jobs, 10), np.int32),
+               np.empty((n_jobs, W), np.uint8))
+        for off, k, (pk, opk) in futures:
+            out[0][off:off + k] = pk[:k].cpu().numpy()
+            out[1][off:off + k] = opk[:k].cpu().numpy()
+    m.tally("device full (2ph)", _time.perf_counter() - t0,
+            full_invocs=n_jobs,
+            full_cells=int(fh.w_len[rows].astype(np.int64).sum()) * L)
+    return out
+
+
+def _fetch(ctx, n: int):
+    """The dispatch's device results on the host: (vector scores int64
+    [n], stats [n, 7] of the stats flow, (packed [n, 10], ops [n, W]) of
+    the traceback flow); a two-phase dispatch returns the scores alone,
+    the others None. The device tensors are freed."""
+    scores = np.empty(n, np.int64)
+    stats = tb = None
+    if ctx["win"].get("two_phase") is not None:
+        for off, k, (vec,) in ctx["futures"]:
+            scores[off:off + k] = vec[:k].cpu().numpy()
+    elif ctx["stats_flow"]:
+        stats = np.empty((n, 7), np.int32)
+        for off, k, res in ctx["futures"]:
+            v, st = _unpack_stats3(res[:k].cpu().numpy())
+            scores[off:off + k] = v
+            stats[off:off + k] = st
+    else:
+        tb = (np.empty((n, 10), np.int32),
+              np.empty((n, (ctx["R"] + ctx["G"] + 3) // 4), np.uint8))
+        for off, k, (vec, pk, opk) in ctx["futures"]:
+            scores[off:off + k] = vec[:k].cpu().numpy()
+            tb[0][off:off + k] = pk[:k].cpu().numpy()
+            tb[1][off:off + k] = opk[:k].cpu().numpy()
+    ctx["futures"] = None
+    return scores, stats, tb
 
 
 class FastLS:
@@ -479,7 +593,7 @@ class FastLS:
         stats_flow = True
         if fh.n:
             futures, win, G, stats_flow = _fused_dispatch(
-                m, fh, read_tab, L, R, (fh.owner & 1) == 1)
+                m, fh, read_tab, L, R, (fh.owner & 1) == 1, n_reads=B)
         m.tally("device dispatch", _time.perf_counter() - t2)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
                     G=G, R=R, stats_flow=stats_flow, codes=codes,
@@ -614,22 +728,9 @@ class FastLS:
             return self._unaligned_block(ctx, nhits), nhits
         n = int(fh.n)
         t0 = _time.perf_counter()
-        scores = np.empty(n, np.int64)
         stats_flow = ctx["stats_flow"]
-        if stats_flow:
-            stats_all = np.empty((n, 7), np.int32)
-            for off, k, res in ctx["futures"]:
-                v, st = _unpack_stats3(res[:k].cpu().numpy())
-                scores[off:off + k] = v
-                stats_all[off:off + k] = st
-        else:
-            W_all = (ctx["R"] + ctx["G"] + 3) // 4
-            packed_all = np.empty((n, 10), np.int32)
-            ops_all = np.empty((n, W_all), np.uint8)
-            for off, k, (vec, pk, opk) in ctx["futures"]:
-                scores[off:off + k] = vec[:k].cpu().numpy()
-                packed_all[off:off + k] = pk[:k].cpu().numpy()
-                ops_all[off:off + k] = opk[:k].cpu().numpy()
+        tp = ctx["win"].get("two_phase")
+        scores, stats_all, tb_all = _fetch(ctx, n)
         dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
         m.tally("device fetch", _time.perf_counter() - t0,
                 vec_secs=dev_secs, full_secs=dev_secs)
@@ -698,6 +799,11 @@ class FastLS:
                  "ax", "ay", "alen", "awid", "matches", "swg",
                  "score_vector")}
         rows = sel["src"][:n_sel][jsel]
+        if tp is not None:
+            # two-phase phase B: the full SW on the pass-1 + vector-gate
+            # survivors only
+            out2 = _tp_run_full(m, tp, ctx["win"], ctx["G"], rows,
+                                stats_flow, fh, L, ctx["R"])
         t0 = _time.perf_counter()
         if stats_flow:
             win = ctx["win"]
@@ -708,12 +814,15 @@ class FastLS:
                         rx=win["rx"][rows], ry=win["ry"][rows],
                         rl_=win["rl_"][rows], rw_=win["rw_"][rows],
                         rev=win["rev"][rows])
-            packed, ops_pk, W = self._stats_to_packed(stats_all[rows],
-                                                      ctx2)
+            packed, ops_pk, W = self._stats_to_packed(
+                out2 if tp is not None else stats_all[rows], ctx2)
+        elif tp is not None:
+            packed, ops_pk = out2
+            W = ops_pk.shape[1]
         else:
-            W = ops_all.shape[1]
-            packed = np.ascontiguousarray(packed_all[rows])
-            ops_pk = np.ascontiguousarray(ops_all[rows])
+            packed = np.ascontiguousarray(tb_all[0][rows])
+            ops_pk = np.ascontiguousarray(tb_all[1][rows])
+            W = ops_pk.shape[1]
         m.tally("alignment expand", _time.perf_counter() - t0)
         t1 = _time.perf_counter()
         cal = m.cal
@@ -865,3 +974,613 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
             yield stage_finish(pend)[0]
             pend = nxt
     return gen()
+
+
+# ===================================================================
+# Paired-end fast path
+# ===================================================================
+
+class _PPParams(ctypes.Structure):
+    _fields_ = [("n_pairs", ctypes.c_int64), ("n_windows", ctypes.c_int64),
+                ("read_len", ctypes.c_int32),
+                ("window_len", ctypes.c_int32),
+                ("ops_words", ctypes.c_int32),
+                ("d_min", ctypes.c_int64 * 2),
+                ("d_max", ctypes.c_int64 * 2),
+                ("p1_min_matches", ctypes.c_int32),
+                ("p1_overlap", ctypes.c_int32),
+                ("p1_threshold", ctypes.c_double),
+                ("pair1_num_outputs", ctypes.c_int32),
+                ("pair1_threshold", ctypes.c_double),
+                ("foot_threshold", ctypes.c_double),
+                ("pair2_threshold", ctypes.c_double),
+                ("pair2_num_outputs", ctypes.c_int32),
+                ("strata", ctypes.c_int32),
+                ("max_alignments", ctypes.c_int32),
+                ("hp_enabled", ctypes.c_int32),
+                ("hp_min_matches", ctypes.c_int32),
+                ("hp_overlap", ctypes.c_int32),
+                ("hp_threshold", ctypes.c_double),
+                ("hp_num_tmp", ctypes.c_int32),
+                ("hp_full_threshold", ctypes.c_double),
+                ("hp_num_outputs", ctypes.c_int32),
+                ("compute_mqv", ctypes.c_int32),
+                ("alpha", ctypes.c_double), ("beta", ctypes.c_double),
+                ("match_score", ctypes.c_int32),
+                ("mismatch_score", ctypes.c_int32),
+                ("total_genome_size", ctypes.c_double),
+                ("ins_mean", ctypes.c_double),
+                ("ins_stddev", ctypes.c_double),
+                ("mode_sign_st0", ctypes.c_int32),
+                ("contig_lengths", ctypes.c_void_p),
+                ("contig_name_off", ctypes.c_void_p),
+                ("contig_names", ctypes.c_void_p),
+                ("name_off", ctypes.c_void_p), ("names", ctypes.c_void_p),
+                ("seq_fwd", ctypes.c_void_p), ("seq_rc", ctypes.c_void_p),
+                ("qual_fwd", ctypes.c_void_p),
+                ("qual_rc", ctypes.c_void_p),
+                ("qual_raw", ctypes.c_void_p),
+                # colour-space mode extras (cs=0 for LS)
+                ("cs", ctypes.c_int32),
+                ("pr_random_den", ctypes.c_int32),
+                ("pr_xover", ctypes.c_double), ("pr_snp", ctypes.c_double),
+                ("pr_del_open", ctypes.c_double),
+                ("pr_del_extend", ctypes.c_double),
+                ("pr_ins_open", ctypes.c_double),
+                ("pr_ins_extend", ctypes.c_double),
+                ("cs_fastq", ctypes.c_int32),
+                ("cs_use_read_qvs", ctypes.c_int32),
+                ("cs_qual_delta", ctypes.c_int32),
+                ("cs_use_sanger", ctypes.c_int32),
+                ("cs_genome_fwd", ctypes.c_void_p),
+                ("cs_genome_rc", ctypes.c_void_p),
+                ("cs_colours", ctypes.c_void_p),
+                ("cs_qr_tab", ctypes.c_void_p),
+                ("cs_initbp", ctypes.c_void_p),
+                ("cs_readseq", ctypes.c_void_p),
+                ("cs_read_seq_len", ctypes.c_int32),
+                ("cs_quals", ctypes.c_void_p),
+                ("cs_cq", ctypes.c_void_p),
+                ("cs_cq_len", ctypes.c_int32),
+                # sharded-index MQV recombination (two-pass; see
+                # pairedpipe.cpp PPParams tail): unused here
+                ("win_shard", ctypes.c_void_p),
+                ("n_shards", ctypes.c_int32),
+                ("part_out", ctypes.c_void_p),
+                ("ext_in", ctypes.c_void_p),
+                # select-then-full two-phase (pairedpipe.cpp tail)
+                ("full_valid", ctypes.c_void_p),
+                ("rescue_flag", ctypes.c_void_p),
+                ("select_only", ctypes.c_int32),
+                ("sel_out", ctypes.c_void_p),
+                # renderer-level flags
+                ("rg", ctypes.c_void_p), ("rg_len", ctypes.c_int32),
+                ("all_contigs", ctypes.c_int32),
+                ("sam_unaligned", ctypes.c_int32),
+                ("sam_r2", ctypes.c_int32),
+                ("seq_raw", ctypes.c_void_p),
+                ("una_lo", ctypes.c_int64),
+                ("una_hi", ctypes.c_int64),
+                ("rescue_cap", ctypes.c_int64)]
+
+
+class _PPWin(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in
+                ("seg", "cn", "g_off", "g_off_norm", "gen_st", "w_len",
+                 "matches", "score_max", "vec", "packed", "ops_pk",
+                 "cs_packed", "cs_steps", "start_abs")]
+
+
+def fastpath_paired_supported(cfg: MapperConfig) -> bool:
+    """Gate: the native paired renderer covers the default LS paired SAM
+    flow (single option set, MQV on, no single-best) plus the
+    renderer-level flags (--all-contigs without single-best is Z-field
+    suppression only; --sam-unaligned / --sam-r2 / --read-group are
+    output-side)."""
+    if cfg.pair_mode == C.PAIR_NONE:
+        return False
+    if cfg.mode != C.MODE_LETTER_SPACE:
+        return False
+    if cfg.custom_paired_options or cfg.custom_unpaired_options:
+        return False
+    popts = cfg.paired_options()
+    if len(popts) != 1:
+        return False
+    ro = popts[0].read[0]
+    if (ro.anchor_list.use_mp_region_counts
+            and not ro.anchor_list.use_region_counts):
+        return False
+    if cfg.gapless or not cfg.global_alignment:
+        return False
+    if not cfg.compute_mapping_qualities:
+        return False
+    if cfg.single_best_mapping:
+        return False
+    if cfg.extra_sam_fields or cfg.shrimp_format:
+        return False
+    if not (cfg.search_forward and cfg.search_reverse):
+        return False
+    return True
+
+
+def _paired_config_supported(cfg: MapperConfig) -> bool:
+    """`fastpath_paired_supported` plus the reference's stage_prepare
+    refusal of raw-string trims, which the reference also answers with
+    None. FastPaired assumes a config that passed this gate."""
+    return (fastpath_paired_supported(cfg)
+            and not (cfg.trim_front or cfg.trim_end or cfg.trim_illumina))
+
+
+class FastPaired:
+    """Flat-array paired-end pipeline: filter 1 and the device dispatch
+    shared with the unpaired stream (`_fused_dispatch`, two-phase at
+    LS_TWO_PHASE_WPR windows per read or more), then one native call
+    (`paired_finalize_render`) for pair-up, the paired passes, the
+    half-paired fallback, paired MQVs and the SAM text. Two-phase batches
+    run select-then-full: the native select pass picks, from the vector
+    scores alone, every window row that can need full-SW results, the
+    full SW runs on those rows (`_tp_run_full`), and rows the render
+    then finds missing are added in rescue rounds. `mapper` is a
+    `paired.PairedMapper`."""
+
+    def __init__(self, mapper) -> None:
+        self.fls = FastLS(mapper)
+        self.lib = self.fls.lib
+        self.m = mapper
+
+    def _set_render_flags(self, p, ctx, n_pairs):
+        """Renderer-level flag fields on the native params (RG suffix,
+        all-contigs, sam-unaligned range, sam-r2). Returns the RG bytes
+        to keep alive through the native call."""
+        cfg = self.m.config
+        rg_bytes = None
+        if cfg.read_group_name:
+            rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
+            p.rg = ctypes.cast(ctypes.c_char_p(rg_bytes), ctypes.c_void_p)
+            p.rg_len = len(rg_bytes)
+        p.all_contigs = int(cfg.all_contigs)
+        p.sam_unaligned = int(cfg.sam_unaligned)
+        p.sam_r2 = int(cfg.sam_r2)
+        p.seq_raw = ctx["raw"].ctypes.data
+        p.una_lo = 0
+        p.una_hi = n_pairs
+        return rg_bytes
+
+    def _paired_unaligned_block(self, ctx) -> bytes:
+        """--sam-unaligned records for every pair of a batch with no
+        candidate windows (same bytes pairedpipe emits)."""
+        cfg = self.m.config
+        if not cfg.sam_unaligned:
+            return b""
+        name_off = ctx["name_off"]
+        names = ctx["names"].tobytes()
+        raw = ctx["raw"]
+        qual_raw = ctx.get("qual_raw")
+        rg = (f"\tRG:Z:{cfg.read_group_name}".encode()
+              if cfg.read_group_name else b"")
+        parts = []
+        for pi in range(ctx["B"] // 2):
+            nms = [names[name_off[2 * pi + k]:
+                         name_off[2 * pi + k + 1]].decode()
+                   for k in (0, 1)]
+            q = _pair_qname(nms[0], nms[1]).encode()
+            for nip in (0, 1):
+                ri = 2 * pi + nip
+                flags = 0x1 | 0x4 | 0x8 | (0x40 if nip == 0 else 0x80)
+                ql = (qual_raw[ri].tobytes() if qual_raw is not None
+                      else b"*")
+                line = (q + f"\t{flags}\t*\t0\t0\t*\t*\t0\t0\t".encode()
+                        + ctx["seq_fwd"][ri].tobytes() + b"\t" + ql)
+                if cfg.sam_r2:
+                    line += b"\tR2:Z:" + raw[2 * pi + 1 - nip].tobytes()
+                parts.append(line + rg + b"\n")
+        return b"".join(parts)
+
+    def _filter1_paired(self, codes2, L: int, wlen: int, ro, mp_kw):
+        """Paired candidate generation (mate-pair region filter
+        included)."""
+        m = self.m
+        cfg = m.config
+        return generate_candidates_native(
+            m.index, codes2, L, wlen, m.cutoff, ro.hit_list.match_mode,
+            ro.hit_list.threshold, cfg.scores.match,
+            cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
+            min_kmer_pos=0,
+            use_region_counts=ro.anchor_list.use_region_counts,
+            region_bits=cfg.region_bits,
+            region_overlap=cfg.region_overlap,
+            collapse=ro.anchor_list.collapse, gapless=False,
+            search_strands=(True, True), threads=self.fls.f1_threads,
+            **mp_kw)
+
+    # ---------------------------------------------------------- stage A
+    def stage_prepare(self, records: Sequence[SeqRecord],
+                      batch_cap: Optional[int] = None):
+        """Encode interleaved mate pairs + filter 1 + device dispatch.
+        Returns None when the flat encoder rejects the batch (the config
+        was screened by map_paired_sam_stream)."""
+        m = self.m
+        cfg = m.config
+        t0 = _time.perf_counter()
+        if not records or len(records) % 2:
+            return None
+        qual_raw = None
+        has_qual = any(r.qual is not None for r in records)
+        L = len(records[0].seq)
+        if L == 0 or L > cfg.longest_read_len:
+            return None
+        try:
+            buf = "".join(r.seq for r in records).encode("ascii")
+        except UnicodeEncodeError:
+            return None
+        B = len(records)
+        if len(buf) != B * L:
+            return None
+        raw = np.frombuffer(buf, np.uint8).reshape(B, L)
+        qual_fwd = qual_rc = None
+        if has_qual:
+            try:
+                qbuf = "".join(r.qual for r in records).encode("ascii")
+            except (UnicodeEncodeError, TypeError):
+                return None
+            if len(qbuf) != B * L:
+                return None
+            qarr = np.frombuffer(qbuf, np.uint8).reshape(B, L)
+            qv = qarr.astype(np.int32) - cfg.qual_delta
+            if not cfg.ignore_qvs and not cfg.no_qv_check:
+                bad = (qv < -10) | (qv > 50)
+                if bad.any():
+                    q0 = int(qv[bad][0])
+                    raise ValueError(
+                        "The qv-offset might be set incorrectly! "
+                        "Currently qvs are interpreted as PHRED+"
+                        f"{cfg.qual_delta} and a qv of {q0} was "
+                        "observed.")
+            if not cfg.ignore_qvs and cfg.min_avg_qv >= 0:
+                s = qv.sum(axis=1, dtype=np.int64)
+                avg = np.where(s < 0, -((-s) // L), s // L)
+                if (avg < cfg.min_avg_qv).any():
+                    return None   # pair drops: the generic path's
+            qual_raw = np.ascontiguousarray(qarr)
+            if cfg.qual_delta != 33:
+                qarr = (qarr.astype(np.int32) - cfg.qual_delta + 33
+                        ).astype(np.uint8)
+            qual_fwd = np.ascontiguousarray(qarr)
+            qual_rc = np.ascontiguousarray(qarr[:, ::-1])
+        codes16 = C.CHAR_TO_INT[raw]
+        if (codes16 < 0).any():
+            return None
+        codes = codes16.astype(np.uint8)
+        rc = C.COMPLEMENT[codes[:, ::-1]]
+        seq_fwd = np.ascontiguousarray(_CLEAN_LUT[raw])
+        seq_rc = np.ascontiguousarray(_COMP_LUT[seq_fwd[:, ::-1]])
+        offs = np.empty(B + 1, np.int64)
+        offs[0] = 0
+        parts = []
+        for i, r in enumerate(records):
+            parts.append(r.name.encode())
+            offs[i + 1] = offs[i] + len(parts[-1])
+        nm_blob = np.frombuffer(b"".join(parts), np.uint8).copy() \
+            if parts else np.zeros(1, np.uint8)
+        wlen = int(abs_or_pct(cfg.window_len, L))
+        # per-leg strand flips (read_reverse, gmapper.c:175-186)
+        flip1, flip2 = C.PAIR_REVERSE[cfg.pair_mode]
+        input_strand = np.zeros(B, np.int8)
+        input_strand[0::2] = int(flip1)
+        input_strand[1::2] = int(flip2)
+        codes2 = np.empty((B, 2, L), np.uint8)
+        flipm = input_strand == 1
+        codes2[~flipm, 0] = codes[~flipm]
+        codes2[~flipm, 1] = rc[~flipm]
+        codes2[flipm, 0] = rc[flipm]
+        codes2[flipm, 1] = codes[flipm]
+        m.tally("read prep", _time.perf_counter() - t0)
+        t1 = _time.perf_counter()
+        ro = m._paired_opts[0].read[0]
+        mp_kw = {}
+        if ro.anchor_list.use_mp_region_counts:
+            # mate-pair region filter deltas (readpair_compute_mp_ranges,
+            # mapping.c:2317-2442); all pairs share them at equal lengths
+            re1 = SimpleNamespace(window_len=wlen, read_len=L)
+            re2 = SimpleNamespace(window_len=wlen, read_len=L)
+            m._compute_mp_ranges(re1, re2, m._paired_opts[0].pairing)
+            drmin = np.empty(2 * B, np.int64)
+            drmax = np.empty(2 * B, np.int64)
+            for st in (0, 1):
+                drmin[st::4] = re1.delta_region_min[st]
+                drmax[st::4] = re1.delta_region_max[st]
+                drmin[2 + st::4] = re2.delta_region_min[st]
+                drmax[2 + st::4] = re2.delta_region_max[st]
+            mp_kw = dict(mp_mode=ro.anchor_list.use_mp_region_counts,
+                         mp_drmin=drmin, mp_drmax=drmax)
+        fh = self._filter1_paired(codes2, L, wlen, ro, mp_kw)
+        if fh is None:
+            return None
+        m.tally("filter1", _time.perf_counter() - t1)
+        t2 = _time.perf_counter()
+        R = _round_up(L, 8)
+        Bcap = max(batch_cap or B, B)
+        read_tab = np.full((Bcap, R), 254, np.uint8)
+        read_tab[:B, :L] = codes        # raw forward rows for all legs
+        win = None
+        futures = []
+        G = 16
+        stats_flow = True
+        if fh.n:
+            rcf = (fh.owner & 1).astype(np.int8) != \
+                input_strand[(fh.owner >> 1).astype(np.int64)]
+            # n_reads gates the two-phase dispatch by density (vec-only
+            # now; the full SW later on the rows the native select pass
+            # picks: the reference's lazy full SW)
+            futures, win, G, stats_flow = _fused_dispatch(
+                m, fh, read_tab, L, R, rcf, n_reads=B)
+        m.tally("device dispatch", _time.perf_counter() - t2)
+        return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
+                    G=G, R=R, stats_flow=stats_flow, codes=codes,
+                    names=nm_blob, name_off=offs, seq_fwd=seq_fwd,
+                    seq_rc=seq_rc, Bcap=Bcap, read_tab=read_tab,
+                    input_strand=input_strand,
+                    qual_fwd=qual_fwd, qual_rc=qual_rc,
+                    qual_raw=qual_raw, raw=np.ascontiguousarray(raw),
+                    t_dispatch=_time.perf_counter() - t2)
+
+    def _expand(self, ctx, rows, stats):
+        """Alignment rows [k, 10] and packed ops of the window rows
+        `rows` from their [k, 7] full-SW stats (FastLS._stats_to_packed):
+        (packed, ops, W)."""
+        fh, win = ctx["fh"], ctx["win"]
+        ctx2 = dict(n_jobs=len(rows),
+                    jobs=dict(ri=win["ri"][rows],
+                              w_len=np.ascontiguousarray(fh.w_len[rows],
+                                                         np.int32)),
+                    R=ctx["R"], G=ctx["G"], L=ctx["L"],
+                    read_tab=ctx["read_tab"],
+                    starts=win["starts"][rows], rcmask=win["rcmask"][rows],
+                    rx=win["rx"][rows], ry=win["ry"][rows],
+                    rl_=win["rl_"][rows], rw_=win["rw_"][rows],
+                    rev=win["rev"][rows])
+        return self.fls._stats_to_packed(stats, ctx2)
+
+    def _render(self, p, wstruct, cap, pair_nhits, read_nhits):
+        """One paired_finalize_render call into a buffer that grows
+        until the text fits: (buffer, bytes written, buffer size)."""
+        while True:
+            out = np.empty(cap, np.uint8)
+            rv = int(self.lib.paired_finalize_render(
+                ctypes.byref(p), ctypes.byref(wstruct),
+                out.ctypes.data_as(ctypes.c_char_p), cap,
+                _vp(pair_nhits), _vp(read_nhits)))
+            if rv >= 0:
+                return out, rv, cap
+            cap *= 4
+            pair_nhits[:] = 0
+            read_nhits[:] = 0
+
+    # ---------------------------------------------------------- stage B
+    def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray, np.ndarray]:
+        """Fetch device results, expand alignments for every window (or,
+        two-phase, for the rows the select pass picks), and run the whole
+        paired brain in one native call."""
+        m = self.m
+        cfg = m.config
+        fh = ctx["fh"]
+        B, L = ctx["B"], ctx["L"]
+        n_pairs = B // 2
+        pair_nhits = np.zeros(n_pairs, np.int32)
+        read_nhits = np.zeros(B, np.int32)
+        m.tally(reads=B)
+        if fh.n == 0:
+            return (self._paired_unaligned_block(ctx), pair_nhits,
+                    read_nhits)
+        n = int(fh.n)
+        win = ctx["win"]
+        tp = win.get("two_phase")
+        t0 = _time.perf_counter()
+        scores, stats_all, tb_all = _fetch(ctx, n)
+        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
+        m.tally("device fetch", _time.perf_counter() - t0,
+                vec_secs=dev_secs, full_secs=dev_secs)
+
+        owner = np.ascontiguousarray(fh.owner, np.int64)
+        seg = np.ascontiguousarray(
+            np.searchsorted(owner, np.arange(2 * B + 1)), np.int64)
+        t0 = _time.perf_counter()
+        W = (ctx["R"] + ctx["G"] + 3) // 4
+        if stats_all is not None:
+            packed, ops_pk, W = self._expand(ctx, np.arange(n), stats_all)
+        elif tb_all is not None:
+            packed, ops_pk = tb_all
+        m.tally("alignment expand", _time.perf_counter() - t0)
+
+        # ---- one native call: pair-up .. SAM text
+        t0 = _time.perf_counter()
+        popts = m._paired_opts[0]
+        ro = popts.read[0]
+        pairing = popts.pairing
+        hp = cfg.half_paired_unpaired_options(0)[0]
+        re1 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
+        re2 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
+        m._compute_mp_ranges(re1, re2, pairing)
+        cal = m.cal
+        sc = cfg.scores
+        arrs = dict(
+            seg=seg,
+            cn=np.ascontiguousarray(fh.cn, np.int32),
+            g_off=np.ascontiguousarray(fh.g_off, np.int64),
+            g_off_norm=np.ascontiguousarray(win["g_off_t"], np.int64),
+            gen_st=np.ascontiguousarray(win["rcmask"], np.int8),
+            w_len=np.ascontiguousarray(fh.w_len, np.int32),
+            matches=np.ascontiguousarray(fh.matches, np.int32),
+            score_max=np.ascontiguousarray(fh.score_max, np.int64),
+            vec=scores)
+        if tp is None:
+            arrs["packed"] = np.ascontiguousarray(packed, np.int32)
+            arrs["ops_pk"] = np.ascontiguousarray(ops_pk, np.uint8)
+        fls = self.fls
+        p = _PPParams(
+            n_pairs, n, L, ctx["wlen"], W,
+            (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
+                                 int(re1.delta_g_off_min[1])),
+            (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
+                                 int(re1.delta_g_off_max[1])),
+            ro.pass1.min_matches,
+            int(abs_or_pct(ro.pass1.window_overlap, ctx["wlen"])),
+            float(ro.pass1.threshold),
+            pairing.pass1_num_outputs, float(pairing.pass1_threshold),
+            float(ro.pass2.threshold),
+            float(pairing.pass2_threshold), pairing.pass2_num_outputs,
+            int(pairing.strata), cfg.max_alignments,
+            int(cfg.half_paired), hp.pass1.min_matches,
+            int(abs_or_pct(hp.pass1.window_overlap, ctx["wlen"])),
+            float(hp.pass1.threshold), hp.pass1.num_outputs,
+            float(hp.pass2.threshold), hp.pass2.num_outputs,
+            int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
+            sc.match, sc.mismatch,
+            float(m.total_genome_size),
+            float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
+            int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
+            fls.contig_lengths32.ctypes.data,
+            fls.contig_name_off.ctypes.data,
+            fls.contig_names_blob.ctypes.data,
+            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+            ctx["seq_fwd"].ctypes.data, ctx["seq_rc"].ctypes.data,
+            ctx["qual_fwd"].ctypes.data
+            if ctx.get("qual_fwd") is not None else None,
+            ctx["qual_rc"].ctypes.data
+            if ctx.get("qual_rc") is not None else None,
+            ctx["qual_raw"].ctypes.data
+            if ctx.get("qual_raw") is not None else None,
+            0, sc.match - sc.mismatch,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0, 0, 0, 0, None, None, None, None, None, None, 0,
+            None, None, 0)
+        # the RG bytes stay alive through the native calls
+        rg_bytes = self._set_render_flags(p, ctx, n_pairs)
+        wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
+        cap = max(1 << 20, n_pairs * 4 * (L + 320))
+        if tp is None:
+            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
+                                        read_nhits)
+        else:
+            out, rv = self._select_then_full(
+                ctx, tp, p, wstruct, arrs, hp, pairing, n, n_pairs, cap,
+                pair_nhits, read_nhits)
+        m.tally("paired select + render", _time.perf_counter() - t0,
+                reads_mapped=int((pair_nhits > 0).sum()) * 2,
+                alignments=2 * int(pair_nhits.sum())
+                + int(read_nhits.sum()))
+        return bytes(out[:rv]), pair_nhits, read_nhits
+
+    def _select_then_full(self, ctx, tp, p, wstruct, arrs, hp, pairing, n,
+                          n_pairs, cap, pair_nhits, read_nhits):
+        """The two-phase render: the native select pass picks, from the
+        vector scores alone, every row that can need full-SW results
+        (paired heap feet and the half-paired heap's superset); the full
+        SW runs on those rows; the render records rows it finds missing
+        (saved-anchor suppression can diverge at high density), which
+        rescue rounds add, at most four, with every row as the last net.
+        Returns (buffer, bytes written)."""
+        m = self.m
+        fh, win = ctx["fh"], ctx["win"]
+        t0 = _time.perf_counter()
+        cap_sel = int(n_pairs) * 2 * (
+            pairing.pass1_num_outputs + hp.pass1.num_outputs
+            + pairing.pass2_num_outputs) + 8
+        sel_out = np.zeros(cap_sel, np.int32)
+        p.select_only = 1
+        p.sel_out = sel_out.ctypes.data
+        dummy = np.zeros(8, np.uint8)
+        nsel = int(self.lib.paired_finalize_render(
+            ctypes.byref(p), ctypes.byref(wstruct),
+            dummy.ctypes.data_as(ctypes.c_char_p), 0,
+            _vp(pair_nhits), _vp(read_nhits)))
+        if not 0 <= nsel <= cap_sel:
+            raise RuntimeError(f"paired select pass failed ({nsel})")
+        p.select_only = 0
+        p.sel_out = None
+        m.tally("paired select (2ph)", _time.perf_counter() - t0)
+        # the full-size arrays the render reads: valid where fv is 1
+        full = {}
+
+        def add_full(rows_f):
+            """Full SW and alignment expansion for rows_f (those not
+            yet valid), merged into the full-size arrays."""
+            if full:
+                rows_f = rows_f[full["fv"][rows_f] == 0]
+            if len(rows_f) == 0:
+                return
+            out2 = _tp_run_full(m, tp, win, ctx["G"], rows_f,
+                                ctx["stats_flow"], fh, ctx["L"], ctx["R"])
+            t3 = _time.perf_counter()
+            if ctx["stats_flow"]:
+                pk_s, ops_s, W2 = self._expand(ctx, rows_f, out2)
+            else:
+                pk_s, ops_s = out2
+                W2 = ops_s.shape[1]
+            if not full:
+                p.ops_words = W2
+                full.update(pk=np.zeros((n, 10), np.int32),
+                            ops=np.zeros((n, W2), np.uint8),
+                            fv=np.zeros(n, np.uint8))
+                wstruct.packed = _vp(full["pk"])
+                wstruct.ops_pk = _vp(full["ops"])
+                p.full_valid = full["fv"].ctypes.data
+            if W2 != full["ops"].shape[1]:
+                raise RuntimeError("paired select-then-full: op widths "
+                                   "differ between rounds")
+            full["pk"][rows_f] = pk_s
+            full["ops"][rows_f] = ops_s
+            full["fv"][rows_f] = 1
+            m.tally("alignment expand", _time.perf_counter() - t3)
+
+        add_full(np.unique(sel_out[:nsel]).astype(np.int64))
+        rescue = np.zeros(1, np.int32)
+        p.rescue_flag = rescue.ctypes.data
+        p.sel_out = sel_out.ctypes.data
+        p.rescue_cap = cap_sel
+        out, rv, cap = self._render(p, wstruct, cap, pair_nhits, read_nhits)
+        rounds = 0
+        while rescue[0] and rounds < 4:
+            add_full(np.unique(
+                sel_out[:min(int(rescue[0]), cap_sel)]).astype(np.int64))
+            rescue[0] = 0
+            pair_nhits[:] = 0
+            read_nhits[:] = 0
+            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
+                                        read_nhits)
+            rounds += 1
+        if rescue[0]:
+            add_full(np.arange(n, dtype=np.int64))
+            p.full_valid = None
+            pair_nhits[:] = 0
+            read_nhits[:] = 0
+            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
+                                        read_nhits)
+        return out, rv
+
+
+def map_paired_sam_stream(mapper, records: Sequence[SeqRecord],
+                          batch_size: Optional[int] = None,
+                          lanes: Optional[int] = None
+                          ) -> Optional[Iterator[bytes]]:
+    """Pipelined LS paired mapping straight to SAM bytes, batch by batch
+    in input order; None when the config needs a feature outside the
+    fast path. `mapper` is a `paired.PairedMapper`; `records` are
+    interleaved mate pairs (an odd batch size is rounded up). A batch
+    the flat encoder rejects (an odd record count, mixed read lengths,
+    non-ACGTN bases, mixed qualities, a read under --min-avg-qv) raises
+    NotImplementedError naming its reads.
+
+    `lanes` > 1 (default 16) runs that many whole-batch pipelines on
+    worker threads, output re-ordered to input order; results are
+    byte-identical to lanes=1."""
+    if not _paired_config_supported(mapper.config):
+        return None
+    batch_size = batch_size or auto_batch_size(mapper)
+    batch_size += batch_size % 2
+    fast = FastPaired(mapper)
+    return batch_pipeline(
+        fast.fls, fast.stage_prepare, fast.stage_finish, records,
+        batch_size, lanes,
+        "an odd record count, mixed read lengths, non-ACGTN bases, mixed "
+        "qualities or a read under the average-quality floor")

@@ -1,21 +1,24 @@
 """Flat-array fast path for colour-space unpaired mapping to SAM, on torch
 devices.
 
-Port of the fused flow of `shrimp_tpu/fastpath_cs.py`:
+Port of the unpaired flows of `shrimp_tpu/fastpath_cs.py`:
 
     read prep + filter 1 (native)  ->  one fused device step per chunk
     (CS vector SW + 4-layer full SW + traceback, core/sw_cs.py)  ->
     pass1_select (native)  ->  cs_finalize_render (native: post-SW
     forward-backward, threshold, dedup, sort, MQV, SAM text)
 
+and, at CS_TWO_PHASE_WPR or more candidate windows per read, the
+two-phase dispatch: the vector SW alone on every window, then the
+4-layer DP and the traceback on the pass-1 survivors only.
+
 The host stages run through the port's native library (`native/`, a
 copy of the reference's C++), so the SAM bytes are the reference's. It builds on the port's
 `fastpath.FastLS` (contig blobs, native library, filter 1 fan-out) and
 counts every statistic through `Mapper.tally`, which the lane threads
-share. Not ported here: the two-phase dispatch (a batch at >= 8 windows
-per read raises NotImplementedError) and the slow tail (a batch the flat
-encoder rejects raises NotImplementedError): there is no generic mapper
-behind this path.
+share. Not ported here: the slow tail (a batch the flat encoder
+rejects raises NotImplementedError): there is no generic mapper behind
+this path.
 """
 from __future__ import annotations
 
@@ -40,8 +43,9 @@ from .mapper import _round_up
 # that few kernel shapes occur (fastpath_cs.py:32-65)
 CS_CHUNK_BUCKETS = (2048, 8192, 32768, 131072, 262144, 393216, 524288,
                     786432, 1048576, 1572864, 2097152)
-# windows per read at or above which the reference switches to the
-# two-phase dispatch, which is not ported
+# windows per read at or above which a batch takes the two-phase
+# dispatch (the CS vector SW on every window, then the 4-layer DP and
+# the traceback on the pass-1 survivors only)
 CS_TWO_PHASE_WPR = 8
 
 
@@ -272,13 +276,8 @@ class FastCS:
         futures = []
         G = 32
         if fh.n:
-            if fh.n >= CS_TWO_PHASE_WPR * B:
-                raise NotImplementedError(
-                    f"{fh.n} candidate windows for {B} reads (>= "
-                    f"{CS_TWO_PHASE_WPR} per read): the two-phase dispatch "
-                    "is not ported")
             futures, win, G = self._fused_dispatch_cs(
-                fh, codes0, qr_tab, initbp, R, Bcap, xover_tab)
+                fh, codes0, qr_tab, initbp, R, Bcap, xover_tab, n_reads=B)
         m.tally("device dispatch", _time.perf_counter() - t2)
         return dict(B=B, R=R, wlen=wlen, fh=fh, win=win, futures=futures,
                     G=G, codes0=codes0, qr_tab=qr_tab,
@@ -330,10 +329,15 @@ class FastCS:
         return args_all, win, G
 
     def _fused_dispatch_cs(self, fh, codes0, qr_tab, initbp, R, Bcap,
-                           xover_tab=None):
+                           xover_tab=None, n_reads=None):
         """Launch the fused CS vector + full chunks against the device
         planes. Returns (futures, win, G): futures are (off, k, (vec,
-        packed, steps_rev) tensors on the device)."""
+        packed, steps_rev) tensors on the device). At CS_TWO_PHASE_WPR
+        or more windows per read of the `n_reads` reads (None: never)
+        the chunks run the vector SW alone (futures hold (vec,)) and
+        `win["two_phase"]` keeps what `_cs_run_full_rows` needs to align
+        the pass-1 survivors later. A row's results do not depend on the
+        chunk it is in, so both ways give the same bytes."""
         m = self.m
         cfg = m.config
         sc = cfg.scores
@@ -351,7 +355,6 @@ class FastCS:
                   b_gap_ext=sc.b_gap_extend,
                   local_alignment=not cfg.global_alignment,
                   indel_taboo_len=cfg.indel_taboo_len)
-        dev = m.device
         rows = _round_up(max(Bcap, 1), 1024)
         rtab_pad = np.full((rows, R), C.BASE_N, np.uint8)
         rtab_pad[:codes0.shape[0]] = codes0
@@ -360,24 +363,65 @@ class FastCS:
         xov_pad = np.full((rows, R), sc.crossover, np.int32)
         if xover_tab is not None:
             xov_pad[:xover_tab.shape[0]] = xover_tab
-        rtab_dev, qr_dev, xov_dev = (torch.from_numpy(a).to(dev)
+        rtab_dev, qr_dev, xov_dev = (torch.from_numpy(a).to(m.device)
                                      for a in (rtab_pad, qr_pad, xov_pad))
+        two_phase = (n_reads is not None
+                     and n >= CS_TWO_PHASE_WPR * max(n_reads, 1))
+        futures = self._cs_chunks(args_all, CB, rtab_dev, qr_dev, xov_dev,
+                                  dict(kw, phase="vec") if two_phase
+                                  else kw)
+        if two_phase:
+            win["two_phase"] = dict(args_all=args_all, kw=kw,
+                                    rtab_dev=rtab_dev, qr_dev=qr_dev,
+                                    xov_dev=xov_dev)
+        cells = int(fh.w_len.astype(np.int64).sum()) * R
+        m.tally(vec_invocs=n, vec_cells=cells)
+        if not two_phase:
+            m.tally(full_invocs=n, full_cells=cells * 4)
+        return futures, win, G
+
+    def _cs_chunks(self, args, CB, rtab_dev, qr_dev, xov_dev, kw):
+        """sw_vec_cs_full_from_index over the rows of `args` in chunks of
+        CB rows, the last padded with 1-cell windows: [(off, k,
+        result)]."""
+        m = self.m
+        dev = m.device
         planes = m._dev_cs_planes()
+        cats = m._dev_cs_cat_words()
+        n = len(args)
         futures = []
         for off in range(0, n, CB):
             k = min(off + CB, n) - off
             chunk = np.zeros((CB, 12), np.int32)
-            chunk[:k] = args_all[off:off + k]
+            chunk[:k] = args[off:off + k]
             chunk[k:, [1, 4, 7, 8]] = 1   # pad rows: 1-cell windows
             chunk[k:, 10] = 1             # threshold 1 zeroes pad scores
             res = sw_vec_cs_full_from_index(
                 *planes, torch.from_numpy(chunk).to(dev), rtab_dev, qr_dev,
                 xov_dev, *cats, **kw)
             futures.append((off, k, res))
-        cells = int(fh.w_len.astype(np.int64).sum()) * R
-        m.tally(vec_invocs=n, vec_cells=cells, full_invocs=n,
-                full_cells=cells * 4)
-        return futures, win, G
+        return futures
+
+    def _cs_run_full_rows(self, tp, rows, fh, R, G):
+        """Two-phase phase B: the 4-layer DP and the traceback for the
+        window rows `rows` only, in chunks of `_cs_chunk(len(rows))`
+        rows, fetched: (packed [k, 12] int16, steps_rev [k, R + G]
+        int8). No rows: no launch."""
+        t0 = _time.perf_counter()
+        m = self.m
+        n_sel = len(rows)
+        futures = self._cs_chunks(tp["args_all"][rows], _cs_chunk(n_sel),
+                                  tp["rtab_dev"], tp["qr_dev"],
+                                  tp["xov_dev"], dict(tp["kw"], phase="full"))
+        packed = np.empty((n_sel, 12), np.int16)
+        steps = np.empty((n_sel, R + G), np.int8)
+        for off, k, (pk, st) in futures:
+            packed[off:off + k] = pk[:k].cpu().numpy()
+            steps[off:off + k] = st[:k].cpu().numpy()
+        m.tally("device full (2ph)", _time.perf_counter() - t0,
+                full_invocs=n_sel,
+                full_cells=int(fh.w_len[rows].astype(np.int64).sum()) * R * 4)
+        return packed, steps
 
     def _unaligned_block_cs(self, ctx, nhits) -> bytes:
         """--sam-unaligned CS records for reads with no alignments, for
@@ -433,12 +477,19 @@ class FastCS:
         t0 = _time.perf_counter()
         W = R + ctx["G"]
         scores = np.empty(n, np.int64)
-        packed_all = np.empty((n, 12), np.int16)
-        steps_all = np.empty((n, W), np.int8)
-        for off, k, (vec, pk, st) in ctx["futures"]:
-            scores[off:off + k] = vec[:k].cpu().numpy()
-            packed_all[off:off + k] = pk[:k].cpu().numpy()
-            steps_all[off:off + k] = st[:k].cpu().numpy()
+        tp = ctx["win"].get("two_phase")
+        if tp is not None:
+            for off, k, (vec,) in ctx["futures"]:
+                scores[off:off + k] = vec[:k].cpu().numpy()
+        else:
+            packed_all = np.empty((n, 12), np.int16)
+            steps_all = np.empty((n, W), np.int8)
+            for off, k, (vec, pk, st) in ctx["futures"]:
+                scores[off:off + k] = vec[:k].cpu().numpy()
+                packed_all[off:off + k] = pk[:k].cpu().numpy()
+                steps_all[off:off + k] = st[:k].cpu().numpy()
+        # the device results are on the host now: free their memory
+        ctx["futures"] = None
         dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
         m.tally("device fetch", _time.perf_counter() - t0,
                 vec_secs=dev_secs, full_secs=dev_secs)
@@ -489,6 +540,13 @@ class FastCS:
         # CS pass 2 runs the full SW on every selected hit (no vector
         # gate, hit_run_full_sw mapping.c:375-379): keep all rows
         rows = sel["src"][:n_sel]
+        if tp is None:
+            packed_sel = np.ascontiguousarray(packed_all[rows])
+            steps_sel = np.ascontiguousarray(steps_all[rows])
+        else:
+            # two-phase phase B: the full SW on the pass-1 survivors only
+            packed_sel, steps_sel = self._cs_run_full_rows(tp, rows, fh, R,
+                                                           ctx["G"])
         t1 = _time.perf_counter()
         cal = m.cal
         g_fwd, g_rc, start_abs_sel, g_len = self._cs_genome_view(rows, ctx)
@@ -499,8 +557,7 @@ class FastCS:
             g_off=np.ascontiguousarray(sel["g_off"][:n_sel]),
             start_abs=start_abs_sel,
             score_max=np.ascontiguousarray(sel["score_max"][:n_sel]),
-            packed=np.ascontiguousarray(packed_all[rows]),
-            steps_rev=np.ascontiguousarray(steps_all[rows]))
+            packed=packed_sel, steps_rev=steps_sel)
         raw = ctx["raw"]
         quals, cq = ctx.get("quals"), ctx.get("cq")
         fr = _CSFRParams(
@@ -559,8 +616,7 @@ def map_unpaired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
     """Pipelined CS unpaired mapping straight to SAM bytes, batch by batch
     in input order; None when the config needs a feature outside the
     fast path. A batch the flat encoder rejects (mixed read lengths, bad
-    colours or primers, mixed qualities), or one at two-phase density
-    (>= 8 candidate windows per read), raises NotImplementedError.
+    colours or primers, mixed qualities) raises NotImplementedError.
 
     `lanes` > 1 (default 16) runs that many whole-batch pipelines on
     worker threads, output re-ordered to input order; results are

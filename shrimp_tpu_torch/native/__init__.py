@@ -1,9 +1,9 @@
 """The port's native host library: filter 1, pass-1 selection, the
-renderers and the index build's sort, in C++ through ctypes.
+renderers (unpaired, paired, colour space) and the index build's sort,
+in C++ through ctypes.
 
 Copied from `shrimp_tpu/native/__init__.py`, with its C++ sources beside
-it (byte for byte), less `pairedpipe.cpp`: paired mode is not ported.
-The library is built at first use with g++ and the reference's flags
+it (byte for byte). The library is built at first use with g++ and the reference's flags
 into `build/shrimp_tpu_torch/` beside the package (next to the CUDA
 kernels of `_build.py`), keyed by a hash of the sources and the flags,
 so an unchanged tree reuses it. A failed build raises: the port has no
@@ -24,8 +24,8 @@ _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("filter1.cpp", "hostpipe.cpp", "cspost.cpp", "cspipe.cpp",
-           "csrsort.cpp", "hostmem.cpp")
+SOURCES = ("filter1.cpp", "hostpipe.cpp", "pairedpipe.cpp", "cspost.cpp",
+           "cspipe.cpp", "csrsort.cpp", "hostmem.cpp")
 HEADERS = ("cs_eval.h",)
 # -ffp-contract=off: no FMA contraction, so double arithmetic rounds
 # exactly like Python/numpy (the MQV math compares posterior ratios
@@ -70,7 +70,8 @@ def get_lib() -> ctypes.CDLL:
             return _LIB
         lib = ctypes.CDLL(_build())
         for name in ("filter1_batch", "pass1_select", "finalize_render",
-                     "sw_full_tb_host", "cs_post_fb_batch",
+                     "sw_full_tb_host", "paired_finalize_render",
+                     "cs_post_fb_batch",
                      "cs_finalize_render", "csr_counting_sort",
                      "spaced_keys"):
             getattr(lib, name).restype = ctypes.c_int64

@@ -140,15 +140,19 @@ def test_cs_gate_configs_return_none(tmp_path):
         assert not fastpath_cs._config_supported(m.config)
 
 
-def test_cs_two_phase_density_raises(tmp_path, monkeypatch):
-    """A batch at >= 8 candidate windows per read would take the
-    reference's two-phase dispatch, which is not ported."""
+def test_cs_two_phase_density_identical(tmp_path, monkeypatch):
+    """A batch at >= CS_TWO_PHASE_WPR candidate windows per read (the
+    threshold lowered to 1 here) takes the two-phase dispatch, and its
+    SAM equals the reference's and the fused run's."""
     idx, pidx, recs = _build(tmp_path, n_reads=40)
+    want = _ref_sam(idx, MapperConfig(mode=CS), recs, 20)
+    fused = _port_sam(Mapper(pidx, PortConfig(mode=CS), "cpu"), recs, 20)
     monkeypatch.setattr(fastpath_cs, "CS_TWO_PHASE_WPR", 1)
     m = Mapper(pidx, PortConfig(mode=CS), "cpu")
-    with pytest.raises(NotImplementedError, match=r"reads 0\.\.19: .*two-"
-                       r"phase"):
-        _port_sam(m, recs, 20)
+    got = _port_sam(m, recs, 20)
+    assert "device full (2ph)" in m.stats.stage_secs
+    assert got == fused == want
+    assert m.stats.reads == len(recs)
 
 
 def test_cs_chunk_ladder_matches_reference():

@@ -1,9 +1,11 @@
 """The port's own host modules (shrimp_tpu_torch.constants, config,
-io.fasta, index, core.sw_cs_batch, native) against the JAX package's
-originals they were copied from, on the same inputs. Every output is an
-integer array, a string or a dataclass: tolerance 0 throughout."""
+io.fasta, io.sam, index, core.sw_cs_batch, native, paired) against the
+JAX package's originals they were copied from, on the same inputs.
+Every output is an integer array, a string or a dataclass: tolerance 0
+throughout."""
 import dataclasses
 import os
+from types import SimpleNamespace
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -15,10 +17,12 @@ from shrimp_tpu.core import encode as ref_encode
 from shrimp_tpu.core.sw_cs_batch import cs_layers_batch as ref_layers
 from shrimp_tpu.index.build import build_index as ref_build
 from shrimp_tpu.index.seeds import default_seeds as ref_seeds
+from shrimp_tpu.io import sam as ref_sam
 from shrimp_tpu.io.fasta import read_seqs as ref_read_seqs
 from shrimp_tpu.mapper import Mapper as RefMapper
 from shrimp_tpu.native.filter1_py import \
     generate_candidates_native as ref_f1
+from shrimp_tpu.paired import PairedMapper as RefPairedMapper
 from shrimp_tpu_torch import _build
 from shrimp_tpu_torch import constants as PC
 from shrimp_tpu_torch import native as port_native
@@ -27,10 +31,12 @@ from shrimp_tpu_torch.core import encode as port_encode
 from shrimp_tpu_torch.core.sw_cs_batch import cs_layers_batch as port_layers
 from shrimp_tpu_torch.index.build import build_index as port_build
 from shrimp_tpu_torch.index.seeds import default_seeds as port_seeds
+from shrimp_tpu_torch.io import sam as port_sam
 from shrimp_tpu_torch.io.fasta import read_seqs as port_read_seqs
 from shrimp_tpu_torch.mapper import Mapper as PortMapper
 from shrimp_tpu_torch.native.filter1_py import \
     generate_candidates_native as port_f1
+from shrimp_tpu_torch.paired import PairedMapper as PortPairedMapper
 
 CS = RC.MODE_COLOUR_SPACE
 
@@ -197,7 +203,7 @@ def test_filter1_native_matches_reference(indexes, mode):
 
 def test_native_library_is_the_ports_own():
     """The port's library is built by g++ from the port's C++ sources into
-    build/ beside the package, and holds no paired-mode code."""
+    build/ beside the package, the paired renderer included."""
     lib = port_native.get_lib()
     path = port_native.lib_path()
     assert os.path.exists(path)
@@ -209,6 +215,64 @@ def test_native_library_is_the_ports_own():
     assert port_native.SRC_DIR == here
     for src in port_native.SOURCES + port_native.HEADERS:
         assert os.path.exists(os.path.join(here, src)), src
-    assert "pairedpipe.cpp" not in port_native.SOURCES
-    assert not hasattr(lib, "paired_finalize_render")
+    assert "pairedpipe.cpp" in port_native.SOURCES
     assert lib.filter1_batch is not None and lib.finalize_render is not None
+    assert lib.paired_finalize_render is not None
+
+
+@pytest.mark.parametrize("src", ["filter1.cpp", "hostpipe.cpp",
+                                 "pairedpipe.cpp", "cspost.cpp",
+                                 "cspipe.cpp", "csrsort.cpp", "hostmem.cpp",
+                                 "cs_eval.h"])
+def test_native_sources_are_byte_copies(src):
+    """Every C++ source of the port's library is a byte-for-byte copy of
+    the reference's."""
+    ref_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "shrimp_tpu", "native")
+    with open(os.path.join(ref_dir, src), "rb") as f:
+        want = f.read()
+    with open(os.path.join(port_native.SRC_DIR, src), "rb") as f:
+        assert f.read() == want
+    assert src in port_native.SOURCES + port_native.HEADERS
+
+
+def test_pair_qname_matches_reference():
+    """io.sam._pair_qname on random name pairs with shared prefixes and
+    ':' or '/' separators, and the edge cases."""
+    rng = np.random.default_rng(4)
+    alphabet = np.array(list("ab:/12"))
+    cases = [("", ""), ("a", ""), ("r1/1", "r1/2"), ("r1:", "r1:"),
+             ("x/1", "y/1"), ("/", "/"), ("ab", "abc")]
+    for _ in range(400):
+        stem = "".join(rng.choice(alphabet, int(rng.integers(0, 6))))
+        cases.append((stem + "".join(rng.choice(alphabet,
+                                                int(rng.integers(0, 4)))),
+                      stem + "".join(rng.choice(alphabet,
+                                                int(rng.integers(0, 4))))))
+    for a, b in cases:
+        assert port_sam._pair_qname(a, b) == ref_sam._pair_qname(a, b), \
+            (a, b)
+
+
+@pytest.mark.parametrize("mode", ["opp-in", "opp-out", "col-fw", "col-bw"])
+def test_compute_mp_ranges_matches_reference(indexes, mode):
+    """PairedMapper._compute_mp_ranges on random insert ranges, window
+    and read lengths and region widths: the same deltas on both legs."""
+    ref_idx, port_idx = indexes[RC.MODE_LETTER_SPACE]
+    rng = np.random.default_rng(len(mode))
+    for _ in range(10):
+        kw = dict(pair_mode=mode,
+                  min_insert_size=int(rng.integers(0, 300)),
+                  max_insert_size=int(rng.integers(300, 2000)),
+                  region_bits=int(rng.integers(4, 12)))
+        ref = RefPairedMapper(ref_idx, RefConfig(**kw))
+        port = PortPairedMapper(port_idx, PortConfig(**kw), "cpu")
+        assert port.total_genome_size == ref.total_genome_size
+        w1, r1, w2, r2 = (int(x) for x in rng.integers(20, 400, 4))
+        legs = [(SimpleNamespace(window_len=w1, read_len=r1),
+                 SimpleNamespace(window_len=w2, read_len=r2))
+                for _ in (ref, port)]
+        ref._compute_mp_ranges(*legs[0])
+        port._compute_mp_ranges(*legs[1])
+        for a, b in zip(*legs):
+            assert vars(a) == vars(b), kw

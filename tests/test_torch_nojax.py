@@ -139,6 +139,52 @@ def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
     assert n_reads == 60 and n_rec >= 40
 
 
+def test_maps_pairs_to_sam_with_jax_blocked(tmp_path):
+    """The same rehearsal for the paired stream, select-then-full forced
+    (its native renderer, the paired mapper and the two-phase path)."""
+    from .test_fastpath_paired import make_pairs
+    g, recs = make_pairs(4, 40, "opp-in")
+    gpath = tmp_path / "g.fa"
+    gpath.write_text(f">chrP\n{g}\n")
+    rpath = tmp_path / "r.fa"
+    rpath.write_text("".join(f">{r.name}\n{r.seq}\n" for r in recs))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["shrimp_tpu"] = None
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from shrimp_tpu_torch.config import MapperConfig
+        from shrimp_tpu_torch.core.encode import encode_ls
+        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.seeds import default_seeds
+        from shrimp_tpu_torch.io.fasta import read_seqs
+        from shrimp_tpu_torch import fastpath
+        from shrimp_tpu_torch.paired import PairedMapper
+        fastpath.LS_TWO_PHASE_WPR = 0
+        g = next(read_seqs({str(gpath)!r}))
+        idx = build_index([(g.name, encode_ls(g.seq))], default_seeds())
+        reads = list(read_seqs({str(rpath)!r}))
+        m = PairedMapper(idx, MapperConfig(pair_mode="opp-in"), "cpu")
+        sam = b"".join(fastpath.map_paired_sam_stream(m, reads,
+                                                      batch_size=32))
+        assert "paired select (2ph)" in m.stats.stage_secs
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
+        assert not loaded, loaded
+        print("records", sam.count(b"\\n"), "reads", m.stats.reads)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_rec, n_reads = map(int, res.stdout.split()[1::2])
+    assert n_reads == 80 and n_rec >= 80
+
+
 def test_rejected_batch_raises(tmp_path):
     """A batch the flat encoder rejects (here a short read) raises; the
     port has no generic mapper to hand it to."""
