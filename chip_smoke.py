@@ -99,6 +99,34 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    phase 11 with the two-phase threshold forced to 1 window per read; the
    full SW with backpointers and the traceback run on the selected rows
    only, and the SAM must equal the fused card run's.
+17. CS paired, E. coli: bench_all.py's `ecoli-cs-paired` workload
+   (dataset.ecoli_paired_cs, PAIRED_READS reads) through
+   fastpath_cs.map_paired_cs_sam_stream; the three CS launch counters
+   must rise, and the SAM of the first PAIRED_CPU_READS reads must equal
+   the port's CPU run. The 4-layer DP and the traceback are held against
+   their plain versions on the flow's own first launch (the
+   `sw_cs_full_paired` and `cs_traceback_paired` records). Prints reads/s,
+   stage seconds, peak device memory and the card's busy share.
+18. CS paired at hg-like density: bench_hg.py's `cs-paired` pairs on the
+   phase-13 bin and CS index; every batch must take select-then-full;
+   checks as in phase 12, plus the paired renders (rescue rounds); the
+   DP and the traceback are held against their plain versions on the
+   flow's first phase-B launch (`sw_cs_full_paired_hg`,
+   `cs_traceback_paired_hg`).
+19. The flows the packed path refuses. (a) The packed LS stats step, the
+   LS traceback step (G = 352) and the CS fused step on a synthetic
+   BIG_PLANE-base plane pair, which has no word plane, so the byte gather
+   runs (asserted): CUDA against CPU, bit-equal, windows at both ends of
+   both strands, tails past the plane; the byte gather's device time
+   there and, beside the word gather's, on a 4 Mbp plane. (b) Phase 5's
+   and phase 11's first UNPACKED_READS reads in one batch (more than
+   2^16 read rows: the unpacked stats and traceback flows) against the
+   same reads in B_CHUNK-read batches, SAM identical. (c) The LS, LS
+   paired and CS streams on E. coli with the mapper's word planes
+   withheld, fused and two-phase: the SAM of the first BYTE_READS reads
+   equals the run with the planes; the byte gather's device time at the
+   fused runs' own launch shapes beside the word gather's and the wall.
+   Prints peak device memory for (a)-(c).
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -117,10 +145,12 @@ build always runs) and then prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -161,6 +191,15 @@ PAIRED_READS = 100_000
 PAIRED_CPU_READS = 4096
 # a two-phase threshold no batch reaches: the fused dispatch
 GATE_OFF = 1 << 30
+# the flows the packed path refuses: a plane pair of BIG_PLANE bases
+# (no word plane: the byte gather), one batch of UNPACKED_READS reads
+# (more than 2^16 read rows: the unpacked flow), the reads of the
+# byte-gather streams, and the vec-only launch's rows (fastpath.
+# LS_VEC_BATCH's ladder) at which the gathers are timed
+BIG_PLANE = 1 << 30
+UNPACKED_READS = 70_000
+BYTE_READS = 8192
+LS_VEC_ROWS = 3_145_728
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and
 # int32 operations/s. The sheet's 67 TFLOP/s float32 counts an FMA as
@@ -172,6 +211,15 @@ INT32_OPS_PER_S = 67e12 / 4
 # counted from each kernel's recurrence
 OPS = dict(sw_vector=14, sw_full_stats=40, sw_full_bp=32, ls_traceback=16,
            sw_cs_full=240, cs_traceback=20)
+
+
+@functools.lru_cache(maxsize=None)
+def _dataset(name: str, n_reads: int):
+    """(index, reads) of `shrimp_tpu_torch.dataset.<name>(n_reads)`, made
+    once a run: phase 19 maps the workloads of phases 5, 8, 11 and 14
+    again."""
+    from shrimp_tpu_torch import dataset
+    return getattr(dataset, name)(n_reads)
 
 
 def _smi() -> str:
@@ -494,20 +542,15 @@ def check_kernels(dev):
     return rec
 
 
-def check_packed_step(dev):
-    """Phase 4: the fused packed step on CUDA vs the same call on CPU,
-    on a synthetic plane with windows at both ends of both strands."""
-    from shrimp_tpu_torch.core.sw import (cat_word_plane,
-                                          sw_vec_full_stats_packed)
+def _ls_window_case(rng, fp, rp, n_true, B, G, L, R):
+    """Packed arguments [B, 4] and the nibble-packed read table of a
+    synthetic LS launch on the planes fp, rp (the first n_true bases
+    real): windows at both ends of both strands, starts before 0 and
+    tails past the end, 512 windows whose read aligns along the band's
+    diagonal, and B // 8 pad rows."""
     from shrimp_tpu_torch.fastpath import _pack_args4, _pack_rtab
-    from shrimp_tpu_torch.mapper import Mapper
-    rng = np.random.default_rng(7)
-    n_true, G, L, R, B = 4_000_000, 64, 36, 40, B_CHUNK
-    k = B - B // 8                     # the rest are pad rows
-    fp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
-    rp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
     n = len(fp)
-    cat = cat_word_plane(fp, rp)
+    k = B - B // 8                     # the rest are pad rows
     starts = rng.integers(-5, n + 5, k)
     starts[:64] = rng.integers(-5, 40, 64)            # plane starts
     starts[64:128] = rng.integers(n - 70, n + 5, 64)  # plane ends
@@ -529,6 +572,21 @@ def check_packed_step(dev):
         rtab[q, :L] = plane[starts[q]:starts[q] + L]
     args = _pack_args4(B, k, starts, glen, ri, rc, rx, ry, rl, rw, rev)
     rtab_pk = _pack_rtab(rtab)
+    return args, rtab_pk
+
+
+def check_packed_step(dev):
+    """Phase 4: the fused packed step on CUDA vs the same call on CPU,
+    on a synthetic plane with windows at both ends of both strands."""
+    from shrimp_tpu_torch.core.sw import (cat_word_plane,
+                                          sw_vec_full_stats_packed)
+    from shrimp_tpu_torch.mapper import Mapper
+    rng = np.random.default_rng(7)
+    n_true, G, L, R, B = 4_000_000, 64, 36, 40, B_CHUNK
+    fp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
+    rp = Mapper._pad_plane(rng.integers(0, 4, n_true).astype(np.uint8))
+    cat = cat_word_plane(fp, rp)
+    args, rtab_pk = _ls_window_case(rng, fp, rp, n_true, B, G, L, R)
     got, want = (sw_vec_full_stats_packed(
         torch.from_numpy(fp).to(d), torch.from_numpy(rp).to(d),
         torch.from_numpy(args).to(d), torch.from_numpy(rtab_pk).to(d),
@@ -596,9 +654,8 @@ def _device_busy_share(m, reads, stream=_ls_stream) -> str:
 
 def run_slice(dev, counters, test_bound):
     """Phase 5: bench.py's workload through the port's entry point."""
-    from shrimp_tpu_torch.dataset import ecoli_unpaired_ls
     t0 = time.perf_counter()
-    idx, reads = ecoli_unpaired_ls(N_READS)
+    idx, reads = _dataset("ecoli_unpaired_ls", N_READS)
     print(f"dataset + index: {time.perf_counter() - t0:.3f} s "
           f"({idx.total_len} bp, {len(reads)} reads)")
     _map(_mapper(idx, dev), reads[:2 * B_CHUNK])      # warm-up
@@ -890,24 +947,15 @@ def check_cs_kernels(dev):
     return rec
 
 
-def check_cs_packed_step(dev):
-    """Phase 7: the fused CS step on CUDA vs the same call on CPU, on a
-    synthetic plane with windows at both ends of both strands."""
-    from shrimp_tpu_torch.core.sw import cat_word_plane
-    from shrimp_tpu_torch.core.sw_cs import sw_vec_cs_full_from_index
+def _cs_window_case(rng, planes, n_true, B, G, R, n_reads):
+    """Argument rows [B, 12], colour rows, letter layers and crossover
+    penalties of a synthetic CS launch on `planes` (colour, colour rc,
+    letter, letter rc; the first n_true bases real): windows at both
+    ends of both strands, 512 windows whose read follows the band's
+    diagonal (one colour a BASE_N), and B // 8 pad rows."""
     from shrimp_tpu_torch.fastpath_cs import cs_layers_batch
-    from shrimp_tpu_torch.mapper import Mapper
-    rng = np.random.default_rng(8)
-    n_true, G, R, B, n_reads = 4_000_000, CS_G_MAIN, CS_R, CS_B_MAIN, 2048
-    k = B - B // 8                     # the rest are pad rows
-    fw = rng.integers(0, 4, n_true).astype(np.uint8)
-    rc = (3 - fw[::-1]).astype(np.uint8)
-    # lstocs of letters 0..3 is their xor
-    cfw = np.concatenate([[0], fw[:-1] ^ fw[1:]]).astype(np.uint8)
-    crc = np.concatenate([[0], rc[:-1] ^ rc[1:]]).astype(np.uint8)
-    planes = [Mapper._pad_plane(p) for p in (cfw, crc, fw, rc)]
     n = len(planes[2])
-    cats = [cat_word_plane(*planes[:2]), cat_word_plane(*planes[2:])]
+    k = B - B // 8                     # the rest are pad rows
     a = np.zeros((B, 12), np.int32)
     starts = rng.integers(-5, n + 5, k)
     starts[:64] = rng.integers(-5, 40, 64)            # plane starts
@@ -937,6 +985,26 @@ def check_cs_packed_step(dev):
     a[k:, [1, 4, 7, 8, 10]] = 1                       # pad rows
     qr = cs_layers_batch(colours, initbp)
     xov = rng.integers(2 * XOVER, 0, (n_reads, R)).astype(np.int32)
+    return a, colours, qr, xov
+
+
+def check_cs_packed_step(dev):
+    """Phase 7: the fused CS step on CUDA vs the same call on CPU, on a
+    synthetic plane with windows at both ends of both strands."""
+    from shrimp_tpu_torch.core.sw import cat_word_plane
+    from shrimp_tpu_torch.core.sw_cs import sw_vec_cs_full_from_index
+    from shrimp_tpu_torch.mapper import Mapper
+    rng = np.random.default_rng(8)
+    n_true, G, R, B, n_reads = 4_000_000, CS_G_MAIN, CS_R, CS_B_MAIN, 2048
+    fw = rng.integers(0, 4, n_true).astype(np.uint8)
+    rc = (3 - fw[::-1]).astype(np.uint8)
+    # lstocs of letters 0..3 is their xor
+    cfw = np.concatenate([[0], fw[:-1] ^ fw[1:]]).astype(np.uint8)
+    crc = np.concatenate([[0], rc[:-1] ^ rc[1:]]).astype(np.uint8)
+    planes = [Mapper._pad_plane(p) for p in (cfw, crc, fw, rc)]
+    cats = [cat_word_plane(*planes[:2]), cat_word_plane(*planes[2:])]
+    a, colours, qr, xov = _cs_window_case(rng, planes, n_true, B, G, R,
+                                          n_reads)
     args = (*planes, a, colours, qr, xov, *cats)
     kw = dict(CS_KW, G=G, xover=XOVER)
     got, want = ([x.cpu().numpy() for x in sw_vec_cs_full_from_index(
@@ -958,10 +1026,10 @@ def _cs_stream(m, reads):
 def run_cs_slice(dev, counters, test_bound):
     """Phase 8: bench_all.py's ecoli-cs workload through the port's CS
     entry point."""
-    from shrimp_tpu_torch.dataset import ecoli_cs_config, ecoli_unpaired_cs
+    from shrimp_tpu_torch.dataset import ecoli_cs_config
     from shrimp_tpu_torch.mapper import Mapper
     t0 = time.perf_counter()
-    idx, reads = ecoli_unpaired_cs(N_READS)
+    idx, reads = _dataset("ecoli_unpaired_cs", N_READS)
     print(f"CS dataset + index: {time.perf_counter() - t0:.3f} s "
           f"({idx.total_len} bp, {len(reads)} reads)")
 
@@ -1264,9 +1332,8 @@ def check_tb_packed_step(dev):
 def run_long_slice(dev, counters, test_bound, test_walks):
     """Phase 11: 250 bp reads through the port's entry point, which takes
     the traceback flow."""
-    from shrimp_tpu_torch.dataset import ecoli_unpaired_ls_long
     t0 = time.perf_counter()
-    idx, reads = ecoli_unpaired_ls_long(N_READS)
+    idx, reads = _dataset("ecoli_unpaired_ls_long", N_READS)
     print(f"long dataset + index: {time.perf_counter() - t0:.3f} s "
           f"({idx.total_len} bp, {len(reads)} reads of "
           f"{len(reads[0].seq)} bp)")
@@ -1472,7 +1539,7 @@ def _check_flow_launch(name, m, reads, stream, module, fn, kernel, plain,
 
 
 def run_dense_slice(title, dev, counters, mapper, reads, stream, cs):
-    """Phases 12, 13 and 15: a stream at hg-like candidate density. The
+    """Phases 12, 13, 15 and 18: a stream at hg-like candidate density. The
     gate-off card run of the first batch (which also warms the
     allocator), the timed two-phase run of every read with the launch
     counts set to 0 just before it, then the SAM checks."""
@@ -1490,16 +1557,23 @@ def run_dense_slice(title, dev, counters, mapper, reads, stream, cs):
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.reset()
-    with _Dispatches(cs) as disp:
+    from shrimp_tpu_torch import fastpath
+    with _Dispatches(cs) as disp, \
+            _Spy([(fastpath, "_paired_render")]) as renders:
         batches, secs = _map_batches(m, reads, stream)
     launches = {k: c.n for k, c in counters.items()}
     st = m.stats
+    # a select-then-full batch renders once, then once a rescue round
+    # and once more for the all-rows net
+    rescues = (f"; paired renders {renders.n} over {len(disp.log)} "
+               f"batches: {renders.n - len(disp.log)} rescue rounds and "
+               "nets" if renders.n else "")
     print(f"{title} on {dev}: {len(reads)} reads in {secs!r} s = "
           f"{len(reads) / secs!r} reads/s; list cutoff {m.cutoff}; "
           f"{st.vec_invocs / st.reads!r} windows per read; "
           f"{disp.summary()}; phase-B rows {st.full_invocs} = "
           f"{st.full_invocs / st.reads!r} per read; launches {launches}; "
-          f"peak device memory {_peak_gib(dev)}")
+          f"peak device memory {_peak_gib(dev)}{rescues}")
     print(f"{title} stage seconds (summed over lanes): " + ", ".join(
         f"{k} {v!r}" for k, v in st.stage_secs.items()))
     print(f"{title} gate-off card run of the first {HG_GATE_OFF_READS} "
@@ -1551,9 +1625,10 @@ def _hg_mapper(idx, cfg):
 
 
 def run_hg_slices(dev, hg):
-    """Phases 12, 13 and 15 on one hg-like bin: returns the launches of
-    each phase's kernels and the vector SW's records on each flow's
-    first vec-only launch."""
+    """Phases 12, 13, 15 and 18 on one hg-like bin (13 and 18 share its
+    CS index): returns the launches of each phase's kernels, the vector
+    SW's records on each flow's first vec-only launch and the CS paired
+    flow's phase-B records."""
     from shrimp_tpu_torch import constants as C
     from shrimp_tpu_torch import dataset, fastpath, fastpath_cs
     from shrimp_tpu_torch.config import MapperConfig
@@ -1598,18 +1673,19 @@ def run_hg_slices(dev, hg):
                                   "sw_full_stats": sw_full.LAUNCHES},
             mk, pairs, fastpath.map_paired_sam_stream, False)
     del idx
-    if 13 in hg:
+    if hg & {13, 18}:
         t0 = time.perf_counter()
         cidx = dataset.hg_index(codes, C.MODE_COLOUR_SPACE)
         print(f"hg-like bin: CS index in {time.perf_counter() - t0!r} s")
+    cs_counters = {"sw_vector_cs": sw_vector.CS_LAUNCHES,
+                   "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+                   "cs_traceback": sw_cs_full.TB_LAUNCHES}
+    if 13 in hg:
         reads = dataset.hg_reads(codes, HG_READS, C.MODE_COLOUR_SPACE)
         mk = _hg_mapper(cidx, MapperConfig(mode=C.MODE_COLOUR_SPACE))
         launches.update(sw_vector_cs_hg=run_dense_slice(
-            "hg CS", dev, {"sw_vector_cs": sw_vector.CS_LAUNCHES,
-                           "sw_cs_full": sw_cs_full.DP_LAUNCHES,
-                           "cs_traceback": sw_cs_full.TB_LAUNCHES},
-            mk, reads, fastpath_cs.map_unpaired_cs_sam_stream, True)[
-                "sw_vector_cs"])
+            "hg CS", dev, cs_counters, mk, reads,
+            fastpath_cs.map_unpaired_cs_sam_stream, True)["sw_vector_cs"])
         flow = (mk(dev), reads, fastpath_cs.map_unpaired_cs_sam_stream,
                 sw_cs)
         rec["sw_vector_cs_hg"] = _check_flow_launch(
@@ -1625,6 +1701,27 @@ def run_hg_slices(dev, hg):
                            sw_cs_full.cs_traceback,
                            sw_cs_full.cs_traceback_ref, _cs_tb_launch_bound,
                            plain_reps=1)
+    if 18 in hg:
+        pairs = dataset.hg_pairs(codes, HG_READS, C.MODE_COLOUR_SPACE)
+        mk = _hg_mapper(cidx, MapperConfig(mode=C.MODE_COLOUR_SPACE,
+                                           pair_mode="opp-in",
+                                           min_insert_size=0,
+                                           max_insert_size=1000))
+        ln = run_dense_slice("hg CS paired", dev, cs_counters, mk, pairs,
+                             fastpath_cs.map_paired_cs_sam_stream, True)
+        launches.update(sw_cs_full_paired_hg=ln["sw_cs_full"],
+                        cs_traceback_paired_hg=ln["cs_traceback"])
+        # phase B of select-then-full: the DP and the traceback on the
+        # rows the select pass picks
+        flow = (mk(dev), pairs, fastpath_cs.map_paired_cs_sam_stream, sw_cs)
+        rec["sw_cs_full_paired_hg"] = _check_flow_launch(
+            "sw_cs_full_paired_hg (phase B)", *flow, "sw_full_cs_dp",
+            sw_cs_full.sw_full_cs_dp, sw_cs_full.sw_full_cs_dp_ref,
+            _cs_dp_launch_bound, plain_reps=1)
+        rec["cs_traceback_paired_hg"] = _check_flow_launch(
+            "cs_traceback_paired_hg (phase B)", *flow, "cs_traceback",
+            sw_cs_full.cs_traceback, sw_cs_full.cs_traceback_ref,
+            _cs_tb_launch_bound, plain_reps=1)
     return launches, rec
 
 
@@ -1633,10 +1730,9 @@ def run_paired_slice(dev, counters):
     paired entry point."""
     from shrimp_tpu_torch import fastpath
     from shrimp_tpu_torch.config import MapperConfig
-    from shrimp_tpu_torch.dataset import ecoli_paired_ls
     from shrimp_tpu_torch.paired import PairedMapper
     t0 = time.perf_counter()
-    idx, reads = ecoli_paired_ls(PAIRED_READS)
+    idx, reads = _dataset("ecoli_paired_ls", PAIRED_READS)
     print(f"paired dataset + index: {time.perf_counter() - t0:.3f} s "
           f"({idx.total_len} bp, {len(reads)} reads)")
     cfg = MapperConfig(pair_mode="opp-in")
@@ -1719,10 +1815,315 @@ def run_long_two_phase(dev, counters, long_ctx):
     return launches
 
 
+class _Spy:
+    """While active, counts the calls of each function `module.<name>`
+    of `targets` (the name the flows look it up by) and keeps
+    `keep(args, kwargs)` of each call. The lanes call from their
+    threads, so the count takes a lock."""
+
+    def __init__(self, targets, keep=None):
+        self.targets, self.keep = targets, keep
+        self.n, self.kept = 0, []
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        self.orig = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self.orig):
+            def spy(*a, _fn=fn, **k):
+                with self.lock:
+                    self.n += 1
+                    if self.keep is not None:
+                        self.kept.append(self.keep(a, k))
+                return _fn(*a, **k)
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.orig):
+            setattr(mod, name, fn)
+
+
+def _byte_gathers():
+    """A _Spy on the byte gather, as the LS and the CS steps call it,
+    keeping each call's (rows, G)."""
+    from shrimp_tpu_torch.core import sw, sw_cs
+    return _Spy([(sw, "window_gather_bytes"), (sw_cs, "window_gather_bytes")],
+                keep=lambda a, k: (a[2].shape[0], a[4]))
+
+
+def run_cs_paired_slice(dev, counters):
+    """Phase 17: bench_all.py's ecoli-cs-paired workload through the
+    port's CS paired entry point. Returns the launches and the records
+    of the 4-layer DP and the traceback on the flow's first launch."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch import fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw_cs, sw_cs_full
+    from shrimp_tpu_torch.paired import PairedMapper
+    t0 = time.perf_counter()
+    idx, reads = _dataset("ecoli_paired_cs", PAIRED_READS)
+    print(f"CS paired dataset + index: {time.perf_counter() - t0:.3f} s "
+          f"({idx.total_len} bp, {len(reads)} reads)")
+    cfg = MapperConfig(mode=C.MODE_COLOUR_SPACE, pair_mode="opp-in")
+
+    def mapper(device):
+        return PairedMapper(idx, cfg, device)
+    stream = fastpath_cs.map_paired_cs_sam_stream
+    _map(mapper(dev), reads[:2 * B_CHUNK], stream)      # warm-up
+    m = mapper(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    with _Dispatches(True) as disp:
+        sam, secs = _map(m, reads, stream)
+    launches = {k: c.n for k, c in counters.items()}
+    st = m.stats
+    print(f"CS paired slice on {dev}: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; launches {launches}; windows "
+          f"{st.vec_invocs}; {disp.summary()}; peak device memory "
+          f"{_peak_gib(dev)}")
+    print("CS paired stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in st.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the CS paired path")
+    lines = sam.split(b"\n")[:-1]
+    mapped = st.reads_mapped / st.reads
+    print(f"CS paired SAM: {len(lines)} records, {mapped!r} of reads "
+          "mapped in pairs")
+    if (not lines or any(len(ln.split(b"\t")) < 11 for ln in lines)
+            or st.reads != len(reads) or mapped < 0.9):
+        raise AssertionError("CS paired slice: malformed SAM, reads lost "
+                             "or mostly unpaired")
+    print("CS paired device busy share (profiled run on the first "
+          f"{2 * B_CHUNK} reads): " + _device_busy_share(
+              mapper(dev), reads[:2 * B_CHUNK], stream))
+    flow = (mapper(dev), reads, stream, sw_cs)
+    rec = {"sw_cs_full_paired": _check_flow_launch(
+        "sw_cs_full_paired", *flow, "sw_full_cs_dp",
+        sw_cs_full.sw_full_cs_dp, sw_cs_full.sw_full_cs_dp_ref,
+        _cs_dp_launch_bound, plain_reps=1),
+        "cs_traceback_paired": _check_flow_launch(
+        "cs_traceback_paired", *flow, "cs_traceback",
+        sw_cs_full.cs_traceback, sw_cs_full.cs_traceback_ref,
+        _cs_tb_launch_bound, plain_reps=1)}
+    first = reads[:PAIRED_CPU_READS]
+    small = _with_batch(stream, PAIRED_CPU_READS)
+    sam_gpu, _ = _map(mapper(dev), first, small)
+    sam_cpu, secs_cpu = _map(mapper("cpu"), first, small)
+    same = sam_cpu == sam_gpu and sam.startswith(sam_gpu)
+    print(f"CS paired slice on cpu (plain versions), first {len(first)} "
+          f"reads: {secs_cpu!r} s; SAM identical to the CUDA run's and a "
+          f"prefix of the full run's: {same}")
+    if not same:
+        raise AssertionError("CS paired slice: CUDA and CPU SAM bytes "
+                             "differ")
+    return {"sw_cs_full_paired": launches["sw_cs_full"],
+            "cs_traceback_paired": launches["cs_traceback"]}, rec
+
+
+def _time_gathers(dev, planes, cat, shapes) -> tuple:
+    """Device ms of the byte gather and of the word gather (None without
+    `cat`) over the (rows, G) `shapes` (a Counter of calls), random
+    starts and strands over `planes`: (byte ms, word ms) summed over
+    the calls."""
+    from shrimp_tpu_torch.core.sw import (fast_window_gather,
+                                          window_gather_bytes)
+    rng = np.random.default_rng(191)
+    n = planes[0].shape[0]
+    t_byte = t_word = 0.0
+    for (B, G), calls in shapes.items():
+        gs = torch.from_numpy(rng.integers(0, n - G, B).astype(
+            np.int32)).to(dev)
+        rc = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(dev)
+        t_byte += calls * _device_ms(
+            lambda: window_gather_bytes(*planes, gs, rc, G), 5)
+        if cat is not None:
+            t_word += calls * _device_ms(
+                lambda: fast_window_gather(cat, n, gs, rc, G), 5)
+    return t_byte, (t_word if cat is not None else None)
+
+
+def check_byte_steps(dev):
+    """Phase 19 (a): the packed LS stats step, the LS traceback step at
+    G = 352 and the CS fused step on a synthetic 2^30-base plane pair,
+    whose word plane would overflow int32 offsets, so the steps gather
+    by byte: CUDA against CPU, bit-equal, with windows at both ends of
+    both strands. Then the byte gather's device time on those planes
+    and, beside the word gather's, on a 4 Mbp plane."""
+    from shrimp_tpu_torch.core.sw import (cat_word_plane,
+                                          sw_vec_full_stats_packed,
+                                          sw_vec_full_tb_packed)
+    from shrimp_tpu_torch.core.sw_cs import sw_vec_cs_full_from_index
+    from shrimp_tpu_torch.mapper import Mapper
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    n_true = BIG_PLANE
+    fw = rng.integers(0, 4, n_true, dtype=np.uint8)
+    rc = 3 - fw[::-1]
+    cfw = np.empty_like(fw)
+    cfw[0] = 0
+    np.bitwise_xor(fw[:-1], fw[1:], out=cfw[1:])
+    crc = np.empty_like(rc)
+    crc[0] = 0
+    np.bitwise_xor(rc[:-1], rc[1:], out=crc[1:])
+    planes = [Mapper._pad_plane(p) for p in (cfw, crc, fw, rc)]
+    n = len(planes[2])
+    if cat_word_plane(*planes[2:]) is not None or n != n_true:
+        raise AssertionError("byte steps: the plane pair has a word plane")
+    host = [torch.from_numpy(np.ascontiguousarray(p)) for p in planes]
+    card = [p.to(dev) for p in host]
+    print(f"byte steps: 4 planes of {n} bytes made in "
+          f"{time.perf_counter() - t0!r} s; no word plane")
+
+    cases = []
+    for name, fn, G, L, R, B in (
+            ("LS stats step", sw_vec_full_stats_packed, 64, 36, 40, B_CHUNK),
+            ("LS traceback step", sw_vec_full_tb_packed, 352, 250, 256,
+             1024)):
+        args, rtab_pk = _ls_window_case(rng, planes[2], planes[3], n_true,
+                                        B, G, L, R)
+        cases.append((f"{name} B={B} G={G} L={L}", fn, 2, (args, rtab_pk),
+                      dict(cat_words=None, G=G, L=L, **KW)))
+    a, colours, qr, xov = _cs_window_case(rng, planes, n_true, CS_B_MAIN,
+                                          CS_G_MAIN, CS_R, 2048)
+    cases.append((f"CS fused step B={CS_B_MAIN} G={CS_G_MAIN} R={CS_R}",
+                  sw_vec_cs_full_from_index, 0, (a, colours, qr, xov),
+                  dict(CS_KW, G=CS_G_MAIN, xover=XOVER)))
+    for title, fn, first_plane, arrays, kw in cases:
+        # the LS steps take the letter planes, the CS step all four
+        with _byte_gathers() as g:
+            got = fn(*card[first_plane:], *(torch.from_numpy(x).to(dev)
+                                            for x in arrays), **kw)
+        want = fn(*host[first_plane:], *(torch.from_numpy(x)
+                                         for x in arrays), **kw)
+        got, want = ([x.cpu().numpy() for x in
+                      (out if isinstance(out, tuple) else (out,))]
+                     for out in (got, want))
+        same = all(np.array_equal(x, w) for x, w in zip(got, want))
+        print(f"{title} on the 2^30-base planes: CUDA == CPU: {same}; "
+              f"byte gathers {g.n}; outputs "
+              f"{[tuple(x.shape) for x in got]}")
+        if not same or g.n == 0:
+            raise AssertionError(f"{title}: CUDA and CPU differ, or the "
+                                 "byte gather was not taken")
+    B = LS_VEC_ROWS
+    big, _ = _time_gathers(dev, card[2:], None, Counter({(B, 64): 1}))
+    fp, rp = (Mapper._pad_plane(p[:4_000_000]) for p in (fw, rc))
+    small = [torch.from_numpy(p).to(dev) for p in (fp, rp)]
+    cat = torch.from_numpy(cat_word_plane(fp, rp)).to(dev)
+    byte4, word4 = _time_gathers(dev, small, cat, Counter({(B, 64): 1}))
+    print(f"gather device time, {B} rows, G = 64: byte gather {big!r} ms on "
+          f"the 2^30-base planes, {byte4!r} ms on a 4 Mbp plane, beside "
+          f"the word gather's {word4!r} ms there "
+          f"({byte4 / word4!r}x); peak device memory {_peak_gib(dev)}")
+    del card, cat, small
+    torch.cuda.empty_cache()
+    return dict(byte_ms=byte4, word_ms=word4, byte_big_ms=big)
+
+
+def run_unpacked(dev):
+    """Phase 19 (b): phase 5's and phase 11's first UNPACKED_READS reads
+    in one batch (more than 2^16 read rows: the unpacked stats and
+    traceback flows) against the same reads in B_CHUNK-read batches
+    (packed), SAM identical."""
+    from shrimp_tpu_torch import fastpath
+    from shrimp_tpu_torch.core import sw_full
+    for name, counter in (("ecoli_unpaired_ls", sw_full.LAUNCHES),
+                          ("ecoli_unpaired_ls_long", sw_full.BP_LAUNCHES)):
+        idx, reads = _dataset(name, N_READS)
+        first = reads[:UNPACKED_READS]
+        torch.cuda.reset_peak_memory_stats(dev)
+        counter.reset()
+        with _Spy([(fastpath, "_launch_args")], keep=lambda a, k: a[5]) as one:
+            sam1, secs1 = _map(_mapper(idx, dev), first, _with_batch(
+                fastpath.map_unpaired_sam_stream, UNPACKED_READS))
+        n_launch = counter.n
+        peak = _peak_gib(dev)
+        with _Spy([(fastpath, "_launch_args")], keep=lambda a, k: a[5]) as bt:
+            sam2, secs2 = _map(_mapper(idx, dev), first, _with_batch(
+                fastpath.map_unpaired_sam_stream, B_CHUNK))
+        same = sam1 == sam2
+        print(f"{name}, first {len(first)} reads: one batch (unpacked IO, "
+              f"{one.n} launches, full-SW kernel launches {n_launch}) in "
+              f"{secs1!r} s, peak device memory {peak}; {B_CHUNK}-read "
+              f"batches (packed IO) in {secs2!r} s; SAM identical: {same}")
+        if not (same and one.kept and not any(one.kept) and all(bt.kept)
+                and n_launch > 0):
+            raise AssertionError(f"{name}: the unpacked flow's SAM differs, "
+                                 "or the flows were not the ones taken")
+
+
+def run_byte_streams(dev):
+    """Phase 19 (c): the LS, LS paired and CS streams on E. coli with the
+    mapper's word planes withheld, so the windows are gathered by byte,
+    through the fused and the two-phase dispatch: the SAM of the first
+    BYTE_READS reads equals the run with the planes. Prints the byte
+    gather's device time in the fused runs, timed at their launches'
+    own shapes, beside the word gather's and the wall."""
+    from contextlib import nullcontext
+
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch import fastpath, fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.paired import PairedMapper
+    cases = (
+        ("LS", "ecoli_unpaired_ls", N_READS, MapperConfig(), Mapper,
+         fastpath.map_unpaired_sam_stream, False),
+        ("LS paired", "ecoli_paired_ls", PAIRED_READS,
+         MapperConfig(pair_mode="opp-in"), PairedMapper,
+         fastpath.map_paired_sam_stream, False),
+        ("CS", "ecoli_unpaired_cs", N_READS,
+         MapperConfig(mode=C.MODE_COLOUR_SPACE), Mapper,
+         fastpath_cs.map_unpaired_cs_sam_stream, True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    for title, name, n, cfg, cls, stream, cs in cases:
+        idx, reads = _dataset(name, n)
+        first = reads[:BYTE_READS]
+        ref = cls(idx, cfg, dev)
+        want, secs_w = _map(ref, first, stream)
+        for two_phase in (False, True):
+            m = cls(idx, cfg, dev)
+            m._cat_words_dev = m._cs_cat_words_dev = None
+            with (_Gate(cs, 0) if two_phase else nullcontext()), \
+                    _Dispatches(cs) as disp, _byte_gathers() as g:
+                got, secs = _map(m, first, stream)
+            ok = (got == want and g.n > 0
+                  and disp.all_two_phase() == two_phase)
+            line = (f"{title} by byte, {'two-phase' if two_phase else 'fused'}"
+                    f", first {len(first)} reads: {secs!r} s (with the word "
+                    f"planes {secs_w!r} s); {g.n} byte gathers; "
+                    f"{disp.summary()}; SAM identical: {got == want}")
+            if not two_phase:
+                shapes = Counter(g.kept)
+                # the CS step gathers from the colour and the letter planes
+                planes = ((m._dev_cs_planes()[:2], m._dev_cs_planes()[2:])
+                          if cs else ((m._dev_codes(), m._dev_codes_rc()),))
+                cats = (ref._dev_cs_cat_words() if cs
+                        else (ref._dev_cat_words(),))
+                t_b = t_w = 0.0
+                for pl, ct in zip(planes, cats):
+                    per = Counter({k: v // len(planes)
+                                   for k, v in shapes.items()})
+                    b, w = _time_gathers(dev, pl, ct, per)
+                    t_b, t_w = t_b + b, t_w + w
+                line += (f"; byte gather device time {t_b!r} ms at the "
+                         f"launches' shapes {dict(shapes)} (word gather "
+                         f"{t_w!r} ms), {t_b / 1e3 / secs!r} of the wall")
+            print(line)
+            if not ok:
+                raise AssertionError(f"{title} by byte: SAM differs from the "
+                                     "run with the word planes, or the byte "
+                                     "gather or the dispatch was not taken")
+    print(f"phase 19 (c) peak device memory {_peak_gib(dev)}")
+
+
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 17))
+        return set(range(1, 20))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -1783,7 +2184,7 @@ def main() -> None:
             "ls_traceback": sw_full.TB_LAUNCHES},
             rec["sw_full_bp"]["bound_ms"], rec["ls_traceback"]["walks"])
         launches.update(ln)
-    hg = phases & {12, 13, 15}
+    hg = phases & {12, 13, 15, 18}
     if hg:
         ln, r = run_hg_slices(dev, hg)
         launches.update(ln)
@@ -1796,8 +2197,19 @@ def main() -> None:
                                  "sw_full_bp": sw_full.BP_LAUNCHES,
                                  "ls_traceback": sw_full.TB_LAUNCHES},
                            long_ctx)
+    if 17 in phases:
+        ln, r = run_cs_paired_slice(dev, {
+            "sw_vector_cs": sw_vector.CS_LAUNCHES,
+            "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+            "cs_traceback": sw_cs_full.TB_LAUNCHES})
+        launches.update(ln)
+        rec.update(r)
+    if 19 in phases:
+        check_byte_steps(dev)
+        run_unpacked(dev)
+        run_byte_streams(dev)
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 17)):
+    if phases != set(range(1, 20)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -1828,7 +2240,15 @@ def main() -> None:
             ("sw_vector_hg", "sw_vector.cu",
              "shrimp_tpu/core/sw_pallas.py:155"),
             ("sw_vector_cs_hg", "sw_vector.cu",
-             "shrimp_tpu/core/sw_pallas.py:155"))]
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_paired", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_paired", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_cs_full_paired_hg", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_paired_hg", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from .. import constants as C
-from .sw import _check_phase, fast_window_gather
+from .sw import _check_phase, fast_window_gather, window_gather_bytes
 from .sw_cs_full import cs_traceback, sw_full_cs_dp
 from .sw_vector import sw_vector_batch
 
@@ -77,25 +77,30 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
     xover_tab [n, R] int32 crossover penalties; `xover` is also the row
     -1 global crossover. cs_cat and ls_cat are the colour and letter
     planes as cat words (core.sw.cat_word_plane); `cs_codes` and
-    `ls_codes` give their plane lengths, and the `_rc` planes are kept
-    for the reference's signature. Returns (vec [B] int32, packed
+    `ls_codes` give their plane lengths. Where either is None (planes
+    over ~1 Gbp) both windows are gathered byte by byte from the four
+    planes, each position clipped to the colour plane's length, as the
+    reference's fallback does. Returns (vec [B] int32, packed
     [B, 12] int16, steps_rev [B, R + G] int8). `phase` "vec" runs only
     the CS vector SW and returns (vec,) (the letter window is still
     gathered: g_row0 needs it); "full" runs only the 4-layer DP and the
     traceback and returns (packed, steps_rev)."""
     _check_phase(phase)
-    if cs_cat is None or ls_cat is None:
-        raise NotImplementedError(
-            "the concatenated word planes overflow int32 offsets (genome "
-            "planes over ~1 Gbp); the byte-gather flow is not ported")
     B = args.shape[0]
     (gstart, glen, owner, eff_rc, rlen, rx, ry, rl, rw, rev, thresh,
      initbp) = args.t().contiguous().unbind(0)
     owner = owner.clamp(0, rtab.shape[0] - 1).long()
-    lswin = fast_window_gather(ls_cat, ls_codes.shape[0], gstart, eff_rc, G)
+    by_byte = cs_cat is None or ls_cat is None
+    if by_byte and ls_codes.shape[0] != cs_codes.shape[0]:
+        raise ValueError("colour and letter planes differ in length")
+
+    def gather(cat, fwd, rc):
+        if by_byte:
+            return window_gather_bytes(fwd, rc, gstart, eff_rc, G)
+        return fast_window_gather(cat, fwd.shape[0], gstart, eff_rc, G)
+    lswin = gather(ls_cat, ls_codes, ls_codes_rc)
     if phase != "full":
-        gwin_cs = fast_window_gather(cs_cat, cs_codes.shape[0], gstart,
-                                     eff_rc, G)
+        gwin_cs = gather(cs_cat, cs_codes, cs_codes_rc)
         # the flat index clips as the reference's gather does (254 pad
         # bytes)
         g_row0 = _colour_lut(lswin.device)[

@@ -7,7 +7,9 @@ reverse-complemented. Colour space (`bench_all.py::bench_cs`, the
 `ecoli-cs` workload): the same genome bytes, SOLiD reads of a `T` primer
 and 36 colours from letters with 0-2 substitutions. Paired
 (`ecoli_paired_ls`, bench_all.py's `ecoli-paired` workload): 2x36 bp
-opp-in pairs of inserts 120-280 bp over the same genome. All are the
+opp-in pairs of inserts 120-280 bp over the same genome; in colour
+space (`ecoli_paired_cs`, bench_all.py's `ecoli-cs-paired`) 2x36-colour
+SOLiD pairs. All are the
 generators of those scripts without their on-disk caches. Long reads
 (`ecoli_unpaired_ls_long`, no counterpart in the bench scripts): the
 same genome, 250 bp reads with substitutions and, in one read of ten,
@@ -105,6 +107,16 @@ def ecoli_unpaired_ls_long(n_reads: int, read_len: int = 250,
     return idx, reads
 
 
+def _to_cs(lets: np.ndarray) -> str:
+    """The bench scripts' SOLiD read of READ_LEN + 1 letter codes: a `T`
+    primer and READ_LEN colours, the first against the primer's T (a dot
+    for a colour past BASE_N)."""
+    cm = C.COLOUR_MAT
+    cols = [int(cm[3, lets[0]])] + [int(cm[lets[i], lets[i + 1]])
+                                    for i in range(READ_LEN - 1)]
+    return "T" + "".join(str(c) if c <= 3 else "." for c in cols)
+
+
 def ecoli_cs_config() -> MapperConfig:
     """The configuration bench_all.py maps the `ecoli-cs` workload with:
     gmapper-cs's defaults."""
@@ -122,17 +134,13 @@ def ecoli_unpaired_cs(n_reads: int, seed: int = SEED
                       default_seeds(mode=C.MODE_COLOUR_SPACE),
                       mode=C.MODE_COLOUR_SPACE)
     rng = np.random.default_rng(9)
-    cm = C.COLOUR_MAT
     reads = []
     for k in range(n_reads):
         p = int(rng.integers(0, len(codes) - READ_LEN - 1))
         lets = codes[p:p + READ_LEN + 1].copy()
         for _ in range(int(rng.integers(0, 3))):
             lets[int(rng.integers(READ_LEN + 1))] = rng.integers(4)
-        cols = [int(cm[3, lets[0]])] + [int(cm[lets[i], lets[i + 1]])
-                                        for i in range(READ_LEN - 1)]
-        reads.append(SeqRecord(
-            f"c{k}", "T" + "".join(str(c) if c <= 3 else "." for c in cols)))
+        reads.append(SeqRecord(f"c{k}", _to_cs(lets)))
     return idx, reads
 
 
@@ -310,6 +318,36 @@ def ecoli_paired_ls(n_reads: int, seed: int = SEED
     return idx, reads
 
 
+def ecoli_paired_cs(n_reads: int, seed: int = SEED
+                    ) -> Tuple[GenomeIndex, List[SeqRecord]]:
+    """(colour-space index, reads) of bench_all.py's `ecoli-cs-paired`
+    workload (`bench_cs_paired`) with `n_reads` reads (n_reads // 2
+    interleaved opp-in pairs): the genome of `ecoli_unpaired_cs`, pairs
+    from default_rng(11), inserts of 120-280 bp, 36 colours a mate after
+    a `T` primer, mate 2 reverse-complemented, 0-2 letter substitutions
+    a mate. Map with MapperConfig(mode="cs", pair_mode="opp-in") through
+    a paired.PairedMapper."""
+    codes = np.random.default_rng(seed).integers(0, 4, GENOME_LEN).astype(
+        np.uint8)
+    idx = build_index([("ecoli_synth2", codes)],
+                      default_seeds(mode=C.MODE_COLOUR_SPACE),
+                      mode=C.MODE_COLOUR_SPACE)
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    rng = np.random.default_rng(11)
+    reads = []
+    for k in range(n_reads // 2):
+        isz = int(rng.integers(120, 280))
+        p = int(rng.integers(0, len(codes) - isz - READ_LEN - 1))
+        a = codes[p:p + READ_LEN + 1].copy()
+        b = comp[codes[p + isz - READ_LEN - 1:p + isz][::-1]].copy()
+        for r in (a, b):
+            for _ in range(int(rng.integers(0, 3))):
+                r[int(rng.integers(READ_LEN + 1))] = rng.integers(4)
+        reads.append(SeqRecord(f"q{k}/1", _to_cs(a)))
+        reads.append(SeqRecord(f"q{k}/2", _to_cs(b)))
+    return idx, reads
+
+
 HG_SEED = 20260818
 # bench_hg.py's complement LUT: codes 0-3 complement, BASE_N maps to
 # itself
@@ -386,10 +424,7 @@ def _hg_render(mode: str, r: np.ndarray) -> str:
     """bench_hg.py's rendering of a read: letters, or (colour space) a
     `T` primer and the colours of its letters."""
     if mode == C.MODE_COLOUR_SPACE:
-        cm = C.COLOUR_MAT
-        cols = [int(cm[3, r[0]])] + [int(cm[r[j], r[j + 1]])
-                                     for j in range(len(r) - 2)]
-        return "T" + "".join(str(c) if c <= 3 else "." for c in cols)
+        return _to_cs(r)
     return decode_ls(r)
 
 

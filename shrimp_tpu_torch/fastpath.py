@@ -1,7 +1,7 @@
 """Flat-array fast path for letter-space mapping to SAM, unpaired and
 paired, on torch devices.
 
-Port of the flows of `shrimp_tpu/fastpath.py`, on packed IO:
+Port of the flows of `shrimp_tpu/fastpath.py`:
 
     read prep + filter 1 (native)  ->  one fused device step per chunk
     ->  pass1_select (native)  ->  vector-score gate  ->  alignments
@@ -24,12 +24,16 @@ Port of the flows of `shrimp_tpu/fastpath.py`, on packed IO:
   batches run select-then-full.
 
 `_stats_flow_enabled` picks the flow from G alone, the same on every
-device. The host stages run through the port's own native library
-(`native/`, a copy of the reference's C++), so the SAM bytes are the
-reference's. Not ported here: the unpacked-IO and byte-gather flows,
-read sharding and the sharded-index MQV hooks. A batch the flat encoder
-rejects raises NotImplementedError: there is no generic mapper behind
-this path.
+device. Arguments go up on packed IO where `_packed_io` allows it (16 B a
+window, 4-bit reads), else as [B, 10] int32 rows with a byte read table
+(more than 2^16 read rows); the windows come from the mapper's word plane
+or, where it has none (planes over ~1 Gbp), byte by byte. An index of
+2^31 bases or more and windows wider than MAX_G_LONG raise
+NotImplementedError. The host stages run through the port's own native
+library (`native/`, a copy of the reference's C++), so the SAM bytes are
+the reference's. Not ported here: read sharding and the sharded-index
+MQV hooks. A batch the flat encoder rejects raises NotImplementedError:
+there is no generic mapper behind this path.
 """
 from __future__ import annotations
 
@@ -48,8 +52,9 @@ from .io.fasta import SeqRecord
 from .io.sam import _pair_qname
 from .native import get_lib
 from .native.filter1_py import generate_candidates_native
-from .core._args import MAX_G
-from .core.sw import sw_vec_full_stats_packed, sw_vec_full_tb_packed
+from .core._args import MAX_G, MAX_G_LONG
+from .core.sw import (sw_vec_full_stats_from_index, sw_vec_full_stats_packed,
+                      sw_vec_full_tb_from_index, sw_vec_full_tb_packed)
 from .mapper import FULL_BATCH, FULL_BUCKETS, _round_up
 
 # windows per read at or above which a batch takes the two-phase
@@ -298,18 +303,80 @@ def _tb_batch(R: int, G: int) -> int:
     return max(8, min(FULL_BATCH, (1 << 28) // max(R * G, 1)))
 
 
+def _packed_io(G: int, R: int, w_max: int, n_rows: int) -> bool:
+    """Whether a batch fits the packed-IO flow's bit fields (G and R up
+    to 4095, window lengths under 2^14, at most 2^16 read rows), as the
+    reference's gate has it; other batches take the unpacked flow."""
+    return (G <= 4095 and R <= 4095 and w_max < (1 << 14)
+            and n_rows <= (1 << 16))
+
+
+def _check_index_len(idx) -> None:
+    """Both flows carry absolute window starts in int32, which wrap at
+    2^31 bases: refuse such an index (the reference's windows are wrong
+    there)."""
+    if idx.total_len >= (1 << 31):
+        raise NotImplementedError(
+            f"an index of {idx.total_len} bases: window starts are int32 "
+            "and wrap at 2^31 bases; split the genome into smaller "
+            "indexes")
+
+
+def _launch_args(win, rows, k: int, bucket: int, L: int,
+                 packed_io: bool) -> np.ndarray:
+    """The launch argument rows of the windows `rows` (a slice or an
+    index array of k windows), padded to `bucket` rows: [bucket, 4]
+    packed (`_pack_args4`) or [bucket, 10] int32 (gstart, glen, ri, rc,
+    rlen, ax, ay, alen, awid, rev) for the unpacked flow. Pad rows score
+    a 1-cell window the host discards."""
+    cols = [win[f][rows] for f in ("starts", "glen", "ri", "rcmask", "rx",
+                                   "ry", "rl_", "rw_", "rev")]
+    if packed_io:
+        return _pack_args4(bucket, k, *cols)
+    a = np.zeros((bucket, 10), np.int32)
+    for c, v in zip((0, 1, 2, 3, 5, 6, 7, 8, 9), cols):
+        a[:k, c] = v
+    a[:k, 4] = L
+    a[k:, [1, 4, 7, 8]] = 1
+    return a
+
+
+def _stats_rows(res, k: int, packed_io: bool):
+    """A stats-flow launch's first k rows on the host: (vector scores
+    int64 [k], stats int32 [k, 7]: score, mi, mj, plane, run, term,
+    matches). Packed: the [B, 3] rows (`_unpack_stats3`); unpacked: (vec,
+    stats) or, from phase "full", (stats,) int16 [B, 8] (matches = deq -
+    base), whose vector scores read 0."""
+    if packed_io:
+        return _unpack_stats3(res[:k].cpu().numpy())
+    s = res[-1][:k].cpu().numpy().astype(np.int32)
+    st = np.empty((k, 7), np.int32)
+    st[:, :6] = s[:, :6]
+    st[:, 6] = s[:, 6] - s[:, 7]
+    vec = (res[0][:k].cpu().numpy().astype(np.int64) if len(res) == 2
+           else np.zeros(k, np.int64))
+    return vec, st
+
+
 def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
                     rcf: np.ndarray, n_reads: Optional[int] = None):
     """Filter 2 + speculative filter 3 over every candidate window, in
     chunks on m.device. `rcf` marks windows needing the reverse_hit
     normalization (strand 1 for unpaired reads; paired legs may be
     pre-flipped by the pair mode). Returns (futures, win, G,
-    stats_flow): futures are (off, k, result) with result the
-    [bucket, 3] int32 stats rows (stats flow) or (vec, packed, ops)
-    (traceback flow) on the device; `win` is the normalized window
-    geometry that the host reconstruction stage reuses. The traceback
-    flow's chunks hold at most 2^28 backpointer cells (bucket * R * G),
-    as the reference's do.
+    stats_flow): futures are (off, k, result) with result the step's
+    output on the device (`_stats_rows` reads the stats flow's; the
+    traceback flow's is (vec, packed, ops)); `win` is the normalized
+    window geometry that the host reconstruction stage reuses. The
+    traceback flow's chunks hold at most 2^28 backpointer cells (bucket
+    * R * G), as the reference's do.
+
+    Batches that fit `_packed_io` go up on packed IO (16 B a window,
+    4-bit reads); others (more than 2^16 read rows) on the unpacked
+    flow's [B, 10] rows and byte read table. Without the mapper's word
+    plane (planes over ~1 Gbp) the windows are gathered byte by byte.
+    Windows wider than MAX_G_LONG, and indexes of 2^31 bases or more,
+    raise NotImplementedError.
 
     At LS_TWO_PHASE_WPR or more windows per read of the `n_reads` reads
     (None: never) the dispatch takes two phases, as the reference's
@@ -319,55 +386,48 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
     survivors only. A row's results do not depend on the launch it is
     in, so both ways give the same bytes."""
     cfg = m.config
-    idx = m.index
     sc = cfg.scores
+    _check_index_len(m.index)
     n = fh.n
     win, G = _normalize_win(m, fh, L, rcf)
-    packed_io = (G <= 4095 and R <= 4095
-                 and int(fh.w_len.max()) < (1 << 14)
-                 and read_tab.shape[0] <= (1 << 16)
-                 and idx.total_len < (1 << 31))
-    if not packed_io:
+    if G > MAX_G_LONG:
         raise NotImplementedError(
-            f"window or read shape outside the packed-IO flow (G={G}, "
-            f"R={R}, read table rows={read_tab.shape[0]}); the unpacked "
-            "flow is not ported")
-    cat_dev = m._dev_cat_words()
-    if cat_dev is None:
-        raise NotImplementedError(
-            "genome planes over ~1 Gbp: the word-plane gather overflows "
-            "int32 and the byte-gather flow is not ported")
-    kw = dict(G=G, L=L, match=sc.match, mismatch=sc.mismatch,
+            f"windows of G={G} columns: the long-read kernels take G <= "
+            f"{MAX_G_LONG}")
+    packed_io = _packed_io(G, R, int(fh.w_len.max()), read_tab.shape[0])
+    kw = dict(G=G, match=sc.match, mismatch=sc.mismatch,
               a_gap_open=sc.a_gap_open, a_gap_ext=sc.a_gap_extend,
               b_gap_open=sc.b_gap_open, b_gap_ext=sc.b_gap_extend,
               local_alignment=False)
     stats_flow = _stats_flow_enabled(G)
-    fn = sw_vec_full_stats_packed if stats_flow else sw_vec_full_tb_packed
+    dev = m.device
+    if packed_io:
+        fn = sw_vec_full_stats_packed if stats_flow else sw_vec_full_tb_packed
+        kw.update(L=L, cat_words=m._dev_cat_words())
+        rtab_dev = torch.from_numpy(_pack_rtab(read_tab)).to(dev)
+    else:
+        fn = (sw_vec_full_stats_from_index if stats_flow
+              else sw_vec_full_tb_from_index)
+        rtab_dev = torch.from_numpy(read_tab).to(dev)
     two_phase = (n_reads is not None
                  and n >= LS_TWO_PHASE_WPR * max(n_reads, 1))
     eff_batch = LS_VEC_BATCH if two_phase else FULL_BATCH
     if not stats_flow:
         eff_batch = _tb_batch(R, G)
-    dev = m.device
-    rtab_dev = torch.from_numpy(_pack_rtab(read_tab)).to(dev)
     futures = []
     off = 0
     while off < n:
         k = min(n - off, eff_batch)
-        bucket = _chunk_bucket(k, eff_batch)
-        sl = slice(off, off + k)
-        args = _pack_args4(
-            bucket, k, win["starts"][sl], win["glen"][sl], win["ri"][sl],
-            win["rcmask"][sl], win["rx"][sl], win["ry"][sl],
-            win["rl_"][sl], win["rw_"][sl], win["rev"][sl])
+        args = _launch_args(win, slice(off, off + k), k,
+                            _chunk_bucket(k, eff_batch), L, packed_io)
         res = fn(m._dev_codes(), m._dev_codes_rc(),
-                 torch.from_numpy(args).to(dev), rtab_dev, cat_dev, **kw,
+                 torch.from_numpy(args).to(dev), rtab_dev, **kw,
                  **(dict(phase="vec") if two_phase else {}))
         futures.append((off, k, res))
         off += k
+    win["packed_io"] = packed_io
     if two_phase:
-        win["two_phase"] = dict(fn=fn, kw=kw, rtab_dev=rtab_dev,
-                                cat_dev=cat_dev)
+        win["two_phase"] = dict(fn=fn, kw=kw, rtab_dev=rtab_dev)
     cells = int(fh.w_len.astype(np.int64).sum()) * L
     m.tally(vec_invocs=n, vec_cells=cells)
     if not two_phase:
@@ -391,20 +451,17 @@ def _tp_run_full(m, tp, win, G: int, rows: np.ndarray, stats_flow: bool,
     futures = []
     for off in range(0, n_jobs, eff_batch):
         k = min(n_jobs - off, eff_batch)
-        rws = rows[off:off + k]
-        args = _pack_args4(
-            _chunk_bucket(k, eff_batch), k, win["starts"][rws],
-            win["glen"][rws], win["ri"][rws], win["rcmask"][rws],
-            win["rx"][rws], win["ry"][rws], win["rl_"][rws],
-            win["rw_"][rws], win["rev"][rws])
+        args = _launch_args(win, rows[off:off + k], k,
+                            _chunk_bucket(k, eff_batch), L,
+                            win["packed_io"])
         futures.append((off, k, tp["fn"](
             m._dev_codes(), m._dev_codes_rc(),
-            torch.from_numpy(args).to(dev), tp["rtab_dev"], tp["cat_dev"],
-            **tp["kw"], phase="full")))
+            torch.from_numpy(args).to(dev), tp["rtab_dev"], **tp["kw"],
+            phase="full")))
     if stats_flow:
         out = np.empty((n_jobs, 7), np.int32)
-        for off, k, pk3 in futures:
-            out[off:off + k] = _unpack_stats3(pk3[:k].cpu().numpy())[1]
+        for off, k, res in futures:
+            out[off:off + k] = _stats_rows(res, k, win["packed_io"])[1]
     else:
         W = (R + G + 3) // 4
         out = (np.empty((n_jobs, 10), np.int32),
@@ -431,9 +488,8 @@ def _fetch(ctx, n: int):
     elif ctx["stats_flow"]:
         stats = np.empty((n, 7), np.int32)
         for off, k, res in ctx["futures"]:
-            v, st = _unpack_stats3(res[:k].cpu().numpy())
-            scores[off:off + k] = v
-            stats[off:off + k] = st
+            scores[off:off + k], stats[off:off + k] = _stats_rows(
+                res, k, ctx["win"]["packed_io"])
     else:
         tb = (np.empty((n, 10), np.int32),
               np.empty((n, (ctx["R"] + ctx["G"] + 3) // 4), np.uint8))
@@ -1111,6 +1167,193 @@ def _paired_config_supported(cfg: MapperConfig) -> bool:
             and not (cfg.trim_front or cfg.trim_end or cfg.trim_illumina))
 
 
+def _set_paired_render_flags(p, cfg, raw: np.ndarray, n_pairs: int):
+    """Renderer-level flag fields on the native paired params (RG
+    suffix, all-contigs, sam-unaligned range, sam-r2; `raw` is the
+    batch's read text, which the LS R2:Z tag copies). Returns the RG
+    bytes to keep alive through the native call."""
+    rg_bytes = None
+    if cfg.read_group_name:
+        rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
+        p.rg = ctypes.cast(ctypes.c_char_p(rg_bytes), ctypes.c_void_p)
+        p.rg_len = len(rg_bytes)
+    p.all_contigs = int(cfg.all_contigs)
+    p.sam_unaligned = int(cfg.sam_unaligned)
+    p.sam_r2 = int(cfg.sam_r2)
+    p.seq_raw = raw.ctypes.data
+    p.una_lo = 0
+    p.una_hi = n_pairs
+    return rg_bytes
+
+
+def _paired_unaligned_block(cfg, ctx, body, r2_tag: bytes) -> bytes:
+    """--sam-unaligned records for every pair of a batch with no
+    candidate windows (the bytes pairedpipe emits): the pair's QNAME,
+    the unmapped flags, `body(ri)` (the fields from SEQ on of read row
+    ri), the mate's read text under `r2_tag` with --sam-r2, the RG
+    suffix."""
+    if not cfg.sam_unaligned:
+        return b""
+    name_off = ctx["name_off"]
+    names = ctx["names"].tobytes()
+    raw = ctx["raw"]
+    rg = (f"\tRG:Z:{cfg.read_group_name}".encode()
+          if cfg.read_group_name else b"")
+    parts = []
+    for pi in range(ctx["B"] // 2):
+        nms = [names[name_off[2 * pi + k]:name_off[2 * pi + k + 1]].decode()
+               for k in (0, 1)]
+        q = _pair_qname(nms[0], nms[1]).encode()
+        for nip in (0, 1):
+            ri = 2 * pi + nip
+            flags = 0x1 | 0x4 | 0x8 | (0x40 if nip == 0 else 0x80)
+            line = (q + f"\t{flags}\t*\t0\t0\t*\t*\t0\t0\t".encode()
+                    + body(ri))
+            if cfg.sam_r2:
+                line += r2_tag + raw[2 * pi + 1 - nip].tobytes()
+            parts.append(line + rg + b"\n")
+    return b"".join(parts)
+
+
+def _mp_kw(m, ro, wlen: int, L: int, B: int) -> dict:
+    """filter 1's mate-pair region filter arguments for a batch of B
+    interleaved reads of length L (readpair_compute_mp_ranges,
+    mapping.c:2317-2442; all pairs share the deltas at equal lengths),
+    or {} where the option set does not use it."""
+    if not ro.anchor_list.use_mp_region_counts:
+        return {}
+    re1 = SimpleNamespace(window_len=wlen, read_len=L)
+    re2 = SimpleNamespace(window_len=wlen, read_len=L)
+    m._compute_mp_ranges(re1, re2, m._paired_opts[0].pairing)
+    drmin = np.empty(2 * B, np.int64)
+    drmax = np.empty(2 * B, np.int64)
+    for st in (0, 1):
+        drmin[st::4] = re1.delta_region_min[st]
+        drmax[st::4] = re1.delta_region_max[st]
+        drmin[2 + st::4] = re2.delta_region_min[st]
+        drmax[2 + st::4] = re2.delta_region_max[st]
+    return dict(mp_mode=ro.anchor_list.use_mp_region_counts,
+                mp_drmin=drmin, mp_drmax=drmax)
+
+
+def _filter1_paired(m, f1_threads, codes2, L: int, wlen: int, ro,
+                    min_kmer_pos: int):
+    """Paired candidate generation, the mate-pair region filter included
+    (colour space starts its k-mers at colour 1: min_kmer_pos=1)."""
+    cfg = m.config
+    return generate_candidates_native(
+        m.index, codes2, L, wlen, m.cutoff, ro.hit_list.match_mode,
+        ro.hit_list.threshold, cfg.scores.match,
+        cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
+        min_kmer_pos=min_kmer_pos,
+        use_region_counts=ro.anchor_list.use_region_counts,
+        region_bits=cfg.region_bits,
+        region_overlap=cfg.region_overlap,
+        collapse=ro.anchor_list.collapse, gapless=False,
+        search_strands=(True, True), threads=f1_threads,
+        **_mp_kw(m, ro, wlen, L, codes2.shape[0]))
+
+
+def _paired_render(lib, p, wstruct, cap, pair_nhits, read_nhits):
+    """One paired_finalize_render call into a buffer that grows until
+    the text fits: (buffer, bytes written, buffer size)."""
+    while True:
+        out = np.empty(cap, np.uint8)
+        rv = int(lib.paired_finalize_render(
+            ctypes.byref(p), ctypes.byref(wstruct),
+            out.ctypes.data_as(ctypes.c_char_p), cap,
+            _vp(pair_nhits), _vp(read_nhits)))
+        if rv >= 0:
+            return out, rv, cap
+        cap *= 4
+        pair_nhits[:] = 0
+        read_nhits[:] = 0
+
+
+def _select_then_full(m, lib, p, wstruct, pairing, hp, n: int,
+                      n_pairs: int, cap: int, pair_nhits, read_nhits,
+                      run_rows, fields, stage: str):
+    """The two-phase paired render, LS and CS: the native select pass
+    picks, from the vector scores alone, every window row that can need
+    full-SW results (paired heap feet and the half-paired heap's
+    superset); `run_rows(rows)` runs the full SW on those rows and
+    returns their alignment rows [k, ...] and op or step codes [k, W],
+    which go to the full-size arrays that the `_PPWin` fields `fields`
+    point at (valid where `full_valid` is 1); the render records rows it
+    finds missing (saved-anchor suppression can diverge at high
+    density), which rescue rounds add, at most four, with every row as
+    the last net. `stage` names the select pass's stage. Returns
+    (buffer, bytes written)."""
+    t0 = _time.perf_counter()
+    cap_sel = int(n_pairs) * 2 * (
+        pairing.pass1_num_outputs + hp.pass1.num_outputs
+        + pairing.pass2_num_outputs) + 8
+    sel_out = np.zeros(cap_sel, np.int32)
+    p.select_only = 1
+    p.sel_out = sel_out.ctypes.data
+    dummy = np.zeros(8, np.uint8)
+    nsel = int(lib.paired_finalize_render(
+        ctypes.byref(p), ctypes.byref(wstruct),
+        dummy.ctypes.data_as(ctypes.c_char_p), 0,
+        _vp(pair_nhits), _vp(read_nhits)))
+    if not 0 <= nsel <= cap_sel:
+        raise RuntimeError(f"paired select pass failed ({nsel})")
+    p.select_only = 0
+    p.sel_out = None
+    m.tally(stage, _time.perf_counter() - t0)
+    # the full-size arrays the render reads: valid where fv is 1
+    full = {}
+
+    def add_full(rows_f):
+        """The full SW for rows_f (those not yet valid), merged into the
+        full-size arrays."""
+        if full:
+            rows_f = rows_f[full["fv"][rows_f] == 0]
+        if len(rows_f) == 0:
+            return
+        aln, ops = run_rows(rows_f)
+        if not full:
+            p.ops_words = ops.shape[1]
+            full.update(aln=np.zeros((n,) + aln.shape[1:], aln.dtype),
+                        ops=np.zeros((n, ops.shape[1]), ops.dtype),
+                        fv=np.zeros(n, np.uint8))
+            setattr(wstruct, fields[0], _vp(full["aln"]))
+            setattr(wstruct, fields[1], _vp(full["ops"]))
+            p.full_valid = full["fv"].ctypes.data
+        if ops.shape[1] != full["ops"].shape[1]:
+            raise RuntimeError("paired select-then-full: op widths "
+                               "differ between rounds")
+        full["aln"][rows_f] = aln
+        full["ops"][rows_f] = ops
+        full["fv"][rows_f] = 1
+
+    add_full(np.unique(sel_out[:nsel]).astype(np.int64))
+    rescue = np.zeros(1, np.int32)
+    p.rescue_flag = rescue.ctypes.data
+    p.sel_out = sel_out.ctypes.data
+    p.rescue_cap = cap_sel
+    out, rv, cap = _paired_render(lib, p, wstruct, cap, pair_nhits,
+                                  read_nhits)
+    rounds = 0
+    while rescue[0] and rounds < 4:
+        add_full(np.unique(
+            sel_out[:min(int(rescue[0]), cap_sel)]).astype(np.int64))
+        rescue[0] = 0
+        pair_nhits[:] = 0
+        read_nhits[:] = 0
+        out, rv, cap = _paired_render(lib, p, wstruct, cap, pair_nhits,
+                                      read_nhits)
+        rounds += 1
+    if rescue[0]:
+        add_full(np.arange(n, dtype=np.int64))
+        p.full_valid = None
+        pair_nhits[:] = 0
+        read_nhits[:] = 0
+        out, rv, cap = _paired_render(lib, p, wstruct, cap, pair_nhits,
+                                      read_nhits)
+    return out, rv
+
+
 class FastPaired:
     """Flat-array paired-end pipeline: filter 1 and the device dispatch
     shared with the unpaired stream (`_fused_dispatch`, two-phase at
@@ -1127,71 +1370,6 @@ class FastPaired:
         self.fls = FastLS(mapper)
         self.lib = self.fls.lib
         self.m = mapper
-
-    def _set_render_flags(self, p, ctx, n_pairs):
-        """Renderer-level flag fields on the native params (RG suffix,
-        all-contigs, sam-unaligned range, sam-r2). Returns the RG bytes
-        to keep alive through the native call."""
-        cfg = self.m.config
-        rg_bytes = None
-        if cfg.read_group_name:
-            rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
-            p.rg = ctypes.cast(ctypes.c_char_p(rg_bytes), ctypes.c_void_p)
-            p.rg_len = len(rg_bytes)
-        p.all_contigs = int(cfg.all_contigs)
-        p.sam_unaligned = int(cfg.sam_unaligned)
-        p.sam_r2 = int(cfg.sam_r2)
-        p.seq_raw = ctx["raw"].ctypes.data
-        p.una_lo = 0
-        p.una_hi = n_pairs
-        return rg_bytes
-
-    def _paired_unaligned_block(self, ctx) -> bytes:
-        """--sam-unaligned records for every pair of a batch with no
-        candidate windows (same bytes pairedpipe emits)."""
-        cfg = self.m.config
-        if not cfg.sam_unaligned:
-            return b""
-        name_off = ctx["name_off"]
-        names = ctx["names"].tobytes()
-        raw = ctx["raw"]
-        qual_raw = ctx.get("qual_raw")
-        rg = (f"\tRG:Z:{cfg.read_group_name}".encode()
-              if cfg.read_group_name else b"")
-        parts = []
-        for pi in range(ctx["B"] // 2):
-            nms = [names[name_off[2 * pi + k]:
-                         name_off[2 * pi + k + 1]].decode()
-                   for k in (0, 1)]
-            q = _pair_qname(nms[0], nms[1]).encode()
-            for nip in (0, 1):
-                ri = 2 * pi + nip
-                flags = 0x1 | 0x4 | 0x8 | (0x40 if nip == 0 else 0x80)
-                ql = (qual_raw[ri].tobytes() if qual_raw is not None
-                      else b"*")
-                line = (q + f"\t{flags}\t*\t0\t0\t*\t*\t0\t0\t".encode()
-                        + ctx["seq_fwd"][ri].tobytes() + b"\t" + ql)
-                if cfg.sam_r2:
-                    line += b"\tR2:Z:" + raw[2 * pi + 1 - nip].tobytes()
-                parts.append(line + rg + b"\n")
-        return b"".join(parts)
-
-    def _filter1_paired(self, codes2, L: int, wlen: int, ro, mp_kw):
-        """Paired candidate generation (mate-pair region filter
-        included)."""
-        m = self.m
-        cfg = m.config
-        return generate_candidates_native(
-            m.index, codes2, L, wlen, m.cutoff, ro.hit_list.match_mode,
-            ro.hit_list.threshold, cfg.scores.match,
-            cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
-            min_kmer_pos=0,
-            use_region_counts=ro.anchor_list.use_region_counts,
-            region_bits=cfg.region_bits,
-            region_overlap=cfg.region_overlap,
-            collapse=ro.anchor_list.collapse, gapless=False,
-            search_strands=(True, True), threads=self.fls.f1_threads,
-            **mp_kw)
 
     # ---------------------------------------------------------- stage A
     def stage_prepare(self, records: Sequence[SeqRecord],
@@ -1277,23 +1455,8 @@ class FastPaired:
         m.tally("read prep", _time.perf_counter() - t0)
         t1 = _time.perf_counter()
         ro = m._paired_opts[0].read[0]
-        mp_kw = {}
-        if ro.anchor_list.use_mp_region_counts:
-            # mate-pair region filter deltas (readpair_compute_mp_ranges,
-            # mapping.c:2317-2442); all pairs share them at equal lengths
-            re1 = SimpleNamespace(window_len=wlen, read_len=L)
-            re2 = SimpleNamespace(window_len=wlen, read_len=L)
-            m._compute_mp_ranges(re1, re2, m._paired_opts[0].pairing)
-            drmin = np.empty(2 * B, np.int64)
-            drmax = np.empty(2 * B, np.int64)
-            for st in (0, 1):
-                drmin[st::4] = re1.delta_region_min[st]
-                drmax[st::4] = re1.delta_region_max[st]
-                drmin[2 + st::4] = re2.delta_region_min[st]
-                drmax[2 + st::4] = re2.delta_region_max[st]
-            mp_kw = dict(mp_mode=ro.anchor_list.use_mp_region_counts,
-                         mp_drmin=drmin, mp_drmax=drmax)
-        fh = self._filter1_paired(codes2, L, wlen, ro, mp_kw)
+        fh = _filter1_paired(m, self.fls.f1_threads, codes2, L, wlen,
+                             ro, min_kmer_pos=0)
         if fh is None:
             return None
         m.tally("filter1", _time.perf_counter() - t1)
@@ -1324,6 +1487,19 @@ class FastPaired:
                     qual_raw=qual_raw, raw=np.ascontiguousarray(raw),
                     t_dispatch=_time.perf_counter() - t2)
 
+    def _run_rows(self, ctx, tp, rows):
+        """Select-then-full's row runner: the full SW on the window rows
+        `rows` (`_tp_run_full`) and their alignment rows [k, 10] and
+        packed ops [k, W]."""
+        out2 = _tp_run_full(self.m, tp, ctx["win"], ctx["G"], rows,
+                            ctx["stats_flow"], ctx["fh"], ctx["L"],
+                            ctx["R"])
+        t0 = _time.perf_counter()
+        if ctx["stats_flow"]:
+            out2 = self._expand(ctx, rows, out2)[:2]
+        self.m.tally("alignment expand", _time.perf_counter() - t0)
+        return out2
+
     def _expand(self, ctx, rows, stats):
         """Alignment rows [k, 10] and packed ops of the window rows
         `rows` from their [k, 7] full-SW stats (FastLS._stats_to_packed):
@@ -1341,21 +1517,6 @@ class FastPaired:
                     rev=win["rev"][rows])
         return self.fls._stats_to_packed(stats, ctx2)
 
-    def _render(self, p, wstruct, cap, pair_nhits, read_nhits):
-        """One paired_finalize_render call into a buffer that grows
-        until the text fits: (buffer, bytes written, buffer size)."""
-        while True:
-            out = np.empty(cap, np.uint8)
-            rv = int(self.lib.paired_finalize_render(
-                ctypes.byref(p), ctypes.byref(wstruct),
-                out.ctypes.data_as(ctypes.c_char_p), cap,
-                _vp(pair_nhits), _vp(read_nhits)))
-            if rv >= 0:
-                return out, rv, cap
-            cap *= 4
-            pair_nhits[:] = 0
-            read_nhits[:] = 0
-
     # ---------------------------------------------------------- stage B
     def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray, np.ndarray]:
         """Fetch device results, expand alignments for every window (or,
@@ -1370,8 +1531,11 @@ class FastPaired:
         read_nhits = np.zeros(B, np.int32)
         m.tally(reads=B)
         if fh.n == 0:
-            return (self._paired_unaligned_block(ctx), pair_nhits,
-                    read_nhits)
+            qual_raw = ctx.get("qual_raw")
+            return (_paired_unaligned_block(
+                cfg, ctx, lambda ri: ctx["seq_fwd"][ri].tobytes() + b"\t"
+                + (b"*" if qual_raw is None else qual_raw[ri].tobytes()),
+                b"\tR2:Z:"), pair_nhits, read_nhits)
         n = int(fh.n)
         win = ctx["win"]
         tp = win.get("two_phase")
@@ -1455,109 +1619,23 @@ class FastPaired:
             0, 0, 0, 0, None, None, None, None, None, None, 0,
             None, None, 0)
         # the RG bytes stay alive through the native calls
-        rg_bytes = self._set_render_flags(p, ctx, n_pairs)
+        rg_bytes = _set_paired_render_flags(p, cfg, ctx["raw"], n_pairs)
         wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
         cap = max(1 << 20, n_pairs * 4 * (L + 320))
         if tp is None:
-            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
-                                        read_nhits)
+            out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
+                                          pair_nhits, read_nhits)
         else:
-            out, rv = self._select_then_full(
-                ctx, tp, p, wstruct, arrs, hp, pairing, n, n_pairs, cap,
-                pair_nhits, read_nhits)
+            out, rv = _select_then_full(
+                m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
+                pair_nhits, read_nhits,
+                lambda rows: self._run_rows(ctx, tp, rows),
+                ("packed", "ops_pk"), "paired select (2ph)")
         m.tally("paired select + render", _time.perf_counter() - t0,
                 reads_mapped=int((pair_nhits > 0).sum()) * 2,
                 alignments=2 * int(pair_nhits.sum())
                 + int(read_nhits.sum()))
         return bytes(out[:rv]), pair_nhits, read_nhits
-
-    def _select_then_full(self, ctx, tp, p, wstruct, arrs, hp, pairing, n,
-                          n_pairs, cap, pair_nhits, read_nhits):
-        """The two-phase render: the native select pass picks, from the
-        vector scores alone, every row that can need full-SW results
-        (paired heap feet and the half-paired heap's superset); the full
-        SW runs on those rows; the render records rows it finds missing
-        (saved-anchor suppression can diverge at high density), which
-        rescue rounds add, at most four, with every row as the last net.
-        Returns (buffer, bytes written)."""
-        m = self.m
-        fh, win = ctx["fh"], ctx["win"]
-        t0 = _time.perf_counter()
-        cap_sel = int(n_pairs) * 2 * (
-            pairing.pass1_num_outputs + hp.pass1.num_outputs
-            + pairing.pass2_num_outputs) + 8
-        sel_out = np.zeros(cap_sel, np.int32)
-        p.select_only = 1
-        p.sel_out = sel_out.ctypes.data
-        dummy = np.zeros(8, np.uint8)
-        nsel = int(self.lib.paired_finalize_render(
-            ctypes.byref(p), ctypes.byref(wstruct),
-            dummy.ctypes.data_as(ctypes.c_char_p), 0,
-            _vp(pair_nhits), _vp(read_nhits)))
-        if not 0 <= nsel <= cap_sel:
-            raise RuntimeError(f"paired select pass failed ({nsel})")
-        p.select_only = 0
-        p.sel_out = None
-        m.tally("paired select (2ph)", _time.perf_counter() - t0)
-        # the full-size arrays the render reads: valid where fv is 1
-        full = {}
-
-        def add_full(rows_f):
-            """Full SW and alignment expansion for rows_f (those not
-            yet valid), merged into the full-size arrays."""
-            if full:
-                rows_f = rows_f[full["fv"][rows_f] == 0]
-            if len(rows_f) == 0:
-                return
-            out2 = _tp_run_full(m, tp, win, ctx["G"], rows_f,
-                                ctx["stats_flow"], fh, ctx["L"], ctx["R"])
-            t3 = _time.perf_counter()
-            if ctx["stats_flow"]:
-                pk_s, ops_s, W2 = self._expand(ctx, rows_f, out2)
-            else:
-                pk_s, ops_s = out2
-                W2 = ops_s.shape[1]
-            if not full:
-                p.ops_words = W2
-                full.update(pk=np.zeros((n, 10), np.int32),
-                            ops=np.zeros((n, W2), np.uint8),
-                            fv=np.zeros(n, np.uint8))
-                wstruct.packed = _vp(full["pk"])
-                wstruct.ops_pk = _vp(full["ops"])
-                p.full_valid = full["fv"].ctypes.data
-            if W2 != full["ops"].shape[1]:
-                raise RuntimeError("paired select-then-full: op widths "
-                                   "differ between rounds")
-            full["pk"][rows_f] = pk_s
-            full["ops"][rows_f] = ops_s
-            full["fv"][rows_f] = 1
-            m.tally("alignment expand", _time.perf_counter() - t3)
-
-        add_full(np.unique(sel_out[:nsel]).astype(np.int64))
-        rescue = np.zeros(1, np.int32)
-        p.rescue_flag = rescue.ctypes.data
-        p.sel_out = sel_out.ctypes.data
-        p.rescue_cap = cap_sel
-        out, rv, cap = self._render(p, wstruct, cap, pair_nhits, read_nhits)
-        rounds = 0
-        while rescue[0] and rounds < 4:
-            add_full(np.unique(
-                sel_out[:min(int(rescue[0]), cap_sel)]).astype(np.int64))
-            rescue[0] = 0
-            pair_nhits[:] = 0
-            read_nhits[:] = 0
-            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
-                                        read_nhits)
-            rounds += 1
-        if rescue[0]:
-            add_full(np.arange(n, dtype=np.int64))
-            p.full_valid = None
-            pair_nhits[:] = 0
-            read_nhits[:] = 0
-            out, rv, cap = self._render(p, wstruct, cap, pair_nhits,
-                                        read_nhits)
-        return out, rv
-
 
 def map_paired_sam_stream(mapper, records: Sequence[SeqRecord],
                           batch_size: Optional[int] = None,

@@ -1,7 +1,7 @@
-"""Flat-array fast path for colour-space unpaired mapping to SAM, on torch
-devices.
+"""Flat-array fast path for colour-space mapping to SAM, unpaired and
+paired, on torch devices.
 
-Port of the unpaired flows of `shrimp_tpu/fastpath_cs.py`:
+Port of the flows of `shrimp_tpu/fastpath_cs.py`:
 
     read prep + filter 1 (native)  ->  one fused device step per chunk
     (CS vector SW + 4-layer full SW + traceback, core/sw_cs.py)  ->
@@ -10,7 +10,12 @@ Port of the unpaired flows of `shrimp_tpu/fastpath_cs.py`:
 
 and, at CS_TWO_PHASE_WPR or more candidate windows per read, the
 two-phase dispatch: the vector SW alone on every window, then the
-4-layer DP and the traceback on the pass-1 survivors only.
+4-layer DP and the traceback on the pass-1 survivors only. The paired
+stream (`FastPairedCS`, `map_paired_cs_sam_stream`) shares the encoding
+and the dispatch and ends in one native `paired_finalize_render` call in
+CS mode; its two-phase batches run select-then-full
+(`fastpath._select_then_full`). Without the mapper's word planes (planes
+over ~1 Gbp) the device step gathers its windows byte by byte.
 
 The host stages run through the port's native library (`native/`, a
 copy of the reference's C++), so the SAM bytes are the reference's. It builds on the port's
@@ -25,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 import time as _time
+from types import SimpleNamespace
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +40,10 @@ from . import constants as C
 from .config import MapperConfig, abs_or_pct
 from .core.sw_cs import sw_vec_cs_full_from_index
 from .core.sw_cs_batch import cs_layers_batch
-from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _vp,
+from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _PPParams, _PPWin,
+                       _check_index_len, _filter1_paired,
+                       _paired_render, _paired_unaligned_block,
+                       _select_then_full, _set_paired_render_flags, _vp,
                        auto_batch_size, batch_pipeline)
 from .io.fasta import SeqRecord
 from .mapper import _round_up
@@ -167,15 +176,15 @@ class FastCS:
         self.lib = self.fls.lib
         self.m = mapper
 
-    # ---------------------------------------------------------- stage A
-    def stage_prepare(self, records: Sequence[SeqRecord],
-                      batch_cap: Optional[int] = None):
-        """Encode the CS batch + filter 1 + fused device dispatch.
-        Returns None when the flat encoder rejects the batch (the config
-        was screened by map_unpaired_cs_sam_stream)."""
+    def _encode(self, records: Sequence[SeqRecord], drop_low_qv: bool):
+        """The flat CS encoding of a batch: read text, qualities, primer
+        bases, colour rows of both strands, the crossover penalties from
+        qualities, the name blob. None when the flat encoder rejects the
+        batch (mixed lengths, bad colours or primers, mixed qualities).
+        Reads under --min-avg-qv are dropped (`drop_low_qv`; dict(B=0)
+        when none is left) or, for pairs, reject the batch."""
         m = self.m
         cfg = m.config
-        t0 = _time.perf_counter()
         if not records:
             return None
         has_qual = any(r.qual is not None for r in records)
@@ -224,6 +233,8 @@ class FastCS:
                 avg = np.where(s < 0, -((-s) // R), s // R)
                 keep = avg >= cfg.min_avg_qv
                 if not keep.all():
+                    if not drop_low_qv:
+                        return None
                     records = [r for r, k in zip(records, keep) if k]
                     if not records:
                         return dict(B=0)
@@ -240,7 +251,6 @@ class FastCS:
             return None
         initbp = init16.astype(np.int64)
         codes0 = codes16.astype(np.uint8)
-        codes1 = _revcomp_cs_batch(codes0, initbp)
         # per-position crossover scores from qvs (gmapper.c:532-543); a
         # 256-entry LUT over raw qual chars built with libm math so the
         # DP integers match the reference exactly
@@ -257,47 +267,74 @@ class FastCS:
         np.cumsum([len(x) for x in nm_parts], out=offs[1:])
         nm_blob = (np.frombuffer(b"".join(nm_parts), np.uint8).copy()
                    if nm_parts else np.zeros(1, np.uint8))
-        wlen = int(abs_or_pct(cfg.window_len, R))
-        m.tally("read prep", _time.perf_counter() - t0)
+        return dict(B=B, R=R, wlen=int(abs_or_pct(cfg.window_len, R)),
+                    raw=raw, quals=quals, cq=cq, initbp=initbp,
+                    codes0=codes0, codes1=_revcomp_cs_batch(codes0, initbp),
+                    xover_tab=xover_tab, names=nm_blob, name_off=offs)
 
-        t1 = _time.perf_counter()
-        codes2 = np.empty((B, 2, R), np.uint8)
-        codes2[:, 0] = codes0
-        codes2[:, 1] = codes1
-        fh = self.fls._filter1(codes2, R, wlen, min_kmer_pos=1)
-        if fh is None:
-            return None
-        m.tally("filter1", _time.perf_counter() - t1)
-
-        t2 = _time.perf_counter()
+    def _dispatch(self, enc, fh, batch_cap, t2, **kw):
+        """The device dispatch of an encoded batch's windows (`fh`) and
+        the stage-B context: the encoding, the windows, the futures."""
+        m = self.m
+        B, R = enc["B"], enc["R"]
         Bcap = max(batch_cap or B, B)
-        qr_tab = cs_layers_batch(codes0, initbp)      # [B, 4, R]
+        qr_tab = cs_layers_batch(enc["codes0"], enc["initbp"])  # [B, 4, R]
         win = None
         futures = []
         G = 32
         if fh.n:
             futures, win, G = self._fused_dispatch_cs(
-                fh, codes0, qr_tab, initbp, R, Bcap, xover_tab, n_reads=B)
+                fh, enc["codes0"], qr_tab, enc["initbp"], R, Bcap,
+                enc["xover_tab"], n_reads=B, **kw)
         m.tally("device dispatch", _time.perf_counter() - t2)
-        return dict(B=B, R=R, wlen=wlen, fh=fh, win=win, futures=futures,
-                    G=G, codes0=codes0, qr_tab=qr_tab,
-                    initbp=initbp.astype(np.int32), raw=raw, quals=quals,
-                    cq=cq, names=nm_blob, name_off=offs, Bcap=Bcap,
-                    t_dispatch=_time.perf_counter() - t2)
+        ctx = dict(enc, fh=fh, win=win, futures=futures, G=G,
+                   qr_tab=qr_tab, initbp=enc["initbp"].astype(np.int32),
+                   Bcap=Bcap, t_dispatch=_time.perf_counter() - t2)
+        del ctx["codes1"], ctx["xover_tab"]
+        return ctx
 
-    def _cs_args(self, fh, R, initbp):
+    # ---------------------------------------------------------- stage A
+    def stage_prepare(self, records: Sequence[SeqRecord],
+                      batch_cap: Optional[int] = None):
+        """Encode the CS batch + filter 1 + fused device dispatch.
+        Returns None when the flat encoder rejects the batch (the config
+        was screened by map_unpaired_cs_sam_stream)."""
+        m = self.m
+        t0 = _time.perf_counter()
+        enc = self._encode(records, drop_low_qv=True)
+        if enc is None or enc["B"] == 0:
+            return enc
+        B, R = enc["B"], enc["R"]
+        m.tally("read prep", _time.perf_counter() - t0)
+
+        t1 = _time.perf_counter()
+        codes2 = np.empty((B, 2, R), np.uint8)
+        codes2[:, 0] = enc["codes0"]
+        codes2[:, 1] = enc["codes1"]
+        fh = self.fls._filter1(codes2, R, enc["wlen"], min_kmer_pos=1)
+        if fh is None:
+            return None
+        m.tally("filter1", _time.perf_counter() - t1)
+        return self._dispatch(enc, fh, batch_cap, _time.perf_counter())
+
+    def _cs_args(self, fh, R, rcf, thresh_override, initbp):
         """Normalized CS window geometry (reverse_hit, mapping.c:254-263)
-        and the packed launch arguments. Returns (args_all [n, 12]
+        and the launch arguments. `rcf` marks the windows to normalize
+        (None: the strand-1 windows, as for unpaired reads);
+        `thresh_override` replaces the per-window full-SW threshold
+        (None: from --sw-full-threshold). Returns (args_all [n, 12]
         int32, win dict, G)."""
         m = self.m
         cfg = m.config
         idx = m.index
+        _check_index_len(idx)
         aw = cfg.anchor_width
         n = fh.n
         coff = idx.contig_offsets[fh.cn].astype(np.int64)
         clen = idx.contig_lengths[fh.cn].astype(np.int64)
         wl64 = fh.w_len.astype(np.int64)
-        rcf = (fh.owner & 1) == 1    # unpaired CS: input strand 0
+        if rcf is None:
+            rcf = (fh.owner & 1) == 1    # unpaired CS: input strand 0
         g_off_t = np.where(rcf, clen - fh.g_off - wl64, fh.g_off)
         ax_t = np.where(rcf, -fh.ax + (wl64 - 1) - (fh.alen - 1)
                         - (fh.awid - 1), fh.ax)
@@ -305,7 +342,9 @@ class FastCS:
                         + (fh.awid - 1), fh.ay)
         thr = cfg.sw_full_threshold
         smax = fh.score_max.astype(np.int64)
-        if thr < 0:
+        if thresh_override is not None:
+            thresh = np.full(n, thresh_override, np.int64)
+        elif thr < 0:
             thresh = np.full(n, int(-thr), np.int64)
         else:
             thresh = (smax.astype(np.float64) * (thr / 100.0)
@@ -329,11 +368,16 @@ class FastCS:
         return args_all, win, G
 
     def _fused_dispatch_cs(self, fh, codes0, qr_tab, initbp, R, Bcap,
-                           xover_tab=None, n_reads=None):
+                           xover_tab=None, rcf=None, thresh_override=None,
+                           n_reads=None):
         """Launch the fused CS vector + full chunks against the device
-        planes. Returns (futures, win, G): futures are (off, k, (vec,
-        packed, steps_rev) tensors on the device). At CS_TWO_PHASE_WPR
-        or more windows per read of the `n_reads` reads (None: never)
+        planes (`_cs_args` reads `rcf` and `thresh_override`: paired
+        legs may be pre-flipped, and the paired flow passes 1 so that
+        the raw DP score comes back and the native code applies each
+        context's threshold). Returns (futures, win, G): futures are
+        (off, k, (vec, packed, steps_rev) tensors on the device). At
+        CS_TWO_PHASE_WPR or more windows per read of the `n_reads` reads
+        (None: never)
         the chunks run the vector SW alone (futures hold (vec,)) and
         `win["two_phase"]` keeps what `_cs_run_full_rows` needs to align
         the pass-1 survivors later. A row's results do not depend on the
@@ -341,13 +385,9 @@ class FastCS:
         m = self.m
         cfg = m.config
         sc = cfg.scores
-        cats = m._dev_cs_cat_words()
-        if cats is None:
-            raise NotImplementedError(
-                "genome planes over ~1 Gbp: the word-plane gather "
-                "overflows int32 and the byte-gather flow is not ported")
         n = fh.n
-        args_all, win, G = self._cs_args(fh, R, initbp)
+        args_all, win, G = self._cs_args(fh, R, rcf, thresh_override,
+                                         initbp)
         CB = _cs_chunk(int(n))
         kw = dict(G=G, xover=sc.crossover, match=sc.match,
                   mismatch=sc.mismatch, a_gap_open=sc.a_gap_open,
@@ -383,11 +423,12 @@ class FastCS:
     def _cs_chunks(self, args, CB, rtab_dev, qr_dev, xov_dev, kw):
         """sw_vec_cs_full_from_index over the rows of `args` in chunks of
         CB rows, the last padded with 1-cell windows: [(off, k,
-        result)]."""
+        result)]. Without the mapper's word planes (planes over ~1 Gbp)
+        the step gathers its windows byte by byte."""
         m = self.m
         dev = m.device
         planes = m._dev_cs_planes()
-        cats = m._dev_cs_cat_words()
+        cats = m._dev_cs_cat_words() or (None, None)
         n = len(args)
         futures = []
         for off in range(0, n, CB):
@@ -406,7 +447,9 @@ class FastCS:
         """Two-phase phase B: the 4-layer DP and the traceback for the
         window rows `rows` only, in chunks of `_cs_chunk(len(rows))`
         rows, fetched: (packed [k, 12] int16, steps_rev [k, R + G]
-        int8). No rows: no launch."""
+        int8). No rows: no launch. Shared by the unpaired pass-1
+        survivor flow and the paired select-then-full flow, whose render
+        takes the steps' width as its ops_words."""
         t0 = _time.perf_counter()
         m = self.m
         n_sel = len(rows)
@@ -457,6 +500,30 @@ class FastCS:
                 np.ascontiguousarray(ctx["win"]["starts"][rows]),
                 int(idx.total_len))
 
+    def _fetch(self, ctx, n: int):
+        """The dispatch's device results on the host, the device tensors
+        freed, and the device stages tallied: (vector scores int64 [n],
+        packed [n, 12] int16, steps_rev [n, R + G] int8), the last two
+        None after a two-phase dispatch."""
+        t0 = _time.perf_counter()
+        scores = np.empty(n, np.int64)
+        packed = steps = None
+        if ctx["win"].get("two_phase") is not None:
+            for off, k, (vec,) in ctx["futures"]:
+                scores[off:off + k] = vec[:k].cpu().numpy()
+        else:
+            packed = np.empty((n, 12), np.int16)
+            steps = np.empty((n, ctx["R"] + ctx["G"]), np.int8)
+            for off, k, (vec, pk, st) in ctx["futures"]:
+                scores[off:off + k] = vec[:k].cpu().numpy()
+                packed[off:off + k] = pk[:k].cpu().numpy()
+                steps[off:off + k] = st[:k].cpu().numpy()
+        ctx["futures"] = None
+        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
+        self.m.tally("device fetch", _time.perf_counter() - t0,
+                     vec_secs=dev_secs, full_secs=dev_secs)
+        return scores, packed, steps
+
     # ---------------------------------------------------------- stage B
     def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray]:
         """Fetch the fused device results, native pass1 selection, then
@@ -474,25 +541,9 @@ class FastCS:
             m.tally(reads=B)
             return self._unaligned_block_cs(ctx, nhits), nhits
         n = int(fh.n)
-        t0 = _time.perf_counter()
         W = R + ctx["G"]
-        scores = np.empty(n, np.int64)
         tp = ctx["win"].get("two_phase")
-        if tp is not None:
-            for off, k, (vec,) in ctx["futures"]:
-                scores[off:off + k] = vec[:k].cpu().numpy()
-        else:
-            packed_all = np.empty((n, 12), np.int16)
-            steps_all = np.empty((n, W), np.int8)
-            for off, k, (vec, pk, st) in ctx["futures"]:
-                scores[off:off + k] = vec[:k].cpu().numpy()
-                packed_all[off:off + k] = pk[:k].cpu().numpy()
-                steps_all[off:off + k] = st[:k].cpu().numpy()
-        # the device results are on the host now: free their memory
-        ctx["futures"] = None
-        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
-        m.tally("device fetch", _time.perf_counter() - t0,
-                vec_secs=dev_secs, full_secs=dev_secs)
+        scores, packed_all, steps_all = self._fetch(ctx, n)
 
         # ---- native pass1 selection on the vector scores
         t0 = _time.perf_counter()
@@ -628,3 +679,252 @@ def map_unpaired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
         fast.fls, fast.stage_prepare, fast.stage_finish, records,
         batch_size or auto_batch_size(mapper), lanes,
         "mixed read lengths, bad colours or primers, or mixed qualities")
+
+
+# ===================================================================
+# Colour-space paired-end fast path
+# ===================================================================
+
+def fastpath_cs_paired_supported(cfg: MapperConfig) -> bool:
+    """Gate: the native paired renderer's CS mode covers the default CS
+    paired SAM flow (single option set, MQV on, no single-best) plus the
+    renderer-level flags."""
+    if cfg.pair_mode == C.PAIR_NONE or cfg.mode != C.MODE_COLOUR_SPACE:
+        return False
+    if cfg.custom_paired_options or cfg.custom_unpaired_options:
+        return False
+    popts = cfg.paired_options()
+    if len(popts) != 1:
+        return False
+    ro = popts[0].read[0]
+    if (ro.anchor_list.use_mp_region_counts
+            and not ro.anchor_list.use_region_counts):
+        return False
+    return (not cfg.gapless and cfg.global_alignment
+            and cfg.compute_mapping_qualities
+            and not cfg.single_best_mapping
+            and not cfg.extra_sam_fields and not cfg.shrimp_format
+            and not cfg.bfast
+            and cfg.search_forward and cfg.search_reverse)
+
+
+def _cs_paired_config_supported(cfg: MapperConfig) -> bool:
+    """`fastpath_cs_paired_supported` plus the reference's stage_prepare
+    refusal of raw-string trims, which the reference also answers with
+    None. FastPairedCS assumes a config that passed this gate."""
+    return (fastpath_cs_paired_supported(cfg)
+            and not (cfg.trim_front or cfg.trim_end))
+
+
+class FastPairedCS(FastCS):
+    """Colour-space paired pipeline: the CS encoding and the CS device
+    dispatch shared with FastCS (two-phase at CS_TWO_PHASE_WPR windows
+    per read or more), then one native `paired_finalize_render` call in
+    CS mode for pair-up, the paired passes with the post-SW foot
+    rescoring, the half-paired fallback, paired MQVs and the CS SAM
+    text. Two-phase batches run select-then-full (`fastpath.
+    _select_then_full`), the 4-layer DP and the traceback on the rows
+    the select pass picks. `mapper` is a `paired.PairedMapper`."""
+
+    def _cs_genome_view_paired(self, ctx):
+        """Letter planes the paired native render's post-SW eval reads,
+        over every window (pair rescoring may eval any of them):
+        (genome_fwd, genome_rc, start_abs)."""
+        idx = self.m.index
+        return (idx.codes, idx.codes_rc,
+                np.ascontiguousarray(ctx["win"]["starts"], np.int64))
+
+    # ---------------------------------------------------------- stage A
+    def stage_prepare(self, records: Sequence[SeqRecord],
+                      batch_cap: Optional[int] = None):
+        """Encode interleaved CS mate pairs + filter 1 + device dispatch.
+        Returns None when the flat encoder rejects the batch (an odd
+        record count, or as FastCS's; a pair under --min-avg-qv too)."""
+        m = self.m
+        t0 = _time.perf_counter()
+        if len(records) % 2:
+            return None
+        enc = self._encode(records, drop_low_qv=False)
+        if enc is None:
+            return None
+        B, R = enc["B"], enc["R"]
+        # per-leg strand flips (read_reverse, gmapper.c:175-186); a
+        # flipped leg's strand-0 row is the revcomp colours
+        flip1, flip2 = C.PAIR_REVERSE[m.config.pair_mode]
+        input_strand = np.zeros(B, np.int8)
+        input_strand[0::2] = int(flip1)
+        input_strand[1::2] = int(flip2)
+        flipm = input_strand == 1
+        codes2 = np.empty((B, 2, R), np.uint8)
+        codes2[:, 0] = np.where(flipm[:, None], enc["codes1"],
+                                enc["codes0"])
+        codes2[:, 1] = np.where(flipm[:, None], enc["codes0"],
+                                enc["codes1"])
+        m.tally("read prep", _time.perf_counter() - t0)
+
+        t1 = _time.perf_counter()
+        # colour k-mers from colour 1, the mate-pair region filter
+        # included
+        fh = _filter1_paired(m, self.fls.f1_threads, codes2, R, enc["wlen"],
+                             m._paired_opts[0].read[0], min_kmer_pos=1)
+        if fh is None:
+            return None
+        m.tally("filter1", _time.perf_counter() - t1)
+        # feet run the full SW in two contexts (paired 0.5x, half-paired
+        # 1x): the dispatch zeroes nothing (threshold 1) and the native
+        # render applies each context's threshold
+        rcf = None
+        if fh.n:
+            rcf = ((fh.owner & 1).astype(np.int8)
+                   != input_strand[(fh.owner >> 1).astype(np.int64)])
+        ctx = self._dispatch(enc, fh, batch_cap, _time.perf_counter(),
+                             rcf=rcf, thresh_override=1)
+        ctx["input_strand"] = input_strand
+        return ctx
+
+    # ---------------------------------------------------------- stage B
+    def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray, np.ndarray]:
+        """Fetch the device results and run the whole CS paired brain in
+        one native call (select-then-full for a two-phase batch)."""
+        m = self.m
+        cfg = m.config
+        fls = self.fls
+        B = ctx["B"]
+        fh = ctx["fh"]
+        R, wlen = ctx["R"], ctx["wlen"]
+        n_pairs = B // 2
+        pair_nhits = np.zeros(n_pairs, np.int32)
+        read_nhits = np.zeros(B, np.int32)
+        m.tally(reads=B)
+        if fh.n == 0:
+            cq = ctx["cq"]
+            return (_paired_unaligned_block(
+                cfg, ctx, lambda ri: b"*\t*\tCQ:Z:"
+                + (b"*" if cq is None else cq[ri].tobytes())
+                + b"\tCS:Z:" + ctx["raw"][ri].tobytes(), b"\tX2:Z:"),
+                pair_nhits, read_nhits)
+        n = int(fh.n)
+        win = ctx["win"]
+        tp = win.get("two_phase")
+        scores, packed_all, steps_all = self._fetch(ctx, n)
+
+        t0 = _time.perf_counter()
+        popts = m._paired_opts[0]
+        ro = popts.read[0]
+        pairing = popts.pairing
+        hp = cfg.half_paired_unpaired_options(0)[0]
+        re1 = SimpleNamespace(window_len=wlen, read_len=R)
+        re2 = SimpleNamespace(window_len=wlen, read_len=R)
+        m._compute_mp_ranges(re1, re2, pairing)
+        cal = m.cal
+        sc = cfg.scores
+        owner = np.ascontiguousarray(fh.owner, np.int64)
+        g_fwd, g_rc, start_abs_all = self._cs_genome_view_paired(ctx)
+        arrs = dict(
+            seg=np.ascontiguousarray(
+                np.searchsorted(owner, np.arange(2 * B + 1)), np.int64),
+            cn=np.ascontiguousarray(fh.cn, np.int32),
+            g_off=np.ascontiguousarray(fh.g_off, np.int64),
+            g_off_norm=np.ascontiguousarray(win["g_off_t"], np.int64),
+            gen_st=np.ascontiguousarray(win["rcmask"], np.int8),
+            w_len=np.ascontiguousarray(fh.w_len, np.int32),
+            matches=np.ascontiguousarray(fh.matches, np.int32),
+            score_max=np.ascontiguousarray(fh.score_max, np.int64),
+            vec=scores, start_abs=start_abs_all)
+        W = 1
+        if tp is None:
+            arrs["cs_packed"] = packed_all
+            arrs["cs_steps"] = steps_all
+            W = steps_all.shape[1]
+        raw = ctx["raw"]
+        quals, cq = ctx["quals"], ctx["cq"]
+        p = _PPParams(
+            n_pairs, n, R, wlen, W,
+            (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
+                                 int(re1.delta_g_off_min[1])),
+            (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
+                                 int(re1.delta_g_off_max[1])),
+            ro.pass1.min_matches,
+            int(abs_or_pct(ro.pass1.window_overlap, wlen)),
+            float(ro.pass1.threshold),
+            pairing.pass1_num_outputs, float(pairing.pass1_threshold),
+            float(ro.pass2.threshold),
+            float(pairing.pass2_threshold), pairing.pass2_num_outputs,
+            int(pairing.strata), cfg.max_alignments,
+            int(cfg.half_paired), hp.pass1.min_matches,
+            int(abs_or_pct(hp.pass1.window_overlap, wlen)),
+            float(hp.pass1.threshold), hp.pass1.num_outputs,
+            float(hp.pass2.threshold), hp.pass2.num_outputs,
+            int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
+            sc.match, sc.mismatch,
+            float(m.total_genome_size),
+            float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
+            int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
+            fls.contig_lengths32.ctypes.data,
+            fls.contig_name_off.ctypes.data,
+            fls.contig_names_blob.ctypes.data,
+            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+            None, None, None, None, None,
+            1, abs(sc.crossover),
+            cal.pr_xover, cal.pr_mismatch,
+            cal.pr_del_open, cal.pr_del_extend, cal.pr_ins_open,
+            cal.pr_ins_extend,
+            int(quals is not None),
+            int(quals is not None and not cfg.ignore_qvs),
+            cfg.qual_delta, 1,
+            g_fwd.ctypes.data, g_rc.ctypes.data,
+            ctx["codes0"].ctypes.data, ctx["qr_tab"].ctypes.data,
+            ctx["initbp"].ctypes.data, raw.ctypes.data, raw.shape[1],
+            quals.ctypes.data if quals is not None else None,
+            cq.ctypes.data if cq is not None else None,
+            cq.shape[1] if cq is not None else 0)
+        # the RG bytes stay alive through the native calls
+        rg_bytes = _set_paired_render_flags(p, cfg, raw, n_pairs)
+        wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
+        cap = max(1 << 20, n_pairs * 6 * (3 * R + 320))
+        if tp is None:
+            out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
+                                          pair_nhits, read_nhits)
+        else:
+            out, rv = _select_then_full(
+                m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
+                pair_nhits, read_nhits,
+                lambda rows: self._cs_run_full_rows(tp, rows, fh, R,
+                                                    ctx["G"]),
+                ("cs_packed", "cs_steps"), "cs paired select (2ph)")
+        del rg_bytes
+        m.tally("cs paired select + render", _time.perf_counter() - t0,
+                reads_mapped=int((pair_nhits > 0).sum()) * 2,
+                alignments=2 * int(pair_nhits.sum())
+                + int(read_nhits.sum()))
+        return bytes(out[:rv]), pair_nhits, read_nhits
+
+
+def map_paired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
+                             batch_size: Optional[int] = None,
+                             lanes: Optional[int] = None
+                             ) -> Optional[Iterator[bytes]]:
+    """Pipelined CS paired mapping straight to SAM bytes, batch by batch
+    in input order; None when the config needs a feature outside the
+    fast path. `mapper` is a `paired.PairedMapper`; `records` are
+    interleaved SOLiD mate pairs (an odd batch size is rounded up). A
+    batch the flat encoder rejects (an odd record count, mixed read
+    lengths, bad colours or primers, mixed qualities, a read under
+    --min-avg-qv) raises NotImplementedError naming its reads.
+
+    `lanes` > 1 (default 16) runs that many whole-batch pipelines on
+    worker threads (`fastpath.batch_pipeline`), output re-ordered to
+    input order; results are byte-identical to lanes=1. The lanes run
+    through the port's shared pipeline rather than a copy of the
+    reference's, whose `lanes` > 1 raises UnboundLocalError (its `os`
+    import sits under `if lanes is None`)."""
+    if not _cs_paired_config_supported(mapper.config):
+        return None
+    batch_size = batch_size or auto_batch_size(mapper)
+    batch_size += batch_size % 2
+    fast = FastPairedCS(mapper)
+    return batch_pipeline(
+        fast.fls, fast.stage_prepare, fast.stage_finish, records,
+        batch_size, lanes,
+        "an odd record count, mixed read lengths, bad colours or primers, "
+        "mixed qualities or a read under the average-quality floor")

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import pytest
@@ -16,7 +17,7 @@ from shrimp_tpu_torch import constants as C
 from shrimp_tpu_torch import fastpath, fastpath_cs
 from shrimp_tpu_torch.config import MapperConfig
 from shrimp_tpu_torch.core import encode
-from shrimp_tpu_torch.index.build import build_index
+from shrimp_tpu_torch.index.build import GenomeIndex, build_index
 from shrimp_tpu_torch.index.seeds import default_seeds
 from shrimp_tpu_torch.io.fasta import SeqRecord
 from shrimp_tpu_torch.mapper import Mapper
@@ -74,7 +75,7 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
         import torch
         torch.set_num_threads(1)
         from shrimp_tpu_torch.core.encode import encode_ls
-        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.build import GenomeIndex, build_index
         from shrimp_tpu_torch.index.seeds import default_seeds
         from shrimp_tpu_torch.io.fasta import read_seqs
         from shrimp_tpu_torch import fastpath
@@ -113,7 +114,7 @@ def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
         torch.set_num_threads(1)
         from shrimp_tpu_torch.config import MapperConfig
         from shrimp_tpu_torch.core.encode import encode_ls
-        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.build import GenomeIndex, build_index
         from shrimp_tpu_torch.index.seeds import default_seeds
         from shrimp_tpu_torch.io.fasta import read_seqs
         from shrimp_tpu_torch import fastpath_cs
@@ -158,7 +159,7 @@ def test_maps_pairs_to_sam_with_jax_blocked(tmp_path):
         torch.set_num_threads(1)
         from shrimp_tpu_torch.config import MapperConfig
         from shrimp_tpu_torch.core.encode import encode_ls
-        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.build import GenomeIndex, build_index
         from shrimp_tpu_torch.index.seeds import default_seeds
         from shrimp_tpu_torch.io.fasta import read_seqs
         from shrimp_tpu_torch import fastpath
@@ -171,6 +172,55 @@ def test_maps_pairs_to_sam_with_jax_blocked(tmp_path):
         sam = b"".join(fastpath.map_paired_sam_stream(m, reads,
                                                       batch_size=32))
         assert "paired select (2ph)" in m.stats.stage_secs
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
+        assert not loaded, loaded
+        print("records", sam.count(b"\\n"), "reads", m.stats.reads)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_rec, n_reads = map(int, res.stdout.split()[1::2])
+    assert n_reads == 80 and n_rec >= 80
+
+
+def test_maps_cs_pairs_to_sam_with_jax_blocked(tmp_path):
+    """The same rehearsal for the CS paired stream, select-then-full
+    forced and the word planes withheld (the byte gather)."""
+    from .test_torch_fastpath_cs_paired import cs_pairs
+    g, recs = cs_pairs(4, 40, "opp-in")
+    gpath = tmp_path / "g.fa"
+    gpath.write_text(">chrP\n" + "".join("ACGT"[c] for c in g) + "\n")
+    rpath = tmp_path / "r.fa"
+    rpath.write_text("".join(f">{r.name}\n{r.seq}\n" for r in recs))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["shrimp_tpu"] = None
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from shrimp_tpu_torch.config import MapperConfig
+        from shrimp_tpu_torch.core.encode import encode_ls
+        from shrimp_tpu_torch.index.build import GenomeIndex, build_index
+        from shrimp_tpu_torch.index.seeds import default_seeds
+        from shrimp_tpu_torch.io.fasta import read_seqs
+        from shrimp_tpu_torch import fastpath_cs
+        from shrimp_tpu_torch.paired import PairedMapper
+        fastpath_cs.CS_TWO_PHASE_WPR = 0
+        g = next(read_seqs({str(gpath)!r}))
+        idx = build_index([(g.name, encode_ls(g.seq))],
+                          default_seeds(mode="cs"), mode="cs")
+        reads = list(read_seqs({str(rpath)!r}))
+        m = PairedMapper(idx, MapperConfig(mode="cs", pair_mode="opp-in"),
+                         "cpu")
+        m._cat_words_dev = m._cs_cat_words_dev = None
+        sam = b"".join(fastpath_cs.map_paired_cs_sam_stream(
+            m, reads, batch_size=32))
+        assert "cs paired select (2ph)" in m.stats.stage_secs
         loaded = [k for k, v in sys.modules.items() if v is not None
                   and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
         assert not loaded, loaded
@@ -224,3 +274,48 @@ def test_cs_rejected_batch_raises(tmp_path):
     with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
         fastpath_cs.map_unpaired_cs_sam_stream(Mapper(idx, cfg, "cpu"), recs,
                                                batch_size=32)
+
+
+def test_index_of_2_31_bases_raises(tmp_path, monkeypatch):
+    """An index of 2^31 bases or more raises, naming the batch's reads,
+    in the LS and the CS streams: window starts are int32 in both flows
+    (the reference's wrap there). The length is faked once filter 1 has
+    run, so no such genome is built."""
+    assert fastpath._check_index_len(
+        SimpleNamespace(total_len=(1 << 31) - 1)) is None
+    gen_cand = fastpath.generate_candidates_native
+
+    class HugeIndex(GenomeIndex):
+        total_len = property(lambda self: 1 << 31)
+
+    def filter1(index, *a, **k):
+        fh = gen_cand(index, *a, **k)
+        index.__class__ = HugeIndex
+        return fh
+    monkeypatch.setattr(fastpath, "generate_candidates_native", filter1)
+    _, _, g, reads = make_dataset(str(tmp_path), n_reads=40)
+    _, _, gc, reads_cs = make_cs_dataset(str(tmp_path), n_reads=40,
+                                         genome_len=20_000)
+    for mode, genome, rds, stream in (
+            ("ls", g, reads, fastpath.map_unpaired_sam_stream),
+            (C.MODE_COLOUR_SPACE, gc, reads_cs,
+             fastpath_cs.map_unpaired_cs_sam_stream)):
+        idx = build_index([("chr_test", encode.encode_ls(genome))],
+                          default_seeds(mode=mode), mode=mode)
+        m = Mapper(idx, MapperConfig(mode=mode), "cpu")
+        with pytest.raises(NotImplementedError,
+                           match=r"reads 0\.\.31: an index of 2147483648 "
+                                 r"bases.*2\^31"):
+            stream(m, [SeqRecord(n, s) for n, s in rds], batch_size=32)
+
+
+def test_windows_past_max_g_long_raise(tmp_path):
+    """Reads whose windows pass the long-read kernels' G <= 4095 raise
+    on every device (the packed-IO bit fields and the kernels' limit)."""
+    _, _, g, reads = make_dataset(str(tmp_path), n_reads=4, read_len=3000,
+                                  genome_len=20_000)
+    idx = build_index([("chr_test", encode.encode_ls(g))], default_seeds())
+    m = Mapper(idx, MapperConfig(longest_read_len=4000), "cpu")
+    with pytest.raises(NotImplementedError, match=r"G=4224.*G <= 4095"):
+        fastpath.map_unpaired_sam_stream(
+            m, [SeqRecord(n, s) for n, s in reads], batch_size=4)

@@ -251,9 +251,18 @@ def test_vec_cs_full_from_index_matches_jax(local):
         assert x.dtype == w.dtype and np.array_equal(x, w), name
     assert (got[0] > 100).sum() >= 64
     assert (got[1][:, 0] > 0).sum() >= 64
-    with pytest.raises(NotImplementedError, match="byte-gather"):
-        sw_cs.sw_vec_cs_full_from_index(*_t(*planes, args, rtab, qr, xov),
-                                        **kw)
+    # without the word planes both windows are gathered byte by byte, as
+    # the reference does where its word gather gives up (planes over
+    # ~1 Gbp): forced here by that gather answering None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sw_jax, "fast_window_gather", lambda *a, **k: None)
+        want = [np.asarray(x) for x in jax.jit(
+            ref_vec_cs_full.__wrapped__, static_argnames=tuple(kw))(
+                *planes, args, rtab, qr, xov, **kw)]
+    got = [x.numpy() for x in sw_cs.sw_vec_cs_full_from_index(
+        *_t(*planes, args, rtab, qr, xov), **kw)]
+    for name, w, x in zip(("vec", "packed", "steps_rev"), want, got):
+        assert x.dtype == w.dtype and np.array_equal(x, w), name
 
 
 def test_cs_wrappers_raise_off_cpu_without_kernel():
