@@ -127,6 +127,28 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    equals the run with the planes; the byte gather's device time at the
    fused runs' own launch shapes beside the word gather's and the wall.
    Prints peak device memory for (a)-(c).
+20. The generic mapper, the streams' slow tails and the CLI, each run
+   printing reads/s, the card's name and power limit and peak device
+   memory. (a) bench_all.py's `ecoli-ls-generic`: GENERIC_READS reads
+   of dataset.ecoli_unpaired_ls through Mapper.map_unpaired with
+   --extra-sam-fields; SAM of the first GENERIC_CPU_READS equal to the
+   CPU run's; the vector SW, the full SW with backpointers and the
+   traceback held against their plain versions on the path's own first
+   launches (`sw_vector_generic`, `sw_full_bp_generic`,
+   `ls_traceback_generic`). (b) The E. coli LS, CS, LS-pairs and
+   CS-pairs streams on TAIL_READS reads in TAIL_BATCH-read batches, one
+   read in five of every other batch trimmed to 28-35 bp, so that those
+   batches take the generic mapper's slow tail; SAM of the first
+   TAIL_CPU_READS equal to the CPU run's. (c) Off-gate configs on
+   OFFGATE_READS E. coli reads each, card against CPU: local (LS, CS),
+   gapless, two --unpaired-options rounds, --shrimp-format, CS FASTQ
+   (per-read crossovers from qualities: the 4-layer DP and the CS
+   traceback held against plain there, `sw_cs_full_generic`,
+   `cs_traceback_generic`); the full SW with backpointers held against
+   plain on the local run's first launch with the local retry's band.
+   (d) `python -m shrimp_tpu_torch index` and `map -S` / `map -L` as
+   subprocesses on FASTA and FASTQ files, LS and CS: SAM bodies
+   byte-identical to the in-process streams; wall times.
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -141,7 +163,8 @@ no result line is printed. The last lines are the whole run's seconds,
 the card's name and power limit, the kernels' JSON record (each
 kernel's launches on its slice, error, times and bound) and {"ok": true,
 "device": {...}}. `--phases 12,13` runs only the phases listed (the
-build always runs) and then prints no result.
+build always runs) and then prints no result; `--phases 20` runs the
+generic mapper's phase alone.
 """
 from __future__ import annotations
 
@@ -200,6 +223,19 @@ BIG_PLANE = 1 << 30
 UNPACKED_READS = 70_000
 BYTE_READS = 8192
 LS_VEC_ROWS = 3_145_728
+# phase 20: bench_all.py's ecoli-ls-generic size (min(N_READS, 20000)),
+# the slow-tail streams, the off-gate configs
+GENERIC_READS = 20_000
+GENERIC_CPU_READS = 512
+TAIL_READS = 8192
+TAIL_BATCH = 512
+TAIL_CPU_READS = 1024
+READ_LEN = 36            # letters (colours after the primer) a read
+OFFGATE_READS = 4096
+# two --unpaired-options rounds: a strict one that stops on a >= 92 %
+# hit, then a sensitive one (tests/test_option_sets.py)
+DSL_STRICT = "0;1/1,1,1/1,0,2,60.0/1,55.0,90.0,2,0,30/55.0,0,0,10/1,92.0"
+DSL_LOOSE = "0;1/1,1,1/1,0,1,40.0/1,35.0,90.0,1,0,40/35.0,0,0,20/0"
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and
 # int32 operations/s. The sheet's 67 TFLOP/s float32 counts an FMA as
@@ -341,20 +377,9 @@ def _first_call(m, reads, stream, module, fn, with_kw=False):
     (module: where the flow looks the wrapper up), and with `with_kw`
     its keyword arguments too."""
     from shrimp_tpu_torch.fastpath import auto_batch_size
-    wrapper = getattr(module, fn)
-    seen = []
-
-    def record(*args, **kw):
-        if not seen:
-            seen.append(([x.clone() for x in args
-                          if isinstance(x, torch.Tensor)], kw))
-        return wrapper(*args, **kw)
-    setattr(module, fn, record)
-    try:
-        _map(m, reads[:auto_batch_size(m)], stream)
-    finally:
-        setattr(module, fn, wrapper)
-    return seen[0] if with_kw else seen[0][0]
+    seen = _first_calls(m, reads[:auto_batch_size(m)], stream,
+                        {fn: (module, fn)})[fn]
+    return seen if with_kw else seen[0]
 
 
 def _first_launch(m, reads, stream, module, fn):
@@ -1518,6 +1543,15 @@ def _check_flow_launch(name, m, reads, stream, module, fn, kernel, plain,
     with its device time, the plain version's time and its bound there
     (`bound(args, out, cs)` -> ((B, R, G), bound))."""
     args, kw = _first_call(m, reads, stream, module, fn, with_kw=True)
+    return _check_captured(name, args, kw, kernel, plain, bound, cs,
+                           plain_reps)
+
+
+def _check_captured(name, args, kw, kernel, plain, bound, cs=False,
+                    plain_reps=3, what="the flow's first launch"):
+    """A kernel against its plain version on captured wrapper arguments
+    `args`, `kw`: bit-equal, with its device time, the plain version's
+    time and its bound there."""
     got = kernel(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
@@ -1526,13 +1560,13 @@ def _check_flow_launch(name, m, reads, stream, module, fn, kernel, plain,
     k_ms = _device_ms(lambda: kernel(*args, **kw), 10)
     p_ms = _time_ms(lambda: plain(*args, **kw), plain_reps)
     (B, R, G), b = bound(args, got, cs)
-    print(f"{name} on the flow's first launch (B, R, G) = ({B}, {R}, {G}): "
+    print(f"{name} on {what} (B, R, G) = ({B}, {R}, {G}): "
           f"max |kernel - plain| = {err}; kernel {k_ms!r} ms (device), "
           f"plain {p_ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; "
           f"all R x G cells {b['bound_all_ms']!r} ms)")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version on the flow's launch ({err})")
+                             f"version on {what} ({err})")
     del args, got, want
     torch.cuda.empty_cache()
     return dict(err=err, ms=k_ms, plain_ms=p_ms, shape=(B, R, G), **b)
@@ -2120,10 +2154,411 @@ def run_byte_streams(dev):
     print(f"phase 19 (c) peak device memory {_peak_gib(dev)}")
 
 
+# ------------------------------------------------------------ phase 20
+
+def _generic_stream(render=None, batch_size=8192):
+    """An entry point (m, reads) -> SAM bytes per batch through the
+    generic mapper, `Mapper.map_unpaired`, rendered with the reference's
+    SAM renderer (or `render(read, hit, index, config)`)."""
+    from shrimp_tpu_torch.io.sam import render_unpaired
+
+    def stream(m, reads):
+        fq = any(r.qual is not None for r in reads)
+        for off in range(0, len(reads), batch_size):
+            lines = [render(e, h, m.index, m.config) if render else
+                     render_unpaired(e, h, m.index, m.config, fastq=fq)
+                     for e, hs in m.map_unpaired(reads[off:off + batch_size])
+                     for h in hs]
+            yield ("\n".join(lines) + "\n").encode() if lines else b""
+    return stream
+
+
+def _first_calls(m, reads, stream, targets) -> dict:
+    """{name: (tensor arguments (copies), keyword arguments)} of the
+    first call one run of `stream` on `reads` makes to each kernel
+    wrapper `module.<fn>` of `targets` ({name: (module, fn)})."""
+    seen, orig = {}, {}
+    for name, (mod, fn) in targets.items():
+        orig[name] = getattr(mod, fn)
+
+        def record(*args, _w=orig[name], _name=name, **kw):
+            if _name not in seen:
+                seen[_name] = ([x.clone() for x in args
+                                if isinstance(x, torch.Tensor)], kw)
+            return _w(*args, **kw)
+        setattr(mod, fn, record)
+    try:
+        _map(m, reads, stream)
+    finally:
+        for name, (mod, fn) in targets.items():
+            setattr(mod, fn, orig[name])
+    return seen
+
+
+def _bp_launch_bound(args, out, cs):
+    """The full SW with backpointers: every row of the launch, in-band
+    cells, windows, reads and 7 int32 in, 4 int32 and the backpointer
+    byte of every cell out."""
+    (B, G), R = args[0].shape, args[2].shape[1]
+    a = _band_geometry(args)
+    return (B, R, G), _bound(
+        _bp_bytes(B, R, G),
+        OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
+        OPS["sw_full_bp"] * B * R * G)
+
+
+def _tb_launch_bound(args, out, cs):
+    (B, G), R = args[0].shape, args[1].shape[1]
+    return (B, R, G), _tb_bound(out[0][:, 3], B, R, G)
+
+
+def _run_line(title, dev, n_reads, secs, smi, extra=""):
+    print(f"{title} on {dev}: {n_reads} reads in {secs!r} s = "
+          f"{n_reads / secs!r} reads/s; {smi}; peak device memory "
+          f"{_peak_gib(dev)}{extra}")
+
+
+def _cpu_check(title, mapper, reads, stream, sam_gpu):
+    """The CPU run (plain versions) of `reads` must write `sam_gpu`."""
+    sam_cpu, secs = _map(mapper("cpu"), reads, stream)
+    print(f"{title} on cpu (plain versions), {len(reads)} reads: {secs!r} "
+          f"s; SAM identical to the CUDA run's: {sam_cpu == sam_gpu}")
+    if sam_cpu != sam_gpu:
+        raise AssertionError(f"{title}: CUDA and CPU SAM bytes differ")
+
+
+def run_generic(dev, counters, smi):
+    """Phase 20 (a): bench_all.py's ecoli-ls-generic workload through
+    Mapper.map_unpaired. Returns the launches and the kernel records on
+    the path's own first launches."""
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw_full, sw_vector
+    from shrimp_tpu_torch.mapper import Mapper
+    idx, reads = _dataset("ecoli_unpaired_ls", GENERIC_READS)
+    cfg = MapperConfig(extra_sam_fields=True)
+
+    def mapper(device):
+        return Mapper(idx, cfg, device)
+    stream = _generic_stream()
+    _map(mapper(dev), reads[:256], stream)      # warm-up
+    m = mapper(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    sam, secs = _map(m, reads, stream)
+    launches = {k: c.n for k, c in counters.items()}
+    _run_line("20 (a) ecoli-ls-generic", dev, len(reads), secs, smi,
+              f"; launches {launches}; windows {m.stats.vec_invocs}, "
+              f"full SW {m.stats.full_invocs}")
+    print("20 (a) stage seconds: " + ", ".join(
+        f"{k} {v!r}" for k, v in m.stats.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched by the generic path")
+    lines = sam.split(b"\n")[:-1]
+    if (m.stats.reads != len(reads) or len(lines) < 0.9 * len(reads)
+            or any(len(ln.split(b"\t")) < 11 for ln in lines)):
+        raise AssertionError("20 (a): reads lost or malformed SAM")
+    first = reads[:GENERIC_CPU_READS]
+    sam_gpu, _ = _map(mapper(dev), first, stream)
+    if not sam.startswith(sam_gpu):
+        raise AssertionError("20 (a): the first reads' SAM is not a prefix "
+                             "of the full run's")
+    _cpu_check("20 (a) ecoli-ls-generic", mapper, first, stream, sam_gpu)
+    calls = _first_calls(mapper(dev), reads[:B_CHUNK], stream, {
+        "sw_vector_generic": (sw_vector, "sw_vector_batch"),
+        "sw_full_bp_generic": (sw_full, "sw_full_bp"),
+        "ls_traceback_generic": (sw_full, "traceback_pack")})
+    rec = {}
+    for name, kernel, plain, bound in (
+            ("sw_vector_generic", sw_vector.sw_vector_batch,
+             sw_vector.sw_vector_batch_ref, _vec_launch_bound),
+            ("sw_full_bp_generic", sw_full.sw_full_bp,
+             sw_full.sw_full_bp_ref, _bp_launch_bound),
+            ("ls_traceback_generic", sw_full.traceback_pack,
+             sw_full.traceback_pack_ref, _tb_launch_bound)):
+        rec[name] = _check_captured(name, *calls[name], kernel, plain,
+                                    bound, what="the generic path's first "
+                                    "launch")
+    del calls
+    names = {"sw_vector_generic": "sw_vector",
+             "sw_full_bp_generic": "sw_full_bp",
+             "ls_traceback_generic": "ls_traceback"}
+    return {k: launches[v] for k, v in names.items()}, rec
+
+
+def _trim_every_other_batch(reads, batch):
+    """One read in five of every odd batch cut to 28-35 bases (colours:
+    after the primer), so those batches hold mixed read lengths."""
+    rng = np.random.default_rng(28)
+    out = list(reads)
+    for k in range(len(out)):
+        if (k // batch) % 2 and k % 5 == 0:
+            r = out[k]
+            keep = int(rng.integers(28, 36)) + (len(r.seq) - READ_LEN)
+            out[k] = type(r)(r.name, r.seq[:keep],
+                             None if r.qual is None else r.qual[:keep])
+    return out
+
+
+def run_slow_tails(dev, smi):
+    """Phase 20 (b): the four E. coli streams with batches the flat
+    encoder rejects mid-stream: those take the generic mapper."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch import fastpath, fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.paired import PairedMapper
+    cs = C.MODE_COLOUR_SPACE
+    for title, ds, cfg, stream in (
+            ("LS", "ecoli_unpaired_ls", MapperConfig(),
+             fastpath.map_unpaired_sam_stream),
+            ("CS", "ecoli_unpaired_cs", MapperConfig(mode=cs),
+             fastpath_cs.map_unpaired_cs_sam_stream),
+            ("LS pairs", "ecoli_paired_ls", MapperConfig(pair_mode="opp-in"),
+             fastpath.map_paired_sam_stream),
+            ("CS pairs", "ecoli_paired_cs",
+             MapperConfig(mode=cs, pair_mode="opp-in"),
+             fastpath_cs.map_paired_cs_sam_stream)):
+        idx, reads = _dataset(ds, TAIL_READS)
+        reads = _trim_every_other_batch(reads, TAIL_BATCH)
+        cls = Mapper if cfg.pair_mode == C.PAIR_NONE else PairedMapper
+        generic = "map_unpaired" if cls is Mapper else "map_paired"
+
+        def mapper(device, _cls=cls, _idx=idx, _cfg=cfg):
+            return _cls(_idx, _cfg, device)
+        tails = [0]
+
+        def counted(device, _mapper=mapper, _generic=generic):
+            m = _mapper(device)
+            orig = getattr(m, _generic)
+
+            def run(batch):
+                tails[0] += 1
+                return orig(batch)
+            setattr(m, _generic, run)
+            return m
+        s = _with_batch(stream, TAIL_BATCH)
+        _map(mapper(dev), reads[:2 * TAIL_BATCH], s)      # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        tails[0] = 0
+        sam, secs = _map(counted(dev), reads, s)
+        n_tail = tails[0]
+        _run_line(f"20 (b) {title} stream with slow tails", dev, len(reads),
+                  secs, smi, f"; slow-tail batches {n_tail} of "
+                  f"{-(-len(reads) // TAIL_BATCH)}")
+        if n_tail != len(reads) // TAIL_BATCH // 2:
+            raise AssertionError(f"20 (b) {title}: {n_tail} slow-tail "
+                                 "batches")
+        first = reads[:TAIL_CPU_READS]
+        sam_gpu, _ = _map(mapper(dev), first, s)
+        if not sam.startswith(sam_gpu) or not sam_gpu:
+            raise AssertionError(f"20 (b) {title}: the first reads' SAM is "
+                                 "not a prefix of the full run's")
+        _cpu_check(f"20 (b) {title} stream with slow tails", mapper, first,
+                   s, sam_gpu)
+
+
+def _with_cs_quals(reads, seed=3):
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    rng = np.random.default_rng(seed)
+    return [SeqRecord(r.name, r.seq, "".join(
+        chr(33 + int(q)) for q in rng.integers(3, 41, len(r.seq) - 1)))
+        for r in reads]
+
+
+def _retry_band(args):
+    """The local retry's band (mapper._pass2_local_retry) for the rows
+    of a full-SW launch: the threshold-derived rectangle
+    (sw-full-ls.c:395-398) at the default 50 % threshold."""
+    from shrimp_tpu_torch.core.sw_np import _join2_rect
+    genome, glen, read, rlen = args[:4]
+    match = KW["match"]
+    rect = np.array([_join2_rect(
+        (0, y0, 1, 1), (int(g) - 1, int(r) - 1 - y0, 1, 1))
+        for g, r in zip(glen.tolist(), rlen.tolist())
+        for y0 in [(r * match - (r * match) // 2) // match]], np.int32)
+    out = list(args)
+    for c in range(4):
+        out[4 + c] = torch.from_numpy(rect[:, c].copy()).to(genome.device)
+    return out
+
+
+def run_offgate(dev, counters, smi):
+    """Phase 20 (c): the configs outside the streams' gates, card
+    against CPU. Returns the launches and records of the CS kernels on
+    the crossover-from-qualities run."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw_cs, sw_cs_full, sw_full
+    from shrimp_tpu_torch.io import shrimp_format
+    from shrimp_tpu_torch.mapper import Mapper
+    cs = C.MODE_COLOUR_SPACE
+    ls_idx, ls_reads = _dataset("ecoli_unpaired_ls", OFFGATE_READS)
+    cs_idx, cs_reads = _dataset("ecoli_unpaired_cs", OFFGATE_READS)
+    cs_fq = _with_cs_quals(cs_reads)
+    retries = [0]
+    orig_retry = Mapper._pass2_local_retry
+
+    def retry(self, entries, jobs, job_thresh, rows):
+        retries[0] += len(rows)
+        return orig_retry(self, entries, jobs, job_thresh, rows)
+    Mapper._pass2_local_retry = retry
+    launches, rec = {}, {}
+    try:
+        for title, idx, reads, kw, render in (
+                ("LS local", ls_idx, ls_reads,
+                 dict(global_alignment=False), None),
+                ("CS local", cs_idx, cs_reads,
+                 dict(mode=cs, global_alignment=False), None),
+                ("LS gapless", ls_idx, ls_reads,
+                 dict(gapless=True, global_alignment=False), None),
+                ("LS two option sets", ls_idx, ls_reads,
+                 dict(custom_unpaired_options=(DSL_STRICT, DSL_LOOSE)),
+                 None),
+                ("LS --shrimp-format", ls_idx, ls_reads,
+                 dict(shrimp_format=True),
+                 lambda e, h, i, c: shrimp_format.output_normal(e, h, i)),
+                ("CS FASTQ", cs_idx, cs_fq, dict(mode=cs), None)):
+            cfg = MapperConfig(**kw)
+
+            def mapper(device, _idx=idx, _cfg=cfg):
+                return Mapper(_idx, _cfg, device)
+            stream = _generic_stream(render)
+            _map(mapper(dev), reads[:256], stream)      # warm-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            for c in counters.values():
+                c.reset()
+            retries[0] = 0
+            sam, secs = _map(mapper(dev), reads, stream)
+            n = {k: c.n for k, c in counters.items()}
+            n_rec = sam.count(b"\n")
+            _run_line(f"20 (c) {title}", dev, len(reads), secs, smi,
+                      f"; launches {n}; local retry rows {retries[0]}; "
+                      f"{n_rec} records")
+            if n_rec < 0.8 * len(reads):
+                raise AssertionError(f"20 (c) {title}: mostly unmapped")
+            _cpu_check(f"20 (c) {title}", mapper, reads, stream, sam)
+            if title == "CS FASTQ":
+                launches = {"sw_cs_full_generic": n["sw_cs_full"],
+                            "cs_traceback_generic": n["cs_traceback"]}
+                calls = _first_calls(mapper(dev), reads, stream, {
+                    "sw_cs_full_generic": (sw_cs, "sw_full_cs_dp"),
+                    "cs_traceback_generic": (sw_cs, "cs_traceback")})
+                for name, kernel, plain, bound in (
+                        ("sw_cs_full_generic", sw_cs_full.sw_full_cs_dp,
+                         sw_cs_full.sw_full_cs_dp_ref, _cs_dp_launch_bound),
+                        ("cs_traceback_generic", sw_cs_full.cs_traceback,
+                         sw_cs_full.cs_traceback_ref, _cs_tb_launch_bound)):
+                    rec[name] = _check_captured(
+                        name, *calls[name], kernel, plain, bound, cs=True,
+                        plain_reps=1, what="the crossover-from-qualities "
+                        "launch")
+                del calls
+            if title == "LS local":
+                args, kw = _first_calls(mapper(dev), reads, stream, {
+                    "bp": (sw_full, "sw_full_bp")})["bp"]
+                _check_captured("sw_full_bp (local retry band)",
+                                _retry_band(args), kw, sw_full.sw_full_bp,
+                                sw_full.sw_full_bp_ref, _bp_launch_bound,
+                                what="the local run's first launch with "
+                                "the retry's band")
+    finally:
+        Mapper._pass2_local_retry = orig_retry
+    return launches, rec
+
+
+def _write_fasta(path, records, fastq=False):
+    with open(path, "w") as f:
+        for r in records:
+            if fastq:
+                f.write(f"@{r.name}\n{r.seq}\n+\n{r.qual}\n")
+            else:
+                f.write(f">{r.name}\n{r.seq}\n")
+
+
+def run_cli(dev, smi):
+    """Phase 20 (d): `python -m shrimp_tpu_torch` as subprocesses on
+    files in a temporary directory, against the in-process streams."""
+    import tempfile
+    from shrimp_tpu_torch import fastpath, fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core.encode import decode_ls
+    from shrimp_tpu_torch.index.build import GenomeIndex
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    from shrimp_tpu_torch.mapper import Mapper
+    ls_idx, ls_reads = _dataset("ecoli_unpaired_ls", B_CHUNK)
+    _, cs_reads = _dataset("ecoli_unpaired_cs", B_CHUNK)
+    rng = np.random.default_rng(5)
+    ls_fq = [SeqRecord(r.name, r.seq, "".join(
+        chr(64 + int(q)) for q in rng.integers(5, 41, len(r.seq))))
+        for r in ls_reads]
+    cs_fq = _with_cs_quals(cs_reads)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    # `map` runs on the card by default
+    dv = () if torch.device(dev).type == "cuda" else ("--device", "cpu")
+
+    def cli(tmp, *args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "shrimp_tpu_torch",
+                              *args], capture_output=True, text=True,
+                             cwd=tmp, env=env, timeout=600)
+        secs = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"20 (d) {' '.join(args)}: exit "
+                                 f"{res.returncode}\n{res.stderr[-3000:]}")
+        return res.stdout, secs
+
+    def body(text):
+        return "".join(ln + "\n" for ln in text.splitlines()
+                       if not ln.startswith("@"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g = decode_ls(ls_idx.codes)
+        with open(os.path.join(tmp, "genome.fa"), "w") as f:
+            f.write(">" + ls_idx.contig_names[0] + "\n")
+            for i in range(0, len(g), 70):
+                f.write(g[i:i + 70] + "\n")
+        _write_fasta(os.path.join(tmp, "ls.fa"), ls_reads)
+        _write_fasta(os.path.join(tmp, "ls.fq"), ls_fq, fastq=True)
+        _write_fasta(os.path.join(tmp, "cs.fq"), cs_fq, fastq=True)
+        runs = []
+        _, secs = cli(tmp, "map", *dv, "-S", "ecoli", "genome.fa")
+        runs.append(("map -S ecoli genome.fa", secs))
+        # the in-process streams map with the indexes the CLI saved
+        saved = GenomeIndex.load_split(os.path.join(tmp, "ecoli.genome"))
+        for name, recs, cfg, stream in (
+                ("ls.fa", ls_reads, MapperConfig(),
+                 fastpath.map_unpaired_sam_stream),
+                ("ls.fq", ls_fq, MapperConfig(),
+                 fastpath.map_unpaired_sam_stream)):
+            out, secs = cli(tmp, "map", *dv, "-L", "ecoli", name)
+            runs.append((f"map -L ecoli {name}", secs))
+            want = b"".join(stream(Mapper(saved, cfg, dev), recs)).decode()
+            if body(out) != want or not want:
+                raise AssertionError(f"20 (d) map -L ecoli {name}: SAM "
+                                     "body differs from the stream's")
+        _, secs = cli(tmp, "index", "--cs", "-o", "ecoli_cs.npz",
+                      "genome.fa")
+        runs.append(("index --cs -o ecoli_cs.npz genome.fa", secs))
+        out, secs = cli(tmp, "map", *dv, "--cs", "cs.fq", "ecoli_cs.npz")
+        runs.append(("map --cs cs.fq ecoli_cs.npz", secs))
+        saved = GenomeIndex.load(os.path.join(tmp, "ecoli_cs.npz"))
+        want = b"".join(fastpath_cs.map_unpaired_cs_sam_stream(
+            Mapper(saved, MapperConfig(mode="cs"), dev), cs_fq)).decode()
+        if body(out) != want or not want:
+            raise AssertionError("20 (d) map --cs cs.fq: SAM body differs "
+                                 "from the stream's")
+    print(f"20 (d) CLI on {dev} ({smi}), {B_CHUNK} reads a map, SAM bodies "
+          "identical to the in-process streams: " + "; ".join(
+              f"{a} {s!r} s" for a, s in runs))
+
+
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 20))
+        return set(range(1, 21))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -2208,8 +2643,27 @@ def main() -> None:
         check_byte_steps(dev)
         run_unpacked(dev)
         run_byte_streams(dev)
+    if 20 in phases:
+        t20 = time.perf_counter()
+        ln, r = run_generic(dev, {"sw_vector": sw_vector.LAUNCHES,
+                                  "sw_full_bp": sw_full.BP_LAUNCHES,
+                                  "ls_traceback": sw_full.TB_LAUNCHES}, smi)
+        launches.update(ln)
+        rec.update(r)
+        run_slow_tails(dev, smi)
+        ln, r = run_offgate(dev, {
+            "sw_vector": sw_vector.LAUNCHES,
+            "sw_vector_cs": sw_vector.CS_LAUNCHES,
+            "sw_full_bp": sw_full.BP_LAUNCHES,
+            "ls_traceback": sw_full.TB_LAUNCHES,
+            "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+            "cs_traceback": sw_cs_full.TB_LAUNCHES}, smi)
+        launches.update(ln)
+        rec.update(r)
+        run_cli(dev, smi)
+        print(f"phase 20: {time.perf_counter() - t20!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 20)):
+    if phases != set(range(1, 21)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -2248,6 +2702,16 @@ def main() -> None:
             ("sw_cs_full_paired_hg", "sw_cs_full.cu",
              "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
             ("cs_traceback_paired_hg", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_generic", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp_generic", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback_generic", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("sw_cs_full_generic", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_generic", "cs_traceback.cu",
              "shrimp_tpu/core/sw_cs_jax.py:261"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "

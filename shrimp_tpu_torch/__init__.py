@@ -20,7 +20,16 @@ at 8 or more candidate windows a read):
 - colour-space pairs (`fastpath_cs.map_paired_cs_sam_stream`, the same);
 - in all four, the flows the packed IO cannot take: the byte gather for
   genome planes over ~1 Gbp (no word plane) and the unpacked IO for
-  batches of more than 2^16 read rows.
+  batches of more than 2^16 read rows;
+- the generic mapper (`mapper.Mapper.map_unpaired`,
+  `paired.PairedMapper.map_paired`) for the configs outside the streams'
+  gates (local, gapless, option sets, SHRiMP format, raw-string trims)
+  and for the batches the streams' flat encoder rejects (their slow
+  tail);
+- the command line, `python -m shrimp_tpu_torch {index,map}`
+  (`--device cpu` for the plain versions), with the reference's index
+  files.
 
-Not yet: the generic mapper and the CLI, and the multi-GPU tiers.
+Not yet: the multi-GPU tiers, the host tools and the CLI's other
+subcommands.
 """

@@ -1,0 +1,6 @@
+"""`python -m shrimp_tpu_torch {index,map} ...` (see cli.py)."""
+import sys
+
+from .cli import main
+
+sys.exit(main())

@@ -3,7 +3,8 @@
 Port of the device half of `shrimp_tpu/core/sw_cs_jax.py`:
 `sw_full_cs_tpu_pallas` (the 4-layer DP followed by the traceback) and
 the three phases of `sw_vec_cs_full_from_index` (fused; vec and full,
-of the two-phase dispatch). Per chunk, [B, 12] int32
+of the two-phase dispatch), and the generic mapper's chunk launch and
+fetch (`sw_full_cs_dispatch` / `sw_full_cs_finish`). Per chunk, [B, 12] int32
 argument rows go up; colour and letter windows are gathered from the
 two device-resident cat-word planes; the CS vector SW scores every
 window and the 4-layer DP plus traceback align it; [B] int32 vector
@@ -16,22 +17,15 @@ tensors, plain versions for CPU tensors.
 """
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .. import constants as C
 from .sw import _check_phase, fast_window_gather, window_gather_bytes
+from .sw_cs_batch import CSBatchResult, cs_layers_batch
 from .sw_cs_full import cs_traceback, sw_full_cs_dp
-from .sw_vector import sw_vector_batch
-
-
-@lru_cache(maxsize=None)
-def _colour_lut(dev: torch.device) -> torch.Tensor:
-    """lstocs as a flat [256] uint8 table on `dev` (COLOUR_MAT[a, b] at
-    a * 16 + b)."""
-    return torch.from_numpy(C.COLOUR_MAT.reshape(-1).copy()).to(dev)
+from .sw_vector import _colour_lut, sw_vector_batch
 
 
 def sw_full_cs(genome_ls: torch.Tensor, glen: torch.Tensor,
@@ -127,3 +121,65 @@ def sw_vec_cs_full_from_index(cs_codes: torch.Tensor,
     if phase == "full":
         return packed, steps_rev
     return vec, packed, steps_rev
+
+
+def sw_full_cs_dispatch(genome_ls, glen, colours, rlen, initbp, ax, ay, alen,
+                        awid, revcmpl, xover_rows, thresh, *, device,
+                        match: int, mismatch: int, a_gap_open: int,
+                        a_gap_ext: int, b_gap_open: int, b_gap_ext: int,
+                        local_alignment: bool = False,
+                        indel_taboo_len: int = 0):
+    """Launch one chunk of the generic mapper's colour-space full SW on
+    `device` and return its state for sw_full_cs_finish: twin of
+    `shrimp_tpu/core/sw_cs_jax.py::sw_full_cs_dispatch`. Host numpy
+    inputs: letter windows [B, G], colour reads [B, R], per-pair lengths,
+    initbp, anchor rectangles, revcmpl, crossover rows [B, R + 1] (the
+    last column is the row -1 crossover, `gx_col`) and thresholds. The
+    read layers are built on the host (cs_layers_batch) and uploaded
+    with the rest; (packed [B, 12] int16, steps_rev [B, R + G] int8) stay
+    on the device."""
+    R = colours.shape[1]
+    qr = cs_layers_batch(np.asarray(colours, np.uint8),
+                         np.asarray(initbp, np.int64))
+    xo = np.asarray(xover_rows)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    i32 = np.int32
+    packed, steps_rev = sw_full_cs(
+        up(genome_ls, np.uint8), up(glen, i32), up(qr, np.uint8),
+        up(rlen, i32), up(ax, i32), up(ay, i32), up(alen, i32),
+        up(awid, i32), up(np.asarray(revcmpl, bool), i32),
+        up(xo[:, :R], i32), up(xo[:, -1], i32), up(thresh, i32),
+        match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+        a_gap_ext=a_gap_ext, b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
+        local_alignment=bool(local_alignment),
+        indel_taboo_len=int(indel_taboo_len))
+    return packed, steps_rev, qr
+
+
+def sw_full_cs_finish(state, fetched=None) -> CSBatchResult:
+    """Unpack one dispatched chunk into a CSBatchResult (walk-order
+    steps, counts): twin of `shrimp_tpu/core/sw_cs_jax.py::
+    sw_full_cs_finish`. `fetched` carries the chunk's (packed,
+    steps_rev) already copied to the host (one copy for every chunk);
+    without it they are copied here."""
+    packed_d, steps_d, qr = state
+    if fetched is not None:
+        packed, steps_rev = fetched
+    else:
+        packed, steps_rev = packed_d.cpu().numpy(), steps_d.cpu().numpy()
+    B = packed.shape[0]
+    (score, _bi, _bj, _bk, nops, rs, gs, m_, mm_, ins, dele, xo
+     ) = [packed[:, c].astype(np.int64) for c in range(12)]
+    maxsteps = steps_rev.shape[1]
+    bidx = np.arange(B)[:, None]
+    idxm = np.arange(maxsteps)[None, :]
+    src = np.clip(nops[:, None] - 1 - idxm, 0, maxsteps - 1)
+    steps = np.where(idxm < nops[:, None], steps_rev[bidx, src], 0
+                     ).astype(np.int16)
+    return CSBatchResult(
+        score=score, steps=steps, n_steps=nops, read_start=rs,
+        genome_start=gs, rmapped=nops - ins, gmapped=nops - dele,
+        matches=m_, mismatches=mm_, insertions=ins, deletions=dele,
+        crossovers=xo, qr=qr)

@@ -22,6 +22,10 @@ cells are reset to the mode's init values on every row.
   int32 (score, max_i, max_j, nops, rs, gs, matches, mismatches, ins,
   dels) and the 2-bit walk-order ops, 4 per byte, [B, (R+G+3)//4].
 
+- `sw_full_and_traceback`: the two above in a row, the twin of
+  `shrimp_tpu/core/sw_jax.py::sw_full_and_traceback` that the generic
+  mapper calls; the backpointers never leave the device.
+
 Each wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
 """
@@ -456,3 +460,23 @@ def traceback_pack(genome: torch.Tensor, read: torch.Tensor,
         return traceback_pack_ref(genome, read, score, max_i, max_j, plane,
                                   bp)
     return _launch_tb(genome, read, score, max_i, max_j, plane, bp)
+
+
+def sw_full_and_traceback(genome: torch.Tensor, glen: torch.Tensor,
+                          read: torch.Tensor, rlen: torch.Tensor,
+                          ax: torch.Tensor, ay: torch.Tensor,
+                          alen: torch.Tensor, awid: torch.Tensor,
+                          revcmpl: torch.Tensor, *, match: int,
+                          mismatch: int, a_gap_open: int, a_gap_ext: int,
+                          b_gap_open: int, b_gap_ext: int,
+                          local_alignment: bool = False):
+    """The full SW with backpointers, then the traceback from each pair's
+    best cell (do_backtrace, sw-full-ls.c:413-516): (packed [B, 10]
+    int32, ops [B, (R+G+3)//4] uint8), as `sw_jax.sw_full_and_traceback`
+    returns them. Arguments and devices as `sw_full_bp`."""
+    score, max_i, max_j, plane, bp = sw_full_bp(
+        genome, glen, read, rlen, ax, ay, alen, awid, revcmpl, match=match,
+        mismatch=mismatch, a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
+        b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
+        local_alignment=local_alignment)
+    return traceback_pack(genome, read, score, max_i, max_j, plane, bp)

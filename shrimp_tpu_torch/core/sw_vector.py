@@ -10,15 +10,19 @@ read row 0 is scored against `g_row0` = COLOUR_MAT[genome letter,
 initbp] and every other row against the colour window.
 
 `sw_vector_batch` takes the plain version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. `sw_vector_ls_from_index`
+and `sw_vector_cs_from_index` (the generic mapper's launches) gather
+their windows from the mapper's device-resident genome planes first.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
 from .. import _build
+from .. import constants as C
 from ._args import MAX_G_LONG, check_cuda_shape, check_tensor
 
 NEG = -(2 ** 30)
@@ -135,3 +139,66 @@ def sw_vector_batch(genome: torch.Tensor, glen: torch.Tensor,
         return sw_vector_batch_ref(genome, glen, read, rlen, g_row0,
                                    cs_mode=cs_mode, **kw)
     return _launch(genome, glen, read, rlen, _row0(g_row0, cs_mode), **kw)
+
+
+@lru_cache(maxsize=None)
+def _colour_lut(dev: torch.device) -> torch.Tensor:
+    """lstocs as a flat [256] uint8 table on `dev` (COLOUR_MAT[a, b] at
+    a * 16 + b)."""
+    return torch.from_numpy(C.COLOUR_MAT.reshape(-1).copy()).to(dev)
+
+
+def _plane_positions(gstart: torch.Tensor, G: int, n: int) -> torch.Tensor:
+    """[B, G] positions gstart + j, clipped to a plane of n bytes (windows
+    past the genome end clip to its last byte; glen masks them)."""
+    j = torch.arange(G, dtype=torch.int64, device=gstart.device)
+    return (gstart.to(torch.int64)[:, None] + j[None, :]).clamp(0, n - 1)
+
+
+def sw_vector_ls_from_index(codes: torch.Tensor, gstart: torch.Tensor,
+                            glen: torch.Tensor, rtab: torch.Tensor,
+                            owner: torch.Tensor, rlen: torch.Tensor, *,
+                            G: int, match: int, mismatch: int,
+                            a_gap_open: int, a_gap_ext: int,
+                            b_gap_open: int,
+                            b_gap_ext: int) -> torch.Tensor:
+    """Letter-space vector SW against the device-resident genome plane:
+    twin of `shrimp_tpu/core/sw_pallas.py::sw_vector_ls_from_index`.
+    `codes` is the padded forward plane, `gstart` [B] the absolute window
+    starts, `rtab` [n, R] uint8 the batch's read rows and `owner` [B] each
+    window's row in it (clipped to the table). Returns [B] int32."""
+    gwin = codes[_plane_positions(gstart, G, codes.shape[0])]
+    rwin = rtab[owner.to(torch.int64).clamp(0, rtab.shape[0] - 1)]
+    return sw_vector_batch(gwin, glen, rwin, rlen, match=match,
+                           mismatch=mismatch, a_gap_open=a_gap_open,
+                           a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+                           b_gap_ext=b_gap_ext)
+
+
+def sw_vector_cs_from_index(cs_codes: torch.Tensor, cs_codes_rc: torch.Tensor,
+                            ls_codes: torch.Tensor, ls_codes_rc: torch.Tensor,
+                            gstart: torch.Tensor, glen: torch.Tensor,
+                            eff_rc: torch.Tensor, rtab: torch.Tensor,
+                            owner: torch.Tensor, rlen: torch.Tensor,
+                            initbp: torch.Tensor, *, G: int, match: int,
+                            mismatch: int, a_gap_open: int, a_gap_ext: int,
+                            b_gap_open: int,
+                            b_gap_ext: int) -> torch.Tensor:
+    """Colour-space vector SW against the device-resident planes: twin of
+    `shrimp_tpu/core/sw_pallas.py::sw_vector_cs_from_index`. `gstart` is
+    strand-normalized on the host (reverse_hit, mapping.c:254-263);
+    `eff_rc` picks the rc planes; the colour window is scored against the
+    colour read, row 0 against g_row0 = COLOUR_MAT[genome letter,
+    initbp] (sw-vector.c:108-146). Returns [B] int32."""
+    pos = _plane_positions(gstart, G, cs_codes.shape[0])
+    rc = (eff_rc != 0)[:, None]
+    gwin = torch.where(rc, cs_codes_rc[pos], cs_codes[pos])
+    lswin = torch.where(rc, ls_codes_rc[pos], ls_codes[pos])
+    g_row0 = _colour_lut(lswin.device)[
+        (lswin.to(torch.int32) * 16
+         + initbp.to(torch.int32)[:, None]).clamp(0, 255)]
+    rwin = rtab[owner.to(torch.int64).clamp(0, rtab.shape[0] - 1)]
+    return sw_vector_batch(gwin, glen, rwin, rlen, g_row0, cs_mode=True,
+                           match=match, mismatch=mismatch,
+                           a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
+                           b_gap_open=b_gap_open, b_gap_ext=b_gap_ext)

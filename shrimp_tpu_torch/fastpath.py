@@ -32,8 +32,11 @@ or, where it has none (planes over ~1 Gbp), byte by byte. An index of
 NotImplementedError. The host stages run through the port's own native
 library (`native/`, a copy of the reference's C++), so the SAM bytes are
 the reference's. Not ported here: read sharding and the sharded-index
-MQV hooks. A batch the flat encoder rejects raises NotImplementedError:
-there is no generic mapper behind this path.
+MQV hooks. As in the reference, a stream whose first batch the flat
+encoder rejects returns None and the caller runs the generic mapper
+(`mapper.Mapper.map_unpaired`, `paired.PairedMapper.map_paired`); a
+later rejected batch goes through the generic mapper inside the stream
+(its slow tail), with the same bytes.
 """
 from __future__ import annotations
 
@@ -507,9 +510,10 @@ class FastLS:
     def __init__(self, mapper) -> None:
         self.lib = get_lib()
         self.m = mapper
-        # filter1 internal fan-out; multi-lane streams set 1 (the lanes
-        # already keep every core busy, inner threads just contend)
-        self.f1_threads: Optional[int] = None
+        # filter1 internal fan-out (the mapper's, None: every core);
+        # multi-lane streams set 1 (the lanes already keep every core
+        # busy, inner threads just contend)
+        self.f1_threads: Optional[int] = mapper.f1_threads
         idx = mapper.index
         blob = b""
         offs = [0]
@@ -953,8 +957,10 @@ def map_unpaired_sam_stream(mapper, records: Sequence[SeqRecord],
                             ) -> Optional[Iterator[bytes]]:
     """Pipelined LS unpaired mapping straight to SAM bytes, batch by
     batch in input order; None when the config needs a feature outside
-    the fast path. A batch the flat encoder rejects (mixed read lengths,
-    non-ACGTN bases, mixed qualities) raises NotImplementedError.
+    the fast path or the first batch is one the flat encoder rejects
+    (mixed read lengths, non-ACGTN bases, mixed qualities): the caller
+    maps those with `mapper.map_unpaired`. A later rejected batch takes
+    the slow tail (`unpaired_slow_tail`).
 
     `lanes` > 1 (default 16) runs that many whole-batch pipelines on
     worker threads, output re-ordered to input order; results are
@@ -962,40 +968,77 @@ def map_unpaired_sam_stream(mapper, records: Sequence[SeqRecord],
     if not _config_supported(mapper.config):
         return None
     fast = FastLS(mapper)
+    batch_size = batch_size or auto_batch_size(mapper)
     return batch_pipeline(
-        fast, fast.stage_prepare, fast.stage_finish, records,
-        batch_size or auto_batch_size(mapper), lanes,
-        "mixed read lengths, non-ACGTN bases or mixed qualities")
+        fast, fast.stage_prepare, fast.stage_finish, records, batch_size,
+        lanes, unpaired_slow_tail(mapper, records, batch_size))
+
+
+def unpaired_slow_tail(mapper, records: Sequence[SeqRecord],
+                       batch_size: int):
+    """slow_tail(off) -> the SAM bytes of the batch at `off` through the
+    generic mapper (`Mapper.map_unpaired`), as the reference's streams
+    write them (hits only)."""
+    from .io.sam import render_unpaired
+
+    def slow_tail(off: int) -> bytes:
+        batch = list(records[off:off + batch_size])
+        fq = any(r.qual is not None for r in batch)
+        lines = []
+        for re_, hits in mapper.map_unpaired(batch):
+            for h in hits:
+                lines.append(render_unpaired(re_, h, mapper.index,
+                                             mapper.config, fastq=fq))
+        return ("\n".join(lines) + "\n").encode() if lines else b""
+    return slow_tail
+
+
+def paired_slow_tail(mapper, records: Sequence[SeqRecord], batch_size: int):
+    """slow_tail(off) -> the SAM bytes of the pairs at `off` through the
+    generic paired mapper (`PairedMapper.map_paired`, `select_output`)."""
+    from .io.sam import render_pair_entry
+
+    def slow_tail(off: int) -> bytes:
+        batch = records[off:off + batch_size]
+        fq = any(r.qual is not None for r in batch)
+        lines = []
+        for pe in mapper.map_paired(batch):
+            p_out, u_out = mapper.select_output(pe)
+            lines.extend(render_pair_entry(pe, mapper.index, mapper.config,
+                                           p_out, u_out, fastq=fq))
+        return ("\n".join(lines) + "\n").encode() if lines else b""
+    return slow_tail
 
 
 def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
                    records: Sequence[SeqRecord], batch_size: int,
-                   lanes: Optional[int], rejected: str) -> Iterator[bytes]:
+                   lanes: Optional[int],
+                   slow_tail) -> Optional[Iterator[bytes]]:
     """SAM bytes batch by batch in input order, from `stage_prepare`
     (records, batch_cap) -> context and `stage_finish` (context) ->
-    (bytes, hits). The first batch is prepared before this returns. A
-    batch that stage_prepare rejects (None, for the reasons `rejected`
-    names) or cannot take (NotImplementedError) raises
-    NotImplementedError naming its reads. `lanes` > 1 (default 16) runs
-    that many whole-batch pipelines on worker threads, output re-ordered
-    to input order; results are byte-identical to lanes=1."""
+    (bytes, hits). The first batch is prepared before this returns, and
+    None is returned when stage_prepare rejects it (None): the caller
+    maps such input with the generic mapper, as the reference's callers
+    do. A later batch that stage_prepare rejects goes to `slow_tail(off)`
+    -> bytes. A batch stage_prepare cannot take (NotImplementedError)
+    raises NotImplementedError naming its reads. `lanes` > 1 (default
+    16) runs that many whole-batch pipelines on worker threads, output
+    re-ordered to input order; results are byte-identical to
+    lanes=1."""
     def prepare(off: int):
-        what = f"reads {off}..{min(off + batch_size, len(records)) - 1}"
         try:
-            a = stage_prepare(records[off:off + batch_size],
-                              batch_cap=batch_size)
+            return stage_prepare(records[off:off + batch_size],
+                                 batch_cap=batch_size)
         except NotImplementedError as e:
-            raise NotImplementedError(f"{what}: {e}") from e
-        if a is None:
-            raise NotImplementedError(
-                f"{what}: batch rejected by the flat encoder ({rejected}); "
-                "shrimp_tpu_torch has no generic mapper for it")
-        return a
+            end = min(off + batch_size, len(records)) - 1
+            raise NotImplementedError(f"reads {off}..{end}: {e}") from e
 
     if not len(records):
         return iter(())
     # probe the first batch before committing
     first = prepare(0)
+    if first is None:
+        return None
     if lanes is None:
         lanes = 16
     if lanes > 1 and len(records) > batch_size:
@@ -1005,7 +1048,7 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
 
         def work(off: int, pre) -> bytes:
             a = pre if pre is not None else prepare(off)
-            return stage_finish(a)[0]
+            return slow_tail(off) if a is None else stage_finish(a)[0]
 
         def gen_mt():
             offs = list(range(0, len(records), batch_size))
@@ -1022,12 +1065,20 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
         return gen_mt()
 
     def gen():
-        pend = first
-        off = batch_size
-        while pend is not None:
+        pend, off = first, batch_size
+        while pend is not None or off < len(records):
             nxt = prepare(off) if off < len(records) else None
+            if nxt is None and off < len(records):
+                # drain in input order, then the slow batch
+                if pend is not None:
+                    yield stage_finish(pend)[0]
+                    pend = None
+                yield slow_tail(off)
+                off += batch_size
+                continue
             off += batch_size
-            yield stage_finish(pend)[0]
+            if pend is not None:
+                yield stage_finish(pend)[0]
             pend = nxt
     return gen()
 
@@ -1643,11 +1694,13 @@ def map_paired_sam_stream(mapper, records: Sequence[SeqRecord],
                           ) -> Optional[Iterator[bytes]]:
     """Pipelined LS paired mapping straight to SAM bytes, batch by batch
     in input order; None when the config needs a feature outside the
-    fast path. `mapper` is a `paired.PairedMapper`; `records` are
-    interleaved mate pairs (an odd batch size is rounded up). A batch
-    the flat encoder rejects (an odd record count, mixed read lengths,
-    non-ACGTN bases, mixed qualities, a read under --min-avg-qv) raises
-    NotImplementedError naming its reads.
+    fast path or the first batch is one the flat encoder rejects (an odd
+    record count, mixed read lengths, non-ACGTN bases, mixed qualities,
+    a read under --min-avg-qv): the caller maps those with
+    `mapper.map_paired`. A later rejected batch takes the slow tail
+    (`paired_slow_tail`). `mapper` is a `paired.PairedMapper`;
+    `records` are interleaved mate pairs (an odd batch size is rounded
+    up).
 
     `lanes` > 1 (default 16) runs that many whole-batch pipelines on
     worker threads, output re-ordered to input order; results are
@@ -1659,6 +1712,4 @@ def map_paired_sam_stream(mapper, records: Sequence[SeqRecord],
     fast = FastPaired(mapper)
     return batch_pipeline(
         fast.fls, fast.stage_prepare, fast.stage_finish, records,
-        batch_size, lanes,
-        "an odd record count, mixed read lengths, non-ACGTN bases, mixed "
-        "qualities or a read under the average-quality floor")
+        batch_size, lanes, paired_slow_tail(mapper, records, batch_size))

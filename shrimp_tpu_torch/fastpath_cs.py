@@ -21,9 +21,10 @@ The host stages run through the port's native library (`native/`, a
 copy of the reference's C++), so the SAM bytes are the reference's. It builds on the port's
 `fastpath.FastLS` (contig blobs, native library, filter 1 fan-out) and
 counts every statistic through `Mapper.tally`, which the lane threads
-share. Not ported here: the slow tail (a batch the flat encoder
-rejects raises NotImplementedError): there is no generic mapper behind
-this path.
+share. As in the LS streams, a stream whose first batch the flat
+encoder rejects returns None (the caller runs the generic mapper), and
+a later rejected batch takes the generic mapper's slow tail
+(`fastpath.unpaired_slow_tail`, `fastpath.paired_slow_tail`).
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _PPParams, _PPWin,
                        _check_index_len, _filter1_paired,
                        _paired_render, _paired_unaligned_block,
                        _select_then_full, _set_paired_render_flags, _vp,
-                       auto_batch_size, batch_pipeline)
+                       auto_batch_size, batch_pipeline, paired_slow_tail,
+                       unpaired_slow_tail)
 from .io.fasta import SeqRecord
 from .mapper import _round_up
 
@@ -666,8 +668,10 @@ def map_unpaired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
                                ) -> Optional[Iterator[bytes]]:
     """Pipelined CS unpaired mapping straight to SAM bytes, batch by batch
     in input order; None when the config needs a feature outside the
-    fast path. A batch the flat encoder rejects (mixed read lengths, bad
-    colours or primers, mixed qualities) raises NotImplementedError.
+    fast path or the first batch is one the flat encoder rejects (mixed
+    read lengths, bad colours or primers, mixed qualities): the caller
+    maps those with `mapper.map_unpaired`. A later rejected batch takes
+    the slow tail (`fastpath.unpaired_slow_tail`).
 
     `lanes` > 1 (default 16) runs that many whole-batch pipelines on
     worker threads, output re-ordered to input order; results are
@@ -675,10 +679,10 @@ def map_unpaired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
     if not _config_supported(mapper.config):
         return None
     fast = FastCS(mapper)
+    batch_size = batch_size or auto_batch_size(mapper)
     return batch_pipeline(
         fast.fls, fast.stage_prepare, fast.stage_finish, records,
-        batch_size or auto_batch_size(mapper), lanes,
-        "mixed read lengths, bad colours or primers, or mixed qualities")
+        batch_size, lanes, unpaired_slow_tail(mapper, records, batch_size))
 
 
 # ===================================================================
@@ -906,11 +910,13 @@ def map_paired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
                              ) -> Optional[Iterator[bytes]]:
     """Pipelined CS paired mapping straight to SAM bytes, batch by batch
     in input order; None when the config needs a feature outside the
-    fast path. `mapper` is a `paired.PairedMapper`; `records` are
-    interleaved SOLiD mate pairs (an odd batch size is rounded up). A
-    batch the flat encoder rejects (an odd record count, mixed read
-    lengths, bad colours or primers, mixed qualities, a read under
-    --min-avg-qv) raises NotImplementedError naming its reads.
+    fast path or the first batch is one the flat encoder rejects (an odd
+    record count, mixed read lengths, bad colours or primers, mixed
+    qualities, a read under --min-avg-qv): the caller maps those with
+    `mapper.map_paired`. A later rejected batch takes the slow tail
+    (`fastpath.paired_slow_tail`). `mapper` is a `paired.PairedMapper`;
+    `records` are interleaved SOLiD mate pairs (an odd batch size is
+    rounded up).
 
     `lanes` > 1 (default 16) runs that many whole-batch pipelines on
     worker threads (`fastpath.batch_pipeline`), output re-ordered to
@@ -925,6 +931,4 @@ def map_paired_cs_sam_stream(mapper, records: Sequence[SeqRecord],
     fast = FastPairedCS(mapper)
     return batch_pipeline(
         fast.fls, fast.stage_prepare, fast.stage_finish, records,
-        batch_size, lanes,
-        "an odd record count, mixed read lengths, bad colours or primers, "
-        "mixed qualities or a read under the average-quality floor")
+        batch_size, lanes, paired_slow_tail(mapper, records, batch_size))

@@ -1,4 +1,4 @@
-"""Genome seed index: build.
+"""Genome seed index: build, save, load.
 
 Copied from `shrimp_tpu/index/build.py`: `SeedIndex`, `GenomeIndex` and
 `build_index` with their helpers, with the same vectorized sort-based
@@ -8,17 +8,26 @@ the inverted index (`offsets`, `positions`), each per-key list
 ascending in genome order. Positions are absolute (cumulative across
 contigs).
 
-Left out of the copy: saving and loading index files, `trim`, and the
-host-memory cap accounting (`utils/memmodel.py`: a pre-build footprint
-check and per-array counters that change no array). The CSR sort and
-the key projection run through the port's native library, which raises
-if it does not build.
+The index files are the reference's (`save`/`load` one .npz,
+`save_split`/`load_split` the gmapper -S layout of one genome file and
+one file per seed, `save_mmap`/`load_mmap` a directory of raw .npy
+arrays), so an index saved by either package loads in the other.
+`trim` drops the lists longer than a cutoff before a re-save.
+
+Left out of the copy: the host-memory cap accounting
+(`utils/memmodel.py`: a pre-build footprint check and per-array
+counters that change no array). The CSR sort and the key projection run
+through the port's native library, which raises if it does not build.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
+import json
+import os
+import re
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -27,6 +36,11 @@ from ..core import encode
 from ..native import get_lib
 from ..utils.hostmem import to_hugepages
 from .seeds import Seed, sliding_mapidx, sliding_mapidx_hash
+
+
+def _force_npz(path: str) -> str:
+    """np.savez appends .npz unless present; keep names deterministic."""
+    return path if path.endswith(".npz") else path + ".npz"
 
 
 @dataclass
@@ -78,6 +92,196 @@ class GenomeIndex:
         max_w = (C.HASH_TABLE_POWER if self.hashed
                  else max(si.seed.weight for si in self.seeds))
         return max(1000, int((100 * self.total_len) // (4 ** max_w)))
+
+    def _meta(self, **extra) -> dict:
+        return dict({"mode": self.mode, "contig_names": self.contig_names,
+                     "is_rna": self.is_rna}, **extra, hashed=self.hashed)
+
+    @staticmethod
+    def _from_arrays(meta: dict, codes, contig_offsets, contig_lengths,
+                     seeds: List[SeedIndex]) -> "GenomeIndex":
+        codes = to_hugepages(codes)
+        codes_rc = to_hugepages(
+            _per_contig_revcomp(codes, contig_offsets, contig_lengths))
+        gi = GenomeIndex(
+            mode=meta["mode"], contig_names=list(meta["contig_names"]),
+            contig_offsets=contig_offsets, contig_lengths=contig_lengths,
+            codes=codes, codes_rc=codes_rc, seeds=seeds,
+            is_rna=bool(meta["is_rna"]),
+            hashed=bool(meta.get("hashed", False)))
+        if gi.mode == C.MODE_COLOUR_SPACE:
+            gi.build_cs_projection()
+        return gi
+
+    def save(self, path: str) -> None:
+        """One .npz: the genome, the contig table, every seed's CSR
+        lists and a JSON `meta` record (the analogue of the `.genome` +
+        `.seed.N` checkpoint files, genome.c:15-270)."""
+        meta = self._meta(seeds=[si.seed.mask_string for si in self.seeds])
+        arrays: Dict[str, np.ndarray] = {
+            "contig_offsets": self.contig_offsets,
+            "contig_lengths": self.contig_lengths,
+            "codes": self.codes,
+        }
+        for i, si in enumerate(self.seeds):
+            arrays[f"seed{i}_offsets"] = si.offsets
+            arrays[f"seed{i}_positions"] = si.positions
+        arrays["meta"] = np.frombuffer(
+            json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+        np.savez(path, **arrays)
+
+    @staticmethod
+    def load(path: str) -> "GenomeIndex":
+        with np.load(path) as data:
+            meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+            codes = data["codes"]
+            contig_offsets = data["contig_offsets"]
+            contig_lengths = data["contig_lengths"]
+            seeds = [SeedIndex(
+                seed=Seed(s),
+                offsets=to_hugepages(_compact_offsets(
+                    data[f"seed{i}_offsets"])),
+                positions=to_hugepages(data[f"seed{i}_positions"]))
+                for i, s in enumerate(meta["seeds"])]
+        return GenomeIndex._from_arrays(meta, codes, contig_offsets,
+                                        contig_lengths, seeds)
+
+    def save_split(self, prefix: str) -> None:
+        """gmapper -S layout: <prefix>.genome.npz plus one
+        <prefix>.seed.N.npz per spaced seed (save_genome_map /
+        save_genome_map_seed, genome.c:179-270 / 15-68), which the
+        long-form -L seed-subset load reads (README:680-719)."""
+        meta = self._meta(n_seeds=len(self.seeds))
+        np.savez(_force_npz(prefix + ".genome"),
+                 contig_offsets=self.contig_offsets,
+                 contig_lengths=self.contig_lengths,
+                 codes=self.codes,
+                 meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+        for i, si in enumerate(self.seeds):
+            np.savez(_force_npz(f"{prefix}.seed.{i}"),
+                     offsets=si.offsets, positions=si.positions,
+                     meta=np.frombuffer(json.dumps(
+                         {"seed": si.seed.mask_string}).encode(),
+                         np.uint8))
+
+    @staticmethod
+    def load_split(genome_path: str,
+                   seed_paths: Optional[List[str]] = None) -> "GenomeIndex":
+        """Load a save_split() index. `seed_paths=None` loads every
+        <prefix>.seed.*.npz next to the genome file (short-form -L) and
+        raises when fewer are there than were saved; an explicit list
+        loads only those projections (long-form `-L
+        genome,seed_a,seed_b`, genome.c:670-831)."""
+        gp = genome_path
+        if not os.path.exists(gp) and os.path.exists(gp + ".npz"):
+            gp = gp + ".npz"
+        with np.load(gp) as data:
+            meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+            codes = data["codes"]
+            contig_offsets = data["contig_offsets"]
+            contig_lengths = data["contig_lengths"]
+        if seed_paths is None:
+            prefix = re.sub(r"\.genome(\.npz)?$", "", gp)
+
+            def seed_no(p):
+                m = re.search(r"\.seed\.(\d+)\.npz$", p)
+                return int(m.group(1)) if m else 1 << 30
+            seed_paths = sorted(glob.glob(prefix + ".seed.*.npz"),
+                                key=seed_no)
+            if not seed_paths:
+                raise FileNotFoundError(
+                    f"no {prefix}.seed.*.npz files next to {gp}")
+            want = int(meta.get("n_seeds", len(seed_paths)))
+            if len(seed_paths) != want:
+                raise FileNotFoundError(
+                    f"index {gp} was saved with {want} seeds but only "
+                    f"{len(seed_paths)} {prefix}.seed.*.npz files are "
+                    "present (partial copy?)")
+        seeds = []
+        for sp in seed_paths:
+            if not os.path.exists(sp) and os.path.exists(sp + ".npz"):
+                sp = sp + ".npz"
+            with np.load(sp) as sd:
+                smeta = json.loads(bytes(sd["meta"]).decode("utf-8"))
+                seeds.append(SeedIndex(
+                    seed=Seed(smeta["seed"]),
+                    offsets=to_hugepages(_compact_offsets(sd["offsets"])),
+                    positions=to_hugepages(sd["positions"])))
+        return GenomeIndex._from_arrays(meta, codes, contig_offsets,
+                                        contig_lengths, seeds)
+
+    def trim(self, cutoff: int) -> int:
+        """Drop the inverted lists longer than `cutoff` (trim_genome,
+        genome.c:1188-1208): the same as the mapper's list-cutoff skip
+        at query time, but it shrinks a re-saved index (-L x -S y -z c,
+        gmapper.c:2846-2857). Returns the number of lists dropped."""
+        dropped = 0
+        for k, si in enumerate(self.seeds):
+            lens = si.list_lengths().astype(np.int64)
+            over = lens > cutoff
+            n_over = int(over.sum())
+            if n_over == 0:
+                continue
+            dropped += n_over
+            new_off = np.zeros(len(si.offsets), dtype=np.int64)
+            np.cumsum(np.where(over, 0, lens), out=new_off[1:])
+            new_pos = si.positions[np.repeat(~over, lens)]
+            self.seeds[k] = SeedIndex(
+                seed=si.seed,
+                offsets=to_hugepages(_compact_offsets(new_off)),
+                positions=to_hugepages(new_pos))
+        return dropped
+
+    def save_mmap(self, dirpath: str) -> None:
+        """Warm-index image: one raw .npy per array, derived arrays
+        (revcomp, CS projection) included, so load_mmap maps pages
+        instead of re-reading and re-deriving them (--save-mmap,
+        genome.c:290-667)."""
+        os.makedirs(dirpath, exist_ok=True)
+        meta = self._meta(seeds=[si.seed.mask_string for si in self.seeds])
+        with open(os.path.join(dirpath, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if self.mode == C.MODE_COLOUR_SPACE and self.cs_codes is None:
+            self.build_cs_projection()
+        arrays = {
+            "contig_offsets": self.contig_offsets,
+            "contig_lengths": self.contig_lengths,
+            "codes": self.codes,
+            "codes_rc": self.codes_rc,
+        }
+        if self.cs_codes is not None:
+            arrays["cs_codes"] = self.cs_codes
+            arrays["cs_codes_rc"] = self.cs_codes_rc
+        for i, si in enumerate(self.seeds):
+            arrays[f"seed{i}_offsets"] = si.offsets
+            arrays[f"seed{i}_positions"] = si.positions
+        for name, arr in arrays.items():
+            np.save(os.path.join(dirpath, name + ".npy"), arr)
+
+    @staticmethod
+    def load_mmap(dirpath: str) -> "GenomeIndex":
+        """Map a save_mmap image; the OS pages the arrays in lazily
+        (genome_load_mmap, genome.c:606-667)."""
+        def m(name):
+            return np.load(os.path.join(dirpath, name + ".npy"),
+                           mmap_mode="r")
+
+        with open(os.path.join(dirpath, "meta.json")) as f:
+            meta = json.load(f)
+        seeds = [SeedIndex(seed=Seed(s), offsets=m(f"seed{i}_offsets"),
+                           positions=m(f"seed{i}_positions"))
+                 for i, s in enumerate(meta["seeds"])]
+        gi = GenomeIndex(
+            mode=meta["mode"], contig_names=list(meta["contig_names"]),
+            contig_offsets=np.asarray(m("contig_offsets")),
+            contig_lengths=np.asarray(m("contig_lengths")),
+            codes=m("codes"), codes_rc=m("codes_rc"), seeds=seeds,
+            is_rna=bool(meta["is_rna"]),
+            hashed=bool(meta.get("hashed", False)))
+        if os.path.exists(os.path.join(dirpath, "cs_codes.npy")):
+            gi.cs_codes = m("cs_codes")
+            gi.cs_codes_rc = m("cs_codes_rc")
+        return gi
 
     def build_cs_projection(self) -> None:
         """Per-contig colour-space projection (genome.c:1116-1126)."""

@@ -267,22 +267,24 @@ def test_cs_paired_gate_configs_return_none():
 
 def test_cs_paired_rejected_batch_raises():
     """A batch the flat encoder rejects (a short mate, a pair under
-    --min-avg-qv) raises, naming its reads; the port has no generic
-    mapper to hand it to."""
+    --min-avg-qv) takes the generic paired mapper's slow tail with the
+    reference stream's bytes (the reference at one lane); a rejected
+    first batch makes the stream return None, as the reference's
+    does."""
     g, recs = cs_pairs(8, 60, "opp-in")
-    _, pidx = _indexes(g)
+    idx, pidx = _indexes(g)
     bad = list(recs)
     bad[70] = SeqRecord(bad[70].name, bad[70].seq[:30])
+    want = _ref_sam(idx, bad, 32, pair_mode="opp-in")
     for lanes in (1, 4):
-        m = PairedMapper(pidx, PortConfig(mode=CS, pair_mode="opp-in"),
-                         "cpu")
-        gen = fastpath_cs.map_paired_cs_sam_stream(m, bad, batch_size=32,
-                                                   lanes=lanes)
-        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
-            b"".join(gen)
+        got, m = _port_sam(pidx, bad, 32, lanes=lanes, pair_mode="opp-in")
+        assert got == want and m.stats.full_invocs > 0
     low = _with_quals(recs)
+    low[41] = SeqRecord(low[41].name, low[41].seq, "#" * 36)
+    got, _ = _port_sam(pidx, low, 34, pair_mode="opp-in", min_avg_qv=10)
+    assert got == _ref_sam(idx, low, 34, pair_mode="opp-in", min_avg_qv=10)
     low[5] = SeqRecord(low[5].name, low[5].seq, "#" * 36)
     m = PairedMapper(pidx, PortConfig(mode=CS, pair_mode="opp-in",
                                       min_avg_qv=10), "cpu")
-    with pytest.raises(NotImplementedError, match=r"reads 0\.\.33"):
-        fastpath_cs.map_paired_cs_sam_stream(m, low, batch_size=33)
+    assert fastpath_cs.map_paired_cs_sam_stream(m, low,
+                                                batch_size=33) is None

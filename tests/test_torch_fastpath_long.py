@@ -51,8 +51,9 @@ def _port_sam(pidx, recs, batch_size, flows):
         ctx = prep(records, batch_cap)
         flows.append(ctx["stats_flow"])
         return ctx
-    gen = fastpath.batch_pipeline(fast, stage_prepare, fast.stage_finish,
-                                  recs, batch_size, 1, "")
+    gen = fastpath.batch_pipeline(
+        fast, stage_prepare, fast.stage_finish, recs, batch_size, 1,
+        fastpath.unpaired_slow_tail(m, recs, batch_size))
     return b"".join(gen)
 
 

@@ -233,19 +233,18 @@ def test_paired_gate_configs_return_none():
 
 
 def test_paired_rejected_batch_raises():
-    """A batch the flat encoder rejects (a short mate) raises, naming its
-    reads; the port has no generic mapper to hand it to."""
+    """A batch the flat encoder rejects (a short mate) takes the generic
+    paired mapper's slow tail (map_paired, select_output) with the
+    reference stream's bytes, at 1 and 4 lanes and with an odd batch
+    size (rounded up to whole pairs); a rejected first batch makes the
+    stream return None, as the reference's does."""
     g, recs = make_pairs(8, 60, "opp-in")
-    _, pidx = _indexes(g)
+    idx, pidx = _indexes(g)
     recs[70] = SeqRecord(recs[70].name, recs[70].seq[:30])
-    for lanes in (1, 4):
-        m = PairedMapper(pidx, PortConfig(pair_mode="opp-in"), "cpu")
-        gen = fastpath.map_paired_sam_stream(m, recs, batch_size=32,
-                                             lanes=lanes)
-        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
-            b"".join(gen)
-    # an odd batch size is rounded up to whole pairs
+    for bs, lanes in ((32, 1), (32, 4), (33, 1)):
+        got, m = _port_sam(pidx, recs, bs, lanes=lanes, pair_mode="opp-in")
+        assert got == _ref_sam(idx, recs, bs + bs % 2, pair_mode="opp-in")
+        assert m.stats.full_invocs > 0
+    recs[1] = SeqRecord(recs[1].name, recs[1].seq[:30])
     m = PairedMapper(pidx, PortConfig(pair_mode="opp-in"), "cpu")
-    with pytest.raises(NotImplementedError, match=r"reads 68\.\.101"):
-        b"".join(fastpath.map_paired_sam_stream(m, recs, batch_size=33,
-                                                lanes=1))
+    assert fastpath.map_paired_sam_stream(m, recs, batch_size=32) is None

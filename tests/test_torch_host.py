@@ -1,8 +1,11 @@
 """The port's own host modules (shrimp_tpu_torch.constants, config,
-io.fasta, io.sam, index, core.sw_cs_batch, native, paired) against the
-JAX package's originals they were copied from, on the same inputs.
-Every output is an integer array, a string or a dataclass: tolerance 0
-throughout."""
+io.fasta, io.sam, io.shrimp_format, index (build, save, load, trim),
+core.candidates, core.batch_pipeline, core.traceback, core.sw_np,
+core.sw_cs_np, core.sw_cs_batch (post-SW), native, paired) against the
+JAX package's originals they were copied from, on the same inputs; the
+modules copied unchanged also source for source. Every output is an
+integer array, a float array (the post-SW's, from the same native
+code), a string or a dataclass: tolerance 0 throughout."""
 import dataclasses
 import os
 from types import SimpleNamespace
@@ -18,6 +21,7 @@ from shrimp_tpu.core.sw_cs_batch import cs_layers_batch as ref_layers
 from shrimp_tpu.index.build import build_index as ref_build
 from shrimp_tpu.index.seeds import default_seeds as ref_seeds
 from shrimp_tpu.io import sam as ref_sam
+from shrimp_tpu.io.fasta import SeqRecord as RefRecord
 from shrimp_tpu.io.fasta import read_seqs as ref_read_seqs
 from shrimp_tpu.mapper import Mapper as RefMapper
 from shrimp_tpu.native.filter1_py import \
@@ -32,6 +36,7 @@ from shrimp_tpu_torch.core.sw_cs_batch import cs_layers_batch as port_layers
 from shrimp_tpu_torch.index.build import build_index as port_build
 from shrimp_tpu_torch.index.seeds import default_seeds as port_seeds
 from shrimp_tpu_torch.io import sam as port_sam
+from shrimp_tpu_torch.io.fasta import SeqRecord as PortRecord
 from shrimp_tpu_torch.io.fasta import read_seqs as port_read_seqs
 from shrimp_tpu_torch.mapper import Mapper as PortMapper
 from shrimp_tpu_torch.native.filter1_py import \
@@ -276,3 +281,169 @@ def test_compute_mp_ranges_matches_reference(indexes, mode):
         port._compute_mp_ranges(*legs[1])
         for a, b in zip(*legs):
             assert vars(a) == vars(b), kw
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COPIED = ("core/sw_np.py", "core/traceback.py", "core/candidates.py",
+          "core/batch_pipeline.py", "core/sw_cs_np.py",
+          "core/sw_cs_batch.py", "io/sam.py", "io/shrimp_format.py")
+
+
+@pytest.mark.parametrize("path", COPIED)
+def test_copied_modules_are_the_originals(path):
+    """The host modules copied unchanged equal their originals, but for
+    the provenance paragraph that closes the module docstring."""
+    with open(os.path.join(REPO, "shrimp_tpu", path)) as f:
+        want = f.read()
+    with open(os.path.join(REPO, "shrimp_tpu_torch", path)) as f:
+        got = f.read()
+    note = (f"\n\nCopied from `shrimp_tpu/{path}` unchanged: the port keeps "
+            "its own\ncopy of the JAX package's host modules and imports "
+            "none of them.\n")
+    assert note in got
+    assert got.replace(note, "\n", 1) == want
+
+
+def test_candidates_match_reference(indexes):
+    """candidates.read_kmers / get_anchor_list / get_hit_list on reads cut
+    from the genome, both strands (through Mapper.hit_lists)."""
+    ref_idx, port_idx = indexes[RC.MODE_LETTER_SPACE]
+    ref = RefMapper(ref_idx, RefConfig())
+    port = PortMapper(port_idx, PortConfig(), "cpu")
+    rng = np.random.default_rng(9)
+    codes = ref_idx.codes
+    for k in range(12):
+        p = int(rng.integers(0, len(codes) - 40))
+        seq = "".join("ACGTN"[min(int(c), 4)] for c in codes[p:p + 36])
+        rh = ref.hit_lists(ref.prepare_read(RefRecord(f"r{k}", seq)))
+        ph = port.hit_lists(port.prepare_read(PortRecord(f"r{k}", seq)))
+        for a, b in zip(rh, ph):
+            for f in dataclasses.fields(a):
+                va, vb = getattr(a, f.name), getattr(b, f.name)
+                assert np.array_equal(np.asarray(va), np.asarray(vb)), f.name
+
+
+def test_traceback_and_sw_np_match_reference():
+    """sw_np.sw_full_ls (the scalar oracle) and traceback.traceback_batch
+    on random pairs, and the op unpacking."""
+    from shrimp_tpu.core import sw_np as ref_np, traceback as ref_tb
+    from shrimp_tpu_torch.core import sw_np as port_np, traceback as port_tb
+    rng = np.random.default_rng(21)
+    for k in range(6):
+        g = rng.integers(0, 4, 60).astype(np.uint8)
+        r = g[10:46].copy()
+        r[rng.integers(0, 36, 3)] = rng.integers(0, 4, 3)
+        kw = dict(match=10, mismatch=-15, a_gap_open=-40, a_gap_ext=-7,
+                  b_gap_open=-40, b_gap_ext=-7, threshscore=200,
+                  maxscore=360, revcmpl=bool(k % 3),
+                  local_alignment=bool(k % 2))
+        a = ref_np.sw_full_ls(g, r, **kw)
+        b = port_np.sw_full_ls(g, r, **kw)
+        assert repr(a) == repr(b)
+    pk = rng.integers(0, 256, (5, 9)).astype(np.uint8)
+    assert np.array_equal(ref_tb.unpack_ops(pk), port_tb.unpack_ops(pk))
+
+
+def test_post_sw_matches_reference():
+    """The colour-space post-SW forward-backward (native, batched) and
+    the per-hit post_sw on columns of random colour reads."""
+    from shrimp_tpu.core import sw_cs_batch as ref_b, sw_cs_np as ref_cs
+    from shrimp_tpu_torch.core import sw_cs_batch as port_b
+    from shrimp_tpu_torch.core import sw_cs_np as port_cs
+    rng = np.random.default_rng(13)
+    B, L = 6, 30
+    cl = rng.integers(-1, 4, (B, L))
+    cc = rng.integers(0, 4, (B, L))
+    ce = rng.uniform(0.001, 0.2, (B, L))
+    nc = rng.integers(10, L + 1, B)
+    ib = rng.integers(0, 4, B)
+    for native in (True, False):
+        a = ref_b.post_sw_forward_backward_batch(cl, cc, ce, nc, ib, 0.01,
+                                                 allow_native=native)
+        b = port_b.post_sw_forward_backward_batch(cl, cc, ce, nc, ib, 0.01,
+                                                  allow_native=native)
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    cols = rng.integers(0, 4, 25).astype(np.uint8)
+    db = "".join("ACGT"[int(c)] for c in rng.integers(0, 4, 24))
+    kw = dict(pr_snp=0.01, pr_xover=0.02, pr_del_open=1e-4,
+              pr_del_extend=0.1, pr_ins_open=1e-4, pr_ins_extend=0.1,
+              qual_delta=33)
+    a = ref_cs.post_sw(cols, 1, None, 0, db, db, **kw)
+    b = port_cs.post_sw(cols, 1, None, 0, db, db, **kw)
+    assert repr(a) == repr(b)
+
+
+def test_sam_header_matches_reference(indexes):
+    for mode in (RC.MODE_LETTER_SPACE, CS):
+        ref_idx, port_idx = indexes[mode]
+        kw = dict(mode=mode, read_group_name="g1", sam_sample_name="s1")
+        assert (port_sam.sam_header(port_idx, "cmd", PortConfig(**kw))
+                == ref_sam.sam_header(ref_idx, "cmd", RefConfig(**kw)))
+
+
+def _index_arrays(gi):
+    out = {k: np.asarray(getattr(gi, k)) for k in (
+        "contig_offsets", "contig_lengths", "codes", "codes_rc")}
+    if gi.cs_codes is not None:
+        out["cs_codes"] = np.asarray(gi.cs_codes)
+        out["cs_codes_rc"] = np.asarray(gi.cs_codes_rc)
+    for i, si in enumerate(gi.seeds):
+        out[f"seed{i}"] = si.seed.mask_string
+        out[f"off{i}"] = np.asarray(si.offsets)
+        out[f"pos{i}"] = np.asarray(si.positions)
+    out["meta"] = (gi.mode, list(gi.contig_names), gi.is_rna, gi.hashed)
+    return out
+
+
+def _same_index(a, b):
+    xa, xb = _index_arrays(a), _index_arrays(b)
+    assert sorted(xa) == sorted(xb)
+    for k in xa:
+        if isinstance(xa[k], np.ndarray):
+            assert xa[k].dtype == xb[k].dtype and np.array_equal(xa[k],
+                                                                 xb[k]), k
+        else:
+            assert xa[k] == xb[k], k
+
+
+@pytest.mark.parametrize("mode", ["ls", "cs"])
+@pytest.mark.parametrize("fmt", ["npz", "split", "mmap"])
+def test_index_files_load_across_packages(indexes, tmp_path, mode, fmt):
+    """An index saved by the port loads in shrimp_tpu, and one saved by
+    shrimp_tpu loads in the port, as the same arrays."""
+    from shrimp_tpu.index.build import GenomeIndex as RefGI
+    from shrimp_tpu_torch.index.build import GenomeIndex as PortGI
+    ref, port = indexes[mode]
+    for saver, loader_cls, name in ((port, RefGI, "p"), (ref, PortGI, "r")):
+        path = str(tmp_path / name)
+        if fmt == "npz":
+            saver.save(path + ".npz")
+            got = loader_cls.load(path + ".npz")
+        elif fmt == "split":
+            saver.save_split(path)
+            got = loader_cls.load_split(path + ".genome")
+        else:
+            saver.save_mmap(path)
+            got = loader_cls.load_mmap(path)
+        _same_index(got, ref)
+
+
+def test_index_trim_and_seed_subset_match_reference(indexes, tmp_path):
+    """trim (the -L x -S y -z c re-save) and the long-form -L seed
+    subset give the reference's arrays; a partial split copy raises."""
+    ref, port = indexes[RC.MODE_LETTER_SPACE]
+    port.save(str(tmp_path / "p.npz"))
+    ref.save(str(tmp_path / "r.npz"))
+    from shrimp_tpu.index.build import GenomeIndex as RefGI
+    from shrimp_tpu_torch.index.build import GenomeIndex as PortGI
+    p, r = PortGI.load(str(tmp_path / "p.npz")), RefGI.load(
+        str(tmp_path / "r.npz"))
+    assert p.trim(1) == r.trim(1) > 0
+    _same_index(p, r)
+    p.save_split(str(tmp_path / "ps"))
+    sub = [str(tmp_path / "ps.seed.1.npz"), str(tmp_path / "ps.seed.0")]
+    _same_index(PortGI.load_split(str(tmp_path / "ps.genome.npz"), sub),
+                RefGI.load_split(str(tmp_path / "ps.genome.npz"), sub))
+    os.remove(tmp_path / "ps.seed.1.npz")
+    with pytest.raises(FileNotFoundError, match="partial copy"):
+        PortGI.load_split(str(tmp_path / "ps.genome"))

@@ -51,7 +51,13 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     srcs = list(_port_sources())
-    assert len(srcs) >= 20
+    assert len(srcs) >= 30
+    rel = {os.path.relpath(p, PORT) for p in srcs}
+    assert {"cli.py", "__main__.py", "mapper.py", "paired.py",
+            "core/candidates.py", "core/batch_pipeline.py",
+            "core/traceback.py", "core/sw_np.py", "core/sw_cs_np.py",
+            "core/sw_cs_batch.py", "io/sam.py",
+            "io/shrimp_format.py"} <= rel
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -236,44 +242,67 @@ def test_maps_cs_pairs_to_sam_with_jax_blocked(tmp_path):
 
 
 def test_rejected_batch_raises(tmp_path):
-    """A batch the flat encoder rejects (here a short read) raises; the
-    port has no generic mapper to hand it to."""
+    """A batch the flat encoder rejects (here a short read) no longer
+    raises: after the first batch it takes the generic mapper's slow
+    tail inside the stream, with the reference stream's bytes, at 1 and
+    4 lanes; a rejected first batch makes the stream return None, as the
+    reference's does, and the caller runs the generic mapper."""
+    from shrimp_tpu import fastpath as ref_fastpath
+    from shrimp_tpu.config import MapperConfig as RefConfig
+    from shrimp_tpu.index.build import build_index as ref_build
+    from shrimp_tpu.index.seeds import default_seeds as ref_seeds
+    from shrimp_tpu.mapper import Mapper as RefMapper
     _, _, g, reads = make_dataset(str(tmp_path), n_reads=120)
     idx = build_index([("chr_test", encode.encode_ls(g))], default_seeds())
+    ridx = ref_build([("chr_test", encode.encode_ls(g))], ref_seeds())
     recs = [SeqRecord(n, s) for n, s in reads]
     recs[70] = SeqRecord(recs[70].name, recs[70].seq[:30])
+    want = b"".join(ref_fastpath.map_unpaired_sam_stream(
+        RefMapper(ridx, RefConfig()), recs, batch_size=32, lanes=1))
     for lanes in (1, 4):
         m = Mapper(idx, MapperConfig(), "cpu")
-        gen = fastpath.map_unpaired_sam_stream(m, recs, batch_size=32,
-                                               lanes=lanes)
-        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
-            b"".join(gen)
+        got = b"".join(fastpath.map_unpaired_sam_stream(
+            m, recs, batch_size=32, lanes=lanes))
+        assert got == want and m.stats.vec_invocs > 0
     recs[3] = SeqRecord(recs[3].name, recs[3].seq[:20])
-    with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
-        fastpath.map_unpaired_sam_stream(Mapper(idx, None, "cpu"), recs,
-                                         batch_size=32)
+    assert ref_fastpath.map_unpaired_sam_stream(
+        RefMapper(ridx, RefConfig()), recs, batch_size=32) is None
+    assert fastpath.map_unpaired_sam_stream(Mapper(idx, None, "cpu"), recs,
+                                            batch_size=32) is None
 
 
 def test_cs_rejected_batch_raises(tmp_path):
-    """A colour-space batch the flat encoder rejects (here a short read,
-    then a bad primer) raises, naming its reads."""
+    """A colour-space batch the flat encoder rejects (here a short read)
+    takes the generic mapper's slow tail with the reference stream's
+    bytes (the reference at one lane); a rejected first batch (a bad
+    primer) makes the stream return None, as the reference's does."""
+    from shrimp_tpu import fastpath_cs as ref_fastpath_cs
+    from shrimp_tpu.config import MapperConfig as RefConfig
+    from shrimp_tpu.index.build import build_index as ref_build
+    from shrimp_tpu.index.seeds import default_seeds as ref_seeds
+    from shrimp_tpu.mapper import Mapper as RefMapper
     _, _, g, reads = make_cs_dataset(str(tmp_path), n_reads=120,
                                      genome_len=20_000)
     idx = build_index([("chrC", encode.encode_ls(g))],
                       default_seeds(mode="cs"), mode="cs")
+    ridx = ref_build([("chrC", encode.encode_ls(g))],
+                     ref_seeds(mode="cs"), mode="cs")
     cfg = MapperConfig(mode=C.MODE_COLOUR_SPACE)
     recs = [SeqRecord(n, s) for n, s in reads]
     recs[70] = SeqRecord(recs[70].name, recs[70].seq[:30])
+    want = b"".join(ref_fastpath_cs.map_unpaired_cs_sam_stream(
+        RefMapper(ridx, RefConfig(mode="cs")), recs, batch_size=32,
+        lanes=1))
     for lanes in (1, 4):
         m = Mapper(idx, cfg, "cpu")
-        gen = fastpath_cs.map_unpaired_cs_sam_stream(m, recs, batch_size=32,
-                                                     lanes=lanes)
-        with pytest.raises(NotImplementedError, match=r"reads 64\.\.95"):
-            b"".join(gen)
+        got = b"".join(fastpath_cs.map_unpaired_cs_sam_stream(
+            m, recs, batch_size=32, lanes=lanes))
+        assert got == want and m.stats.full_invocs > 0
     recs[3] = SeqRecord(recs[3].name, "N" + recs[3].seq[1:])
-    with pytest.raises(NotImplementedError, match=r"reads 0\.\.31"):
-        fastpath_cs.map_unpaired_cs_sam_stream(Mapper(idx, cfg, "cpu"), recs,
-                                               batch_size=32)
+    assert ref_fastpath_cs.map_unpaired_cs_sam_stream(
+        RefMapper(ridx, RefConfig(mode="cs")), recs, batch_size=32) is None
+    assert fastpath_cs.map_unpaired_cs_sam_stream(
+        Mapper(idx, cfg, "cpu"), recs, batch_size=32) is None
 
 
 def test_index_of_2_31_bases_raises(tmp_path, monkeypatch):
