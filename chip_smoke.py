@@ -150,6 +150,31 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    subprocesses on FASTA and FASTQ files, LS and CS: SAM bodies
    byte-identical to the in-process streams; wall times.
 
+21. The mesh tiers (shrimp_tpu_torch.parallel.meshmap) on
+   make_mesh(["cuda:0"] * 4) on a one-card machine (every card where
+   there are more): four shards whose launches queue side by side on
+   their own streams. (a) MeshMapper at E. coli density: MESH_READS
+   reads each of the LS, CS, LS-pairs and CS-pairs workloads of phases
+   5, 8, 14 and 17 and MESH_LONG_READS 250 bp reads of phase 11 (the
+   long-read fallback: one single-device launch on mesh[0]); each SAM
+   equal to the port's unsharded card stream's, the LS run's z1 partials
+   summed by zmerge_psum equal to their host sum (rtol 1e-12); every
+   kernel of the path held against its plain version on the path's own
+   first per-shard launch (`*_mesh` records). (b) MeshMapper on phase
+   12's bin and first MESH_HG_READS reads, fused on the mesh, against
+   the unsharded two-phase card run. (c) ShardedIndexMapper on the
+   E. coli genome cut into four contigs of ECOLI_CONTIG_LEN bases, one
+   sub-index a shard: LS, LS pairs, CS, CS pairs, MESH_READS reads each,
+   against the whole index's unsharded card stream; the merged Z rows
+   non-zero. (d) The split-db workflow on-line: four hg-like bins of
+   HG_SUB_LEN bases (dataset.hg_bin(HG_SUB_LEN, i), chr1..chr4), one
+   sub-index each, MESH_HG_READS reads drawn evenly from them; the
+   oracle is the same tier on a mesh of four "cpu" shards on the first
+   MESH_HG_CPU_READS reads; every z1 merge equal to the host sum of its
+   partials. Each run prints reads/s (the unsharded stream's beside
+   it), peak device memory, each shard's plane bytes and the inner
+   mapper's device planes (none unless a fallback ran).
+
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
 events (_device_ms): a short kernel runs in less time than the host
@@ -164,7 +189,7 @@ the card's name and power limit, the kernels' JSON record (each
 kernel's launches on its slice, error, times and bound) and {"ok": true,
 "device": {...}}. `--phases 12,13` runs only the phases listed (the
 build always runs) and then prints no result; `--phases 20` runs the
-generic mapper's phase alone.
+generic mapper's phase alone, `--phases 21` the mesh tiers'.
 """
 from __future__ import annotations
 
@@ -176,6 +201,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -626,9 +652,10 @@ def check_packed_step(dev):
 
 def _mapper(idx, device):
     """A port Mapper: its genome planes go to `device` here, outside
-    any timed span."""
+    any timed span (`Mapper.upload_planes`; they would go up on first
+    use)."""
     from shrimp_tpu_torch.mapper import Mapper
-    return Mapper(idx, None, device)
+    return Mapper(idx, None, device).upload_planes()
 
 
 def _ls_stream(m, reads):
@@ -654,14 +681,21 @@ def _map_batches(m, reads, stream):
 
 def _device_busy_share(m, reads, stream=_ls_stream) -> str:
     """Device activity (kernels, then copies) over the wall time of one
-    mapping run under torch.profiler; "not measured" when the profiler
-    records no device events. All work runs on one stream, so device
-    events do not overlap."""
+    mapping run under torch.profiler (`_busy_share`). All work runs on
+    one stream, so device events do not overlap."""
+    return _busy_share(lambda: _map(m, reads, stream)[1])
+
+
+def _busy_share(run) -> str:
+    """Device activity (kernels, then copies) over the wall time of
+    `run()` (which maps and returns its wall seconds) under
+    torch.profiler, summed over the device's streams; "not measured"
+    when the profiler records no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = _map(m, reads, stream)
+        wall = run()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1059,7 +1093,7 @@ def run_cs_slice(dev, counters, test_bound):
           f"({idx.total_len} bp, {len(reads)} reads)")
 
     def mapper(device):
-        return Mapper(idx, ecoli_cs_config(), device)
+        return Mapper(idx, ecoli_cs_config(), device).upload_planes()
 
     _map(mapper(dev), reads[:2 * B_CHUNK], _cs_stream)      # warm-up
     m = mapper(dev)
@@ -1655,7 +1689,21 @@ def _hg_mapper(idx, cfg):
     from shrimp_tpu_torch.mapper import Mapper
     from shrimp_tpu_torch.paired import PairedMapper
     cls = Mapper if cfg.pair_mode == "none" else PairedMapper
-    return lambda device: cls(idx, cfg, device)
+    return lambda device: cls(idx, cfg, device).upload_planes()
+
+
+@functools.lru_cache(maxsize=None)
+def _hg_ls():
+    """(codes, LS index) of the hg-like bin of HG_BIN_LEN bases, made
+    once a run: phase 21 maps phase 12's reads again."""
+    from shrimp_tpu_torch import dataset
+    t0 = time.perf_counter()
+    codes = dataset.hg_bin(HG_BIN_LEN)
+    t1 = time.perf_counter()
+    idx = dataset.hg_index(codes)
+    print(f"hg-like bin: {HG_BIN_LEN} bases generated in "
+          f"{t1 - t0!r} s, LS index in {time.perf_counter() - t1!r} s")
+    return codes, idx
 
 
 def run_hg_slices(dev, hg):
@@ -1668,13 +1716,7 @@ def run_hg_slices(dev, hg):
     from shrimp_tpu_torch.config import MapperConfig
     from shrimp_tpu_torch.core import sw, sw_cs, sw_cs_full, sw_full
     from shrimp_tpu_torch.core import sw_vector
-    t0 = time.perf_counter()
-    codes = dataset.hg_bin(HG_BIN_LEN)
-    t1 = time.perf_counter()
-    idx = dataset.hg_index(codes)
-    t2 = time.perf_counter()
-    print(f"hg-like bin: {HG_BIN_LEN} bases generated in {t1 - t0!r} s, "
-          f"LS index in {t2 - t1!r} s")
+    codes, idx = _hg_ls()
     print(f"reduced: bench_hg.py maps 4 bins of 750 Mbp (3 Gbp); here bin "
           f"0 alone, cut to {HG_BIN_LEN} bases, and {HG_READS} reads "
           f"(bench_hg.py's default)")
@@ -1772,7 +1814,7 @@ def run_paired_slice(dev, counters):
     cfg = MapperConfig(pair_mode="opp-in")
 
     def mapper(device):
-        return PairedMapper(idx, cfg, device)
+        return PairedMapper(idx, cfg, device).upload_planes()
     stream = fastpath.map_paired_sam_stream
     _map(mapper(dev), reads[:2 * B_CHUNK], stream)      # warm-up
     m = mapper(dev)
@@ -1901,7 +1943,7 @@ def run_cs_paired_slice(dev, counters):
     cfg = MapperConfig(mode=C.MODE_COLOUR_SPACE, pair_mode="opp-in")
 
     def mapper(device):
-        return PairedMapper(idx, cfg, device)
+        return PairedMapper(idx, cfg, device).upload_planes()
     stream = fastpath_cs.map_paired_cs_sam_stream
     _map(mapper(dev), reads[:2 * B_CHUNK], stream)      # warm-up
     m = mapper(dev)
@@ -2116,10 +2158,10 @@ def run_byte_streams(dev):
     for title, name, n, cfg, cls, stream, cs in cases:
         idx, reads = _dataset(name, n)
         first = reads[:BYTE_READS]
-        ref = cls(idx, cfg, dev)
+        ref = cls(idx, cfg, dev).upload_planes()
         want, secs_w = _map(ref, first, stream)
         for two_phase in (False, True):
-            m = cls(idx, cfg, dev)
+            m = cls(idx, cfg, dev).upload_planes()
             m._cat_words_dev = m._cs_cat_words_dev = None
             with (_Gate(cs, 0) if two_phase else nullcontext()), \
                     _Dispatches(cs) as disp, _byte_gathers() as g:
@@ -2177,6 +2219,12 @@ def _first_calls(m, reads, stream, targets) -> dict:
     """{name: (tensor arguments (copies), keyword arguments)} of the
     first call one run of `stream` on `reads` makes to each kernel
     wrapper `module.<fn>` of `targets` ({name: (module, fn)})."""
+    return _first_calls_of(lambda: _map(m, reads, stream), targets)
+
+
+def _first_calls_of(run, targets) -> dict:
+    """`_first_calls` of one call of `run()`, which maps and waits for
+    the card."""
     seen, orig = {}, {}
     for name, (mod, fn) in targets.items():
         orig[name] = getattr(mod, fn)
@@ -2188,7 +2236,7 @@ def _first_calls(m, reads, stream, targets) -> dict:
             return _w(*args, **kw)
         setattr(mod, fn, record)
     try:
-        _map(m, reads, stream)
+        run()
     finally:
         for name, (mod, fn) in targets.items():
             setattr(mod, fn, orig[name])
@@ -2238,7 +2286,7 @@ def run_generic(dev, counters, smi):
     cfg = MapperConfig(extra_sam_fields=True)
 
     def mapper(device):
-        return Mapper(idx, cfg, device)
+        return Mapper(idx, cfg, device).upload_planes()
     stream = _generic_stream()
     _map(mapper(dev), reads[:256], stream)      # warm-up
     m = mapper(dev)
@@ -2326,7 +2374,7 @@ def run_slow_tails(dev, smi):
         generic = "map_unpaired" if cls is Mapper else "map_paired"
 
         def mapper(device, _cls=cls, _idx=idx, _cfg=cfg):
-            return _cls(_idx, _cfg, device)
+            return _cls(_idx, _cfg, device).upload_planes()
         tails = [0]
 
         def counted(device, _mapper=mapper, _generic=generic):
@@ -2423,7 +2471,7 @@ def run_offgate(dev, counters, smi):
             cfg = MapperConfig(**kw)
 
             def mapper(device, _idx=idx, _cfg=cfg):
-                return Mapper(_idx, _cfg, device)
+                return Mapper(_idx, _cfg, device).upload_planes()
             stream = _generic_stream(render)
             _map(mapper(dev), reads[:256], stream)      # warm-up
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2555,10 +2603,341 @@ def run_cli(dev, smi):
               f"{a} {s!r} s" for a, s in runs))
 
 
+# ------------------------------------------------------------ phase 21
+
+MESH_READS = 20_000
+MESH_LONG_READS = 2048
+MESH_HG_READS = 16_384
+MESH_HG_CPU_READS = 512
+# E. coli cut into four region-aligned contigs (a multiple of 32,768
+# bases each), and the four hg-like bins of the split-db run
+ECOLI_CONTIG_LEN = 35 * 32_768
+HG_SUB_LEN = 763 * 32_768
+
+
+def _mesh():
+    """make_mesh(["cuda:0"] * 4) on a one-card machine, every card where
+    there are more."""
+    from shrimp_tpu_torch.parallel.meshmap import make_mesh
+    one = torch.cuda.device_count() == 1
+    mesh = make_mesh(["cuda:0"] * 4 if one else None)
+    print(f"21: a mesh of {len(mesh)} shards, "
+          + ("four on the one card (their launches queue side by side on "
+             "one H100: routing, per-shard launches and collectives, no "
+             "scaling across cards)" if one else "one on every card")
+          + ": " + ", ".join(map(str, mesh)))
+    return mesh
+
+
+def _tier_run(tier, reads, paired, **kw):
+    """(SAM bytes, seconds) of one run of a mesh tier."""
+    f = tier.map_paired_sam if paired else tier.map_unpaired_sam
+    t0 = time.perf_counter()
+    sam = f(reads, **kw)
+    torch.cuda.synchronize()
+    return sam, time.perf_counter() - t0
+
+
+def _stream_of(cs, paired):
+    from shrimp_tpu_torch import fastpath, fastpath_cs
+    return {(False, False): fastpath.map_unpaired_sam_stream,
+            (False, True): fastpath.map_paired_sam_stream,
+            (True, False): fastpath_cs.map_unpaired_cs_sam_stream,
+            (True, True): fastpath_cs.map_paired_cs_sam_stream}[(cs, paired)]
+
+
+def _mapper_cls(paired):
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.paired import PairedMapper
+    return PairedMapper if paired else Mapper
+
+
+def _against_unsharded(title, dev, tier, idx, cfg, reads, paired, sam, secs):
+    """The tier's SAM against the port's unsharded card stream on the
+    same reads (and its reads/s beside the tier's)."""
+    stream = _stream_of(cfg.mode == "cs", paired)
+    m = _mapper_cls(paired)(idx, cfg, dev).upload_planes()
+    _map(m, reads[:2 * B_CHUNK], stream)                 # warm-up
+    want, secs_u = _map(m, reads, stream)
+    lines = sam.count(b"\n")
+    print(f"21 {title}: {len(reads)} reads on the mesh in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; unsharded card stream "
+          f"{secs_u!r} s = {len(reads) / secs_u!r} reads/s; {lines} "
+          f"records; SAM identical to the unsharded run's: {sam == want}")
+    if sam != want or lines < 0.8 * len(reads):
+        raise AssertionError(f"21 {title}: the mesh's SAM differs from the "
+                             "unsharded run's, or mostly unmapped")
+
+
+def run_mesh_ecoli(dev, mesh, smi):
+    """Phase 21 (a): MeshMapper at E. coli density, the workloads of
+    phases 5, 8, 14, 17 and 11. Returns the launches of its main path
+    and the kernel records on its first per-shard launches."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw, sw_cs, sw_cs_full, sw_full
+    from shrimp_tpu_torch.core import sw_vector
+    from shrimp_tpu_torch.dataset import ecoli_cs_config
+    from shrimp_tpu_torch.parallel.meshmap import MeshMapper, zmerge_psum
+    cs = C.MODE_COLOUR_SPACE
+    ls_k = {"sw_vector_mesh": (sw, "sw_vector_batch",
+                               sw_vector.sw_vector_batch,
+                               sw_vector.sw_vector_batch_ref,
+                               _vec_launch_bound, sw_vector.LAUNCHES),
+            "sw_full_stats_mesh": (sw, "sw_full_stats", sw_full.sw_full_stats,
+                                   sw_full.sw_full_stats_ref,
+                                   _stats_launch_bound, sw_full.LAUNCHES)}
+    cs_k = {"sw_vector_cs_mesh": (sw_cs, "sw_vector_batch",
+                                  sw_vector.sw_vector_batch,
+                                  sw_vector.sw_vector_batch_ref,
+                                  _vec_launch_bound, sw_vector.CS_LAUNCHES),
+            "sw_cs_full_mesh": (sw_cs, "sw_full_cs_dp",
+                                sw_cs_full.sw_full_cs_dp,
+                                sw_cs_full.sw_full_cs_dp_ref,
+                                _cs_dp_launch_bound, sw_cs_full.DP_LAUNCHES),
+            "cs_traceback_mesh": (sw_cs, "cs_traceback",
+                                  sw_cs_full.cs_traceback,
+                                  sw_cs_full.cs_traceback_ref,
+                                  _cs_tb_launch_bound,
+                                  sw_cs_full.TB_LAUNCHES)}
+    long_k = {"sw_vector_g352_mesh": (sw, "sw_vector_batch",
+                                      sw_vector.sw_vector_batch,
+                                      sw_vector.sw_vector_batch_ref,
+                                      _vec_launch_bound, sw_vector.LAUNCHES),
+              "sw_full_bp_mesh": (sw, "sw_full_bp", sw_full.sw_full_bp,
+                                  sw_full.sw_full_bp_ref, _bp_launch_bound,
+                                  sw_full.BP_LAUNCHES),
+              "ls_traceback_mesh": (sw, "traceback_pack",
+                                    sw_full.traceback_pack,
+                                    sw_full.traceback_pack_ref,
+                                    _tb_launch_bound, sw_full.TB_LAUNCHES)}
+    launches, rec = {}, {}
+    for title, name, n_all, cfg, paired, kernels, n in (
+            ("(a) LS", "ecoli_unpaired_ls", N_READS, MapperConfig(), False,
+             ls_k, MESH_READS),
+            ("(a) CS", "ecoli_unpaired_cs", N_READS, ecoli_cs_config(),
+             False, cs_k, MESH_READS),
+            ("(a) LS pairs", "ecoli_paired_ls", PAIRED_READS,
+             MapperConfig(pair_mode="opp-in"), True, {}, MESH_READS),
+            ("(a) CS pairs", "ecoli_paired_cs", PAIRED_READS,
+             MapperConfig(mode=cs, pair_mode="opp-in"), True, {},
+             MESH_READS),
+            ("(a) 250 bp (the long-read fallback on mesh[0])",
+             "ecoli_unpaired_ls_long", N_READS, MapperConfig(), False,
+             long_k, MESH_LONG_READS)):
+        idx, reads = _dataset(name, n_all)
+        reads = reads[:n]
+        kw = (dict(collect_z=True)
+              if title == "(a) LS" else {})
+        _tier_run(MeshMapper(idx, cfg, mesh=mesh), reads[:2 * B_CHUNK],
+                  paired)                                 # warm-up
+        mm = MeshMapper(idx, cfg, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.values():
+            k[-1].reset()
+        sam, secs = _tier_run(mm, reads, paired, **kw)
+        n_k = {name: k[-1].n for name, k in kernels.items()}
+        print(f"21 {title}: launches {n_k}; peak device memory "
+              f"{_peak_gib(dev)}; shards' plane bytes {mm.plane_bytes}; "
+              f"inner mapper's planes {mm.m.device_planes()}; {smi}")
+        for k, v in n_k.items():
+            if v <= 0:
+                raise AssertionError(f"{k}: not launched by the mesh path")
+        launches.update(n_k)
+        if kw:
+            zp = mm.last_zpart
+            merged = zmerge_psum(mesh, zp)
+            ok = np.allclose(merged, zp.sum(axis=0), rtol=1e-12, atol=0)
+            print(f"21 {title}: z1 partials [{zp.shape[0]}, {zp.shape[1]}]"
+                  f", shards with posteriors "
+                  f"{int((zp.sum(axis=1) > 0).sum())}; zmerge_psum equals "
+                  f"their host sum (rtol 1e-12): {ok}")
+            if not ok or not merged.max() > 0:
+                raise AssertionError("21 (a): zmerge_psum differs from the "
+                                     "host sum")
+            print(f"21 {title} card busy share (profiled run of the first "
+                  f"{4 * B_CHUNK} reads), summed over the shards' streams: "
+                  + _busy_share(lambda: _tier_run(
+                      MeshMapper(idx, cfg, mesh=mesh), reads[:4 * B_CHUNK],
+                      paired)[1]))
+        _against_unsharded(title, dev, mm, idx, cfg, reads, paired, sam,
+                           secs)
+        if kernels:
+            calls = _first_calls_of(
+                lambda: _tier_run(MeshMapper(idx, cfg, mesh=mesh),
+                                  reads[:B_CHUNK], paired),
+                {k: v[:2] for k, v in kernels.items()})
+            for k, v in kernels.items():
+                rec[k] = _check_captured(
+                    k, *calls[k], v[2], v[3], v[4], cs=kernels is cs_k,
+                    plain_reps=1, what="the mesh path's first per-shard "
+                    "launch")
+            del calls
+    return launches, rec
+
+
+def run_mesh_hg(dev, mesh, smi):
+    """Phase 21 (b): MeshMapper on phase 12's bin and reads, fused on the
+    mesh, against the unsharded two-phase card run."""
+    from shrimp_tpu_torch import dataset
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.parallel.meshmap import MeshMapper
+    codes, idx = _hg_ls()
+    reads = dataset.hg_reads(codes, HG_READS)[:MESH_HG_READS]
+    cfg = MapperConfig()
+    mm = MeshMapper(idx, cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sam, secs = _tier_run(mm, reads, False)
+    st = mm.m.stats
+    print(f"21 (b) hg LS: {st.vec_invocs / st.reads!r} windows per read, "
+          f"every one in a fused per-shard launch; peak device memory "
+          f"{_peak_gib(dev)}; shards' plane bytes {mm.plane_bytes}; {smi}")
+    print("21 (b) stage seconds: " + ", ".join(
+        f"{k} {v!r}" for k, v in st.stage_secs.items()))
+    with _Dispatches(False) as disp:
+        _against_unsharded("(b) hg LS (unsharded: two-phase)", dev, mm, idx,
+                           cfg, reads, False, sam, secs)
+    if not disp.all_two_phase():
+        raise AssertionError("21 (b): the unsharded run was not two-phase")
+
+
+def _region_contigs(codes, n, clen):
+    return [(f"chr{i + 1}", np.ascontiguousarray(codes[i * clen:
+                                                       (i + 1) * clen]))
+            for i in range(n)]
+
+
+def run_sharded_ecoli(dev, mesh, smi):
+    """Phase 21 (c): ShardedIndexMapper on E. coli cut into four
+    region-aligned contigs, one sub-index a shard (split_contig_bins),
+    against the whole index's unsharded card stream."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.dataset import ecoli_cs_config
+    from shrimp_tpu_torch.index.build import build_index
+    from shrimp_tpu_torch.index.seeds import default_seeds
+    from shrimp_tpu_torch.parallel.meshmap import (ShardedIndexMapper,
+                                                   split_contig_bins)
+    cs = C.MODE_COLOUR_SPACE
+    t0 = time.perf_counter()
+    contigs = _region_contigs(_dataset("ecoli_unpaired_ls", N_READS)[0].codes,
+                              4, ECOLI_CONTIG_LEN)
+    jobs = [(mode, b) for mode in ("ls", cs)
+            for b in [contigs] + split_contig_bins(contigs, len(mesh))]
+    with ThreadPoolExecutor(8) as ex:
+        idxs = list(ex.map(lambda j: build_index(
+            j[1], default_seeds(mode=j[0]), mode=j[0]), jobs))
+    n = len(mesh) + 1
+    built = {"ls": (idxs[0], idxs[1:n]), cs: (idxs[n], idxs[n + 1:])}
+    print(f"21 (c) E. coli in 4 contigs of {ECOLI_CONTIG_LEN} bases: whole "
+          f"and sub-indexes, LS and CS, in {time.perf_counter() - t0!r} s")
+    for title, name, n_all, cfg, paired in (
+            ("(c) LS", "ecoli_unpaired_ls", N_READS, MapperConfig(), False),
+            ("(c) LS pairs", "ecoli_paired_ls", PAIRED_READS,
+             MapperConfig(pair_mode="opp-in"), True),
+            ("(c) CS", "ecoli_unpaired_cs", N_READS, ecoli_cs_config(),
+             False),
+            ("(c) CS pairs", "ecoli_paired_cs", PAIRED_READS,
+             MapperConfig(mode=cs, pair_mode="opp-in"), True)):
+        reads = _dataset(name, n_all)[1][:MESH_READS]
+        whole, subs = built[cfg.mode]
+        sim = ShardedIndexMapper(subs, cfg, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sam, secs = _tier_run(sim, reads, paired)
+        z = sim.last_zpair_merged if paired else sim.last_z1_merged
+        print(f"21 {title}: peak device memory {_peak_gib(dev)}; shards' "
+              f"plane bytes {sim.plane_bytes}; inner mapper's planes "
+              f"{sim.m.device_planes()}; last merged Z rows "
+              f"{None if z is None else z.shape}, max "
+              f"{None if z is None else float(z.max())!r}; {smi}")
+        if sim.m.device_planes() or (cfg.mode == "ls" and not (
+                z is not None and z.max() > 0)) or (paired and not (
+                z is not None and z.max() > 0)):
+            raise AssertionError(f"21 {title}: a whole-genome plane on the "
+                                 "device, or no merged Z rows")
+        _against_unsharded(title, dev, sim, whole, cfg, reads, paired, sam,
+                           secs)
+
+
+def run_sharded_hg(dev, mesh, smi):
+    """Phase 21 (d): the split-db workflow on-line: four hg-like bins of
+    HG_SUB_LEN bases, one sub-index each, ShardedIndexMapper on
+    MESH_HG_READS reads drawn evenly from them; the oracle is the CPU run
+    of the same tier on the first MESH_HG_CPU_READS reads."""
+    from shrimp_tpu_torch import dataset
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.index.build import build_index
+    from shrimp_tpu_torch.index.seeds import default_seeds
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    from shrimp_tpu_torch.parallel import meshmap
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        bins = list(ex.map(lambda i: dataset.hg_bin(HG_SUB_LEN, i),
+                           range(4)))
+        t1 = time.perf_counter()
+        subs = list(ex.map(lambda i: build_index(
+            [(f"chr{i + 1}", bins[i])], default_seeds()), range(4)))
+    t2 = time.perf_counter()
+    per = MESH_HG_READS // 4
+    drawn = [dataset.hg_reads(b, per) for b in bins]
+    reads = [SeqRecord(f"chr{i + 1}_{drawn[i][k].name}", drawn[i][k].seq)
+             for k in range(per) for i in range(4)]
+    del drawn
+    print(f"21 (d) 4 bins of {HG_SUB_LEN} bases (chr1..chr4) generated in "
+          f"{t1 - t0!r} s, their sub-indexes in {t2 - t1!r} s; "
+          f"{len(reads)} reads, a quarter from each")
+    cfg = MapperConfig()
+    merges = []
+    orig = meshmap.zmerge_psum
+
+    def recorded(mesh_, zp):
+        merged = orig(mesh_, zp)
+        merges.append((zp, merged))
+        return merged
+    torch.cuda.reset_peak_memory_stats(dev)
+    meshmap.zmerge_psum = recorded
+    try:
+        sim = meshmap.ShardedIndexMapper(subs, cfg, mesh=mesh)
+        sam, secs = _tier_run(sim, reads, False)
+    finally:
+        meshmap.zmerge_psum = orig
+    st = sim.m.stats
+    z_ok = bool(merges) and all(
+        np.allclose(mg, zp.sum(axis=0), rtol=1e-12, atol=0)
+        for zp, mg in merges)
+    n_rec = sam.count(b"\n")
+    print(f"21 (d) split-db on-line: {len(reads)} reads in {secs!r} s = "
+          f"{len(reads) / secs!r} reads/s; list cutoff {sim.m.cutoff}; "
+          f"{st.vec_invocs / st.reads!r} windows per read; "
+          f"{n_rec} records; peak device memory "
+          f"{_peak_gib(dev)}; shards' plane bytes {sim.plane_bytes} "
+          f"(sum {sum(sim.plane_bytes)}); inner mapper's planes "
+          f"{sim.m.device_planes()}; {smi}")
+    print("21 (d) stage seconds: " + ", ".join(
+        f"{k} {v!r}" for k, v in st.stage_secs.items()))
+    print(f"21 (d) z1 merges {len(merges)}: each equals the host sum of "
+          f"its partials (rtol 1e-12): {z_ok}")
+    if not z_ok or sim.m.device_planes() or st.reads_mapped < 0.8 * len(
+            reads):
+        raise AssertionError("21 (d): z1 merge off, a whole-genome plane on "
+                             "the device, or mostly unmapped")
+    first = reads[:MESH_HG_CPU_READS]
+    sam_gpu, _ = _tier_run(sim, first, False)
+    cpu = meshmap.ShardedIndexMapper(subs, cfg,
+                                     mesh=meshmap.make_mesh(["cpu"] * 4))
+    sam_cpu, secs_cpu = _tier_run(cpu, first, False)
+    same = sam_cpu == sam_gpu and sam.startswith(sam_gpu)
+    print(f"21 (d) on a mesh of 4 cpu shards (plain versions), first "
+          f"{len(first)} reads: {secs_cpu!r} s; SAM identical to the card "
+          f"run's and a prefix of the full run's: {same}")
+    if not same:
+        raise AssertionError("21 (d): CUDA and CPU SAM bytes differ")
+
+
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 21))
+        return set(range(1, 22))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -2662,8 +3041,18 @@ def main() -> None:
         rec.update(r)
         run_cli(dev, smi)
         print(f"phase 20: {time.perf_counter() - t20!r} s")
+    if 21 in phases:
+        t21 = time.perf_counter()
+        mesh = _mesh()
+        ln, r = run_mesh_ecoli(dev, mesh, smi)
+        launches.update(ln)
+        rec.update(r)
+        run_mesh_hg(dev, mesh, smi)
+        run_sharded_ecoli(dev, mesh, smi)
+        run_sharded_hg(dev, mesh, smi)
+        print(f"phase 21: {time.perf_counter() - t21!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 21)):
+    if phases != set(range(1, 22)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -2712,7 +3101,23 @@ def main() -> None:
             ("sw_cs_full_generic", "sw_cs_full.cu",
              "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
             ("cs_traceback_generic", "cs_traceback.cu",
-             "shrimp_tpu/core/sw_cs_jax.py:261"))]
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_mesh", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_stats_mesh", "sw_full.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("sw_vector_cs_mesh", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_mesh", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_mesh", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_g352_mesh", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp_mesh", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback_mesh", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

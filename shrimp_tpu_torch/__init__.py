@@ -28,8 +28,12 @@ at 8 or more candidate windows a read):
   tail);
 - the command line, `python -m shrimp_tpu_torch {index,map}`
   (`--device cpu` for the plain versions), with the reference's index
-  files.
+  files;
+- the single-host mesh tiers (`parallel.meshmap.MeshMapper`,
+  `ShardedIndexMapper`): the four streams over a tuple of devices, the
+  genome range-sharded or one sub-index a shard, the Z statistics
+  recombined by collectives on the first device.
 
-Not yet: the multi-GPU tiers, the host tools and the CLI's other
-subcommands.
+Not yet: the multi-process tier (`DistMapper`), the host tools and the
+CLI's other subcommands.
 """

@@ -31,8 +31,13 @@ or, where it has none (planes over ~1 Gbp), byte by byte. An index of
 2^31 bases or more and windows wider than MAX_G_LONG raise
 NotImplementedError. The host stages run through the port's own native
 library (`native/`, a copy of the reference's C++), so the SAM bytes are
-the reference's. Not ported here: read sharding and the sharded-index
-MQV hooks. As in the reference, a stream whose first batch the flat
+the reference's. The mesh tiers (`parallel/meshmap.py`) plug in through
+the seams the reference has: `FastLS.dispatch_fn` (a `_fused_dispatch`
+twin; its `win["fetch"]` returns the rows on the host), filter 1 as a
+method (`FastLS._filter1`, `FastPaired._filter1_paired`), the per-job
+posteriors (`surv_post`, `last_rows`, `last_ri`) and the cross-shard Z
+hooks (`z1_merge_hook`, `zpair_merge_hook`). Not ported here: read
+sharding. As in the reference, a stream whose first batch the flat
 encoder rejects returns None and the caller runs the generic mapper
 (`mapper.Mapper.map_unpaired`, `paired.PairedMapper.map_paired`); a
 later rejected batch goes through the generic mapper inside the stream
@@ -482,10 +487,16 @@ def _fetch(ctx, n: int):
     """The dispatch's device results on the host: (vector scores int64
     [n], stats [n, 7] of the stats flow, (packed [n, 10], ops [n, W]) of
     the traceback flow); a two-phase dispatch returns the scores alone,
-    the others None. The device tensors are freed."""
+    the others None. A dispatch that leaves `win["fetch"]` (the mesh
+    tiers') is read through it: () -> the packed [n, 3] stats rows. The
+    device tensors are freed."""
     scores = np.empty(n, np.int64)
     stats = tb = None
-    if ctx["win"].get("two_phase") is not None:
+    fetch = ctx["win"].get("fetch")
+    if fetch is not None:
+        # a mesh dispatch: its packed stats rows, in window order
+        scores, stats = _unpack_stats3(fetch())
+    elif ctx["win"].get("two_phase") is not None:
         for off, k, (vec,) in ctx["futures"]:
             scores[off:off + k] = vec[:k].cpu().numpy()
     elif ctx["stats_flow"]:
@@ -514,6 +525,19 @@ class FastLS:
         # multi-lane streams set 1 (the lanes already keep every core
         # busy, inner threads just contend)
         self.f1_threads: Optional[int] = mapper.f1_threads
+        # the device dispatch, `_fused_dispatch`'s signature (None: the
+        # module's `_fused_dispatch`); the mesh tiers set theirs
+        self.dispatch_fn = None
+        # set to an empty array to ask for each emitted alignment's
+        # posterior: stage_finish then leaves them here, job t's window
+        # row in last_rows[t] and its read in last_ri[t] (the per-shard
+        # z1 partials of the mesh tiers)
+        self.surv_post: Optional[np.ndarray] = None
+        self.last_rows = self.last_ri = None
+        # (posteriors [n_jobs], job_ri, job_rows, n_reads) -> the z1
+        # [n_reads] the render divides by, merged across shards (the
+        # sharded-index tier); None: the run's own z1
+        self.z1_merge_hook = None
         idx = mapper.index
         blob = b""
         offs = [0]
@@ -529,14 +553,16 @@ class FastLS:
                                                      np.uint32)
 
     def _filter1(self, codes2: np.ndarray, L: int, wlen: int,
-                 min_kmer_pos: int = 0):
-        """Candidate window generation over the mapper's index (colour
-        space starts its k-mers at colour 1: min_kmer_pos=1)."""
+                 min_kmer_pos: int = 0, index=None):
+        """Candidate window generation over `index` (None: the mapper's;
+        colour space starts its k-mers at colour 1: min_kmer_pos=1).
+        The sharded-index tier overrides it."""
         m = self.m
         cfg = m.config
         opts = m._unpaired_opts[0]
         return generate_candidates_native(
-            m.index, codes2, L, wlen, m.cutoff, opts.hit_list.match_mode,
+            m.index if index is None else index, codes2, L, wlen, m.cutoff,
+            opts.hit_list.match_mode,
             opts.hit_list.threshold, cfg.scores.match,
             cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
             min_kmer_pos=min_kmer_pos,
@@ -652,7 +678,8 @@ class FastLS:
         G = 16
         stats_flow = True
         if fh.n:
-            futures, win, G, stats_flow = _fused_dispatch(
+            futures, win, G, stats_flow = (
+                self.dispatch_fn or _fused_dispatch)(
                 m, fh, read_tab, L, R, (fh.owner & 1) == 1, n_reads=B)
         m.tally("device dispatch", _time.perf_counter() - t2)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
@@ -921,26 +948,52 @@ class FastLS:
                 fr.qual_raw = ctx["qual_raw"].ctypes.data
             fr.una_lo = 0
             fr.una_hi = B
+        if self.surv_post is not None:
+            # each emitted alignment's posterior at its job index
+            self.surv_post = np.zeros(n_jobs, np.float64)
+            self.last_rows = rows
+            self.last_ri = jobs["ri"]
+            fr.surv_post = self.surv_post.ctypes.data
         frj = _FRJobs(_vp(jobs["ri"]), _vp(jobs["cn"]),
                       _vp(jobs["gen_st"]), _vp(jobs["g_off"]),
                       _vp(jobs["score_max"]), _vp(packed), _vp(ops_pk),
                       _vp(jobs["matches"]), _vp(jobs["swg"]),
                       _vp(jobs["score_vector"]))
         cap = n_jobs * (2 * L + 224) + 4096
-        while True:
-            buf = np.empty(cap, np.uint8)
-            nb = self.lib.finalize_render(ctypes.byref(fr),
-                                          ctypes.byref(frj),
-                                          _vp(buf), cap, _vp(nhits))
-            if nb >= 0:
-                break
-            if nb == -2:
-                raise RuntimeError("fastpath finalize unsupported config")
-            cap *= 4
+        if self.z1_merge_hook is not None:
+            # a first pass writes the posteriors of the alignments that
+            # enter z1 (the per-shard partials), the hook merges them
+            # across shards, and the render below divides by the merged
+            # z1 (MAPPING_QUALITIES Part 1c)
+            sp = np.zeros(n_jobs, np.float64)
+            fr.surv_post = sp.ctypes.data
+            _finalize_render(self.lib, fr, frj, cap, nhits)
+            fr.surv_post = None
+            z1m = np.ascontiguousarray(
+                self.z1_merge_hook(sp, jobs["ri"], rows, B), np.float64)
+            if z1m.shape != (B,):
+                raise ValueError(f"z1_merge_hook returned {z1m.shape}, "
+                                 f"not ({B},)")
+            fr.ext_z1 = z1m.ctypes.data
+        buf, nb = _finalize_render(self.lib, fr, frj, cap, nhits)
         m.tally("finalize + render", _time.perf_counter() - t1, reads=B,
                 reads_mapped=int((nhits > 0).sum()),
                 alignments=int(nhits.sum()))
         return buf[:nb].tobytes(), nhits
+
+
+def _finalize_render(lib, fr, frj, cap: int, nhits):
+    """One finalize_render call into a buffer that grows until the text
+    fits: (buffer, bytes written)."""
+    while True:
+        buf = np.empty(cap, np.uint8)
+        nb = lib.finalize_render(ctypes.byref(fr), ctypes.byref(frj),
+                                 _vp(buf), cap, _vp(nhits))
+        if nb >= 0:
+            return buf, nb
+        if nb == -2:
+            raise RuntimeError("fastpath finalize unsupported config")
+        cap *= 4
 
 
 def auto_batch_size(mapper) -> int:
@@ -1288,12 +1341,14 @@ def _mp_kw(m, ro, wlen: int, L: int, B: int) -> dict:
 
 
 def _filter1_paired(m, f1_threads, codes2, L: int, wlen: int, ro,
-                    min_kmer_pos: int):
-    """Paired candidate generation, the mate-pair region filter included
-    (colour space starts its k-mers at colour 1: min_kmer_pos=1)."""
+                    min_kmer_pos: int, index=None):
+    """Paired candidate generation over `index` (None: the mapper's),
+    the mate-pair region filter included (colour space starts its k-mers
+    at colour 1: min_kmer_pos=1)."""
     cfg = m.config
     return generate_candidates_native(
-        m.index, codes2, L, wlen, m.cutoff, ro.hit_list.match_mode,
+        m.index if index is None else index, codes2, L, wlen, m.cutoff,
+        ro.hit_list.match_mode,
         ro.hit_list.threshold, cfg.scores.match,
         cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
         min_kmer_pos=min_kmer_pos,
@@ -1319,6 +1374,34 @@ def _paired_render(lib, p, wstruct, cap, pair_nhits, read_nhits):
         cap *= 4
         pair_nhits[:] = 0
         read_nhits[:] = 0
+
+
+def _zpair_collect(lib, p, wstruct, cap: int, n_pairs: int, hook,
+                   win_shard, n_shards: int, pair_nhits, read_nhits):
+    """The sharded-index paired MQV recombination, LS and CS: a first
+    render pass writes each (pair, shard)'s partial class statistics
+    [n_pairs, n_shards, 9] (pairedpipe.cpp PPParams tail; `win_shard`
+    is each window row's shard), `hook` merges them across shards into
+    the [n_pairs, 7] rows that `p.ext_in` then points at for the render
+    pass. Returns the merged rows, which must outlive that pass."""
+    ws = np.ascontiguousarray(win_shard, np.int32)
+    part = np.zeros((n_pairs, n_shards, 9), np.float64)
+    p.win_shard = ws.ctypes.data
+    p.n_shards = n_shards
+    p.part_out = part.ctypes.data
+    # the render sets each rendered pair's partials afresh, so a pass
+    # that outgrows its buffer needs no reset of `part`
+    _paired_render(lib, p, wstruct, cap, pair_nhits, read_nhits)
+    ext = np.ascontiguousarray(hook(part), np.float64)
+    if ext.shape != (n_pairs, 7):
+        raise ValueError(f"zpair_merge_hook returned {ext.shape}, not "
+                         f"({n_pairs}, 7)")
+    p.win_shard = None
+    p.part_out = None
+    p.ext_in = ext.ctypes.data
+    pair_nhits[:] = 0
+    read_nhits[:] = 0
+    return ext
 
 
 def _select_then_full(m, lib, p, wstruct, pairing, hp, n: int,
@@ -1415,12 +1498,27 @@ class FastPaired:
     scores alone, every window row that can need full-SW results, the
     full SW runs on those rows (`_tp_run_full`), and rows the render
     then finds missing are added in rescue rounds. `mapper` is a
-    `paired.PairedMapper`."""
+    `paired.PairedMapper`.
+
+    The sharded-index tier sets `zpair_merge_hook` ([n_pairs, D, 9]
+    partials -> the merged [n_pairs, 7] rows the render divides by),
+    `zpair_win_shard` (each window's shard) and `zpair_n_shards`; a
+    batch takes two phases only with the module's own dispatch and no
+    hook, as in the reference."""
 
     def __init__(self, mapper) -> None:
         self.fls = FastLS(mapper)
         self.lib = self.fls.lib
         self.m = mapper
+        self.zpair_merge_hook = None
+        self.zpair_win_shard = None
+        self.zpair_n_shards = 0
+
+    def _filter1_paired(self, codes2, L: int, wlen: int, ro):
+        """Paired candidate generation (the mate-pair region filter
+        included); the sharded-index tier overrides it."""
+        return _filter1_paired(self.m, self.fls.f1_threads, codes2, L, wlen,
+                               ro, min_kmer_pos=0)
 
     # ---------------------------------------------------------- stage A
     def stage_prepare(self, records: Sequence[SeqRecord],
@@ -1506,8 +1604,7 @@ class FastPaired:
         m.tally("read prep", _time.perf_counter() - t0)
         t1 = _time.perf_counter()
         ro = m._paired_opts[0].read[0]
-        fh = _filter1_paired(m, self.fls.f1_threads, codes2, L, wlen,
-                             ro, min_kmer_pos=0)
+        fh = self._filter1_paired(codes2, L, wlen, ro)
         if fh is None:
             return None
         m.tally("filter1", _time.perf_counter() - t1)
@@ -1525,9 +1622,13 @@ class FastPaired:
                 input_strand[(fh.owner >> 1).astype(np.int64)]
             # n_reads gates the two-phase dispatch by density (vec-only
             # now; the full SW later on the rows the native select pass
-            # picks: the reference's lazy full SW)
-            futures, win, G, stats_flow = _fused_dispatch(
-                m, fh, read_tab, L, R, rcf, n_reads=B)
+            # picks: the reference's lazy full SW); the mesh tiers keep
+            # the fused launch
+            tp_ok = (self.fls.dispatch_fn is None
+                     and self.zpair_merge_hook is None)
+            futures, win, G, stats_flow = (
+                self.fls.dispatch_fn or _fused_dispatch)(
+                m, fh, read_tab, L, R, rcf, n_reads=B if tp_ok else None)
         m.tally("device dispatch", _time.perf_counter() - t2)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
                     G=G, R=R, stats_flow=stats_flow, codes=codes,
@@ -1673,6 +1774,11 @@ class FastPaired:
         rg_bytes = _set_paired_render_flags(p, cfg, ctx["raw"], n_pairs)
         wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
         cap = max(1 << 20, n_pairs * 4 * (L + 320))
+        ext = None        # p.ext_in points into it through the render
+        if self.zpair_merge_hook is not None:
+            ext = _zpair_collect(self.lib, p, wstruct, cap, n_pairs,
+                                 self.zpair_merge_hook, self.zpair_win_shard,
+                                 self.zpair_n_shards, pair_nhits, read_nhits)
         if tp is None:
             out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
                                           pair_nhits, read_nhits)
@@ -1682,6 +1788,7 @@ class FastPaired:
                 pair_nhits, read_nhits,
                 lambda rows: self._run_rows(ctx, tp, rows),
                 ("packed", "ops_pk"), "paired select (2ph)")
+        del ext
         m.tally("paired select + render", _time.perf_counter() - t0,
                 reads_mapped=int((pair_nhits > 0).sum()) * 2,
                 alignments=2 * int(pair_nhits.sum())

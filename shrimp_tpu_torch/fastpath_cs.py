@@ -24,7 +24,11 @@ counts every statistic through `Mapper.tally`, which the lane threads
 share. As in the LS streams, a stream whose first batch the flat
 encoder rejects returns None (the caller runs the generic mapper), and
 a later rejected batch takes the generic mapper's slow tail
-(`fastpath.unpaired_slow_tail`, `fastpath.paired_slow_tail`).
+(`fastpath.unpaired_slow_tail`, `fastpath.paired_slow_tail`). The mesh
+tiers (`parallel/meshmap.py`) override filter 1 (`FastCS._filter1_cs`,
+`FastPairedCS._filter1_cs_paired`) and the device dispatch
+(`FastCS._fused_dispatch_cs`), and set the paired Z hooks that
+`FastPairedCS` shares with `fastpath.FastPaired`.
 """
 from __future__ import annotations
 
@@ -45,8 +49,8 @@ from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _PPParams, _PPWin,
                        _check_index_len, _filter1_paired,
                        _paired_render, _paired_unaligned_block,
                        _select_then_full, _set_paired_render_flags, _vp,
-                       auto_batch_size, batch_pipeline, paired_slow_tail,
-                       unpaired_slow_tail)
+                       _zpair_collect, auto_batch_size, batch_pipeline,
+                       paired_slow_tail, unpaired_slow_tail)
 from .io.fasta import SeqRecord
 from .mapper import _round_up
 
@@ -177,6 +181,11 @@ class FastCS:
         self.fls = FastLS(mapper)
         self.lib = self.fls.lib
         self.m = mapper
+
+    def _filter1_cs(self, codes2, R: int, wlen: int):
+        """Candidate window generation, k-mers from colour 1; the
+        sharded-index tier overrides it."""
+        return self.fls._filter1(codes2, R, wlen, min_kmer_pos=1)
 
     def _encode(self, records: Sequence[SeqRecord], drop_low_qv: bool):
         """The flat CS encoding of a batch: read text, qualities, primer
@@ -313,7 +322,7 @@ class FastCS:
         codes2 = np.empty((B, 2, R), np.uint8)
         codes2[:, 0] = enc["codes0"]
         codes2[:, 1] = enc["codes1"]
-        fh = self.fls._filter1(codes2, R, enc["wlen"], min_kmer_pos=1)
+        fh = self._filter1_cs(codes2, R, enc["wlen"])
         if fh is None:
             return None
         m.tally("filter1", _time.perf_counter() - t1)
@@ -728,7 +737,23 @@ class FastPairedCS(FastCS):
     rescoring, the half-paired fallback, paired MQVs and the CS SAM
     text. Two-phase batches run select-then-full (`fastpath.
     _select_then_full`), the 4-layer DP and the traceback on the rows
-    the select pass picks. `mapper` is a `paired.PairedMapper`."""
+    the select pass picks. `mapper` is a `paired.PairedMapper`. The
+    sharded-index tier sets the Z hooks of `fastpath.FastPaired`
+    (`zpair_merge_hook`, `zpair_win_shard`, `zpair_n_shards`); its
+    dispatch keeps the fused launch."""
+
+    def __init__(self, mapper) -> None:
+        super().__init__(mapper)
+        self.zpair_merge_hook = None
+        self.zpair_win_shard = None
+        self.zpair_n_shards = 0
+
+    def _filter1_cs_paired(self, codes2, R: int, wlen: int, ro):
+        """Paired candidate generation, k-mers from colour 1, the
+        mate-pair region filter included; the sharded-index tier
+        overrides it."""
+        return _filter1_paired(self.m, self.fls.f1_threads, codes2, R, wlen,
+                               ro, min_kmer_pos=1)
 
     def _cs_genome_view_paired(self, ctx):
         """Letter planes the paired native render's post-SW eval reads,
@@ -769,8 +794,8 @@ class FastPairedCS(FastCS):
         t1 = _time.perf_counter()
         # colour k-mers from colour 1, the mate-pair region filter
         # included
-        fh = _filter1_paired(m, self.fls.f1_threads, codes2, R, enc["wlen"],
-                             m._paired_opts[0].read[0], min_kmer_pos=1)
+        fh = self._filter1_cs_paired(codes2, R, enc["wlen"],
+                                     m._paired_opts[0].read[0])
         if fh is None:
             return None
         m.tally("filter1", _time.perf_counter() - t1)
@@ -886,6 +911,11 @@ class FastPairedCS(FastCS):
         rg_bytes = _set_paired_render_flags(p, cfg, raw, n_pairs)
         wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
         cap = max(1 << 20, n_pairs * 6 * (3 * R + 320))
+        ext = None        # p.ext_in points into it through the render
+        if self.zpair_merge_hook is not None:
+            ext = _zpair_collect(self.lib, p, wstruct, cap, n_pairs,
+                                 self.zpair_merge_hook, self.zpair_win_shard,
+                                 self.zpair_n_shards, pair_nhits, read_nhits)
         if tp is None:
             out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
                                           pair_nhits, read_nhits)
@@ -896,7 +926,7 @@ class FastPairedCS(FastCS):
                 lambda rows: self._cs_run_full_rows(tp, rows, fh, R,
                                                     ctx["G"]),
                 ("cs_packed", "cs_steps"), "cs paired select (2ph)")
-        del rg_bytes
+        del rg_bytes, ext
         m.tally("cs paired select + render", _time.perf_counter() - t0,
                 reads_mapped=int((pair_nhits > 0).sum()) * 2,
                 alignments=2 * int(pair_nhits.sum())

@@ -21,14 +21,17 @@ sw_full_and_traceback`) and the colour-space 4-layer DP with its
 traceback (`core/sw_cs.py::sw_full_cs_dispatch`). Every launch of a
 batch is queued before one copy of each kind of result comes back.
 
-The genome planes live on `device` from the moment the Mapper is made
-(`_pad_plane`, `_dev_codes`, `_dev_codes_rc`, `_dev_cat_words`, and for a
-colour-space config `_dev_cs_planes`, `_dev_cs_cat_words`), built from
-the numpy arrays of the port's own `index.build.GenomeIndex` with the
-reference's padding and word layout, so both packages compute on
-identical bytes. The fast streams read the same planes. Every
-statistics update goes through `tally`, which takes a lock: the streams'
-lane threads share one Mapper (a bare `+=` loses updates).
+Each genome plane goes to `device` on its first use (`_pad_plane`,
+`_dev_codes`, `_dev_codes_rc`, `_dev_cat_words`, and for a colour-space
+config `_dev_cs_planes`, `_dev_cs_cat_words`), as the reference's do, under
+a lock that the streams' lane threads share; a mapper whose planes are
+never asked for (the mesh tiers' inner mapper) holds none on the device.
+They are built from the numpy arrays of the port's own
+`index.build.GenomeIndex` with the reference's padding and word layout,
+so both packages compute on identical bytes. The fast streams read the
+same planes. Every statistics update goes through `tally`, which takes a
+lock: the streams' lane threads share one Mapper (a bare `+=` loses
+updates).
 
 On CUDA, windows wider than the kernels take (colour space over 256
 columns, letter space over 4095) raise NotImplementedError naming their
@@ -65,6 +68,10 @@ from .index.build import GenomeIndex
 from .io.fasta import SeqRecord
 from .native.filter1_py import generate_candidates_native
 from .utils.stats import MapperStats
+
+
+# a device plane not uploaded yet (Mapper._lazy)
+_NOT_UPLOADED = object()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -301,23 +308,13 @@ class Mapper:
         self.f1_threads: Optional[int] = None
         self._stats_lock = threading.Lock()
         self.device = get_device(device)
-        fp = self._pad_plane(index.codes)
-        rp = self._pad_plane(index.codes_rc)
-        self._codes_dev = self._upload(fp)
-        self._codes_rc_dev = self._upload(rp)
-        cat = cat_word_plane(fp, rp)
-        self._cat_words_dev = None if cat is None else self._upload(cat)
-        self._cs_planes_dev = self._cs_cat_words_dev = None
-        if cfg.mode == C.MODE_COLOUR_SPACE:
-            cfp = self._pad_plane(index.cs_codes)
-            crp = self._pad_plane(index.cs_codes_rc)
-            self._cs_planes_dev = (self._upload(cfp), self._upload(crp),
-                                   self._codes_dev, self._codes_rc_dev)
-            ccat = cat_word_plane(cfp, crp)
-            # the letter cat plane is _cat_words_dev: the same bytes
-            if ccat is not None and cat is not None:
-                self._cs_cat_words_dev = (self._upload(ccat),
-                                          self._cat_words_dev)
+        # the device planes, each uploaded on its first use (`_lazy`); a
+        # caller may set one to None to withhold it (no word plane: the
+        # byte gather)
+        self._plane_lock = threading.RLock()
+        self._codes_dev = self._codes_rc_dev = _NOT_UPLOADED
+        self._cat_words_dev = _NOT_UPLOADED
+        self._cs_planes_dev = self._cs_cat_words_dev = _NOT_UPLOADED
 
     def tally(self, stage: Optional[str] = None, secs: float = 0.0,
               **counts) -> None:
@@ -352,29 +349,81 @@ class Mapper:
         out[:len(a)] = a
         return out
 
+    def _lazy(self, attr: str, make):
+        """The plane held in `attr`, made by `make()` and kept there on
+        its first use. The lock is reentrant: the colour-space planes
+        reuse the letter ones."""
+        v = getattr(self, attr)
+        if v is _NOT_UPLOADED:
+            with self._plane_lock:
+                v = getattr(self, attr)
+                if v is _NOT_UPLOADED:
+                    v = make()
+                    setattr(self, attr, v)
+        return v
+
+    def upload_planes(self) -> "Mapper":
+        """Upload now every plane this config's paths read (each goes up
+        on its first use otherwise), e.g. to keep the upload out of a
+        timed run. Returns the mapper."""
+        self._dev_codes()
+        self._dev_codes_rc()
+        self._dev_cat_words()
+        self._dev_cs_planes()
+        self._dev_cs_cat_words()
+        return self
+
+    def device_planes(self) -> List[str]:
+        """The names of the planes uploaded so far."""
+        return [a for a in ("_codes_dev", "_codes_rc_dev", "_cat_words_dev",
+                            "_cs_planes_dev", "_cs_cat_words_dev")
+                if getattr(self, a) not in (_NOT_UPLOADED, None)]
+
     def _dev_codes(self) -> torch.Tensor:
         """Padded forward genome plane on the device."""
-        return self._codes_dev
+        return self._lazy("_codes_dev", lambda: self._upload(
+            self._pad_plane(self.index.codes)))
 
     def _dev_codes_rc(self) -> torch.Tensor:
         """Padded reverse-complement genome plane on the device."""
-        return self._codes_rc_dev
+        return self._lazy("_codes_rc_dev", lambda: self._upload(
+            self._pad_plane(self.index.codes_rc)))
 
     def _dev_cat_words(self) -> Optional[torch.Tensor]:
         """The concatenated word plane (core.sw.cat_word_plane) on the
         device, or None when its offsets would overflow int32."""
-        return self._cat_words_dev
+        def make():
+            cat = cat_word_plane(self._pad_plane(self.index.codes),
+                                 self._pad_plane(self.index.codes_rc))
+            return None if cat is None else self._upload(cat)
+        return self._lazy("_cat_words_dev", make)
 
     def _dev_cs_planes(self):
         """(colour, colour rc, letter, letter rc) padded planes on the
         device for a colour-space config, else None."""
-        return self._cs_planes_dev
+        def make():
+            if self.config.mode != C.MODE_COLOUR_SPACE:
+                return None
+            idx = self.index
+            return (self._upload(self._pad_plane(idx.cs_codes)),
+                    self._upload(self._pad_plane(idx.cs_codes_rc)),
+                    self._dev_codes(), self._dev_codes_rc())
+        return self._lazy("_cs_planes_dev", make)
 
     def _dev_cs_cat_words(self):
         """(colour cat words, letter cat words) on the device for a
         colour-space config, or None (letter-space config, or offsets
         that would overflow int32)."""
-        return self._cs_cat_words_dev
+        def make():
+            if self.config.mode != C.MODE_COLOUR_SPACE:
+                return None
+            idx = self.index
+            ccat = cat_word_plane(self._pad_plane(idx.cs_codes),
+                                  self._pad_plane(idx.cs_codes_rc))
+            # the letter cat plane is _cat_words_dev: the same bytes
+            cat = None if ccat is None else self._dev_cat_words()
+            return None if cat is None else (self._upload(ccat), cat)
+        return self._lazy("_cs_cat_words_dev", make)
 
     def _check_width(self, G: int, max_g: int, rows, what: str) -> None:
         """On CUDA, a launch of windows wider than the kernel takes raises

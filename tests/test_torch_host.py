@@ -447,3 +447,112 @@ def test_index_trim_and_seed_subset_match_reference(indexes, tmp_path):
     os.remove(tmp_path / "ps.seed.1.npz")
     with pytest.raises(FileNotFoundError, match="partial copy"):
         PortGI.load_split(str(tmp_path / "ps.genome"))
+
+
+# ---------------------------------------------- the mesh tiers' host helpers
+
+@pytest.mark.parametrize("kw,L", [
+    ({}, 36), ({}, None), (dict(longest_read_len=10000), None),
+    (dict(window_len=-700.0), 250), (dict(window_len=300.0), 1200)])
+def test_halo_for_matches_reference(kw, L):
+    from shrimp_tpu.parallel.meshmap import halo_for as ref_halo
+    from shrimp_tpu_torch.parallel.meshmap import halo_for as port_halo
+    assert port_halo(PortConfig(**kw), L) == ref_halo(RefConfig(**kw), L)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 8])
+def test_split_contig_bins_matches_reference(D):
+    from shrimp_tpu.parallel.meshmap import split_contig_bins as ref_split
+    from shrimp_tpu_torch.parallel.meshmap import \
+        split_contig_bins as port_split
+    rng = np.random.default_rng(D)
+    contigs = [(f"c{k}", np.zeros(int(n), np.uint8))
+               for k, n in enumerate(rng.integers(100, 5000, 7))]
+    got, want = port_split(contigs, D), ref_split(contigs, D)
+    assert [[n for n, _ in b] for b in got] == \
+        [[n for n, _ in b] for b in want]
+
+
+@pytest.fixture
+def index_memory_freed(monkeypatch):
+    """Both packages' index builds copy the big arrays into hugepage
+    buffers that are never unmapped (`utils/hostmem.py::to_hugepages`);
+    the cases below build many small indexes, so their arrays stay in
+    numpy memory, freed with the index (the copy's own fallback)."""
+    from shrimp_tpu.utils import hostmem as ref_hostmem
+    from shrimp_tpu_torch.index import build as port_build_mod
+    monkeypatch.setattr(port_build_mod, "to_hugepages", lambda a: a)
+    monkeypatch.setattr(ref_hostmem, "to_hugepages", lambda a: a)
+
+
+def _sub_indexes(D, mode):
+    from shrimp_tpu.parallel.meshmap import split_contig_bins
+    contigs = _contigs(lens=(20_000, 9_000, 70_000, 4_096, 33_000))
+    out = []
+    for build, enc, seeds in ((ref_build, ref_encode, ref_seeds),
+                              (port_build, port_encode, port_seeds)):
+        cs = [(n, enc.encode_ls(s)) for n, s in contigs]
+        out.append([build(b, seeds(mode=mode), mode=mode)
+                    for b in split_contig_bins(cs, D)])
+    return out
+
+
+@pytest.mark.parametrize("mode", ["ls", "cs"])
+@pytest.mark.parametrize("D", [2, 3])
+def test_composite_index_matches_reference(mode, D, index_memory_freed):
+    from shrimp_tpu.parallel.meshmap import CompositeIndex as RefComp
+    from shrimp_tpu_torch.parallel.meshmap import CompositeIndex as PortComp
+    ref_subs, port_subs = _sub_indexes(D, mode)
+    ref, port = RefComp(ref_subs), PortComp(port_subs)
+    assert port.contig_names == ref.contig_names
+    for f in ("contig_offsets", "contig_lengths", "codes", "codes_rc",
+              "cs_codes", "cs_codes_rc", "cn_base", "pos_base"):
+        a, b = getattr(port, f), getattr(ref, f)
+        assert (a is None and b is None) or (
+            a.dtype == b.dtype and np.array_equal(a, b)), f
+    assert port.auto_list_cutoff() == ref.auto_list_cutoff()
+    assert (port.total_len, port.n_contigs, port.max_seed_span) == \
+        (ref.total_len, ref.n_contigs, ref.max_seed_span)
+    pos = np.array([0, 19_999, 20_000, 100_000, port.total_len - 1])
+    assert np.array_equal(port.contig_of(pos), ref.contig_of(pos))
+    assert not hasattr(port, "seeds")
+
+
+def test_merge_shard_flathits_matches_reference(index_memory_freed):
+    """Per-shard filter 1 over three sub-indexes, merged back into the
+    whole-index window order: the same FlatHits and shards."""
+    from shrimp_tpu.parallel.meshmap import merge_shard_flathits as ref_merge
+    from shrimp_tpu_torch.parallel.meshmap import \
+        merge_shard_flathits as port_merge
+    ref_subs, port_subs = _sub_indexes(3, "ls")
+    plane = np.concatenate([s.codes for s in ref_subs])
+    rng = np.random.default_rng(4)
+    L, n = 36, 120
+    pos = rng.integers(0, len(plane) - L, n)
+    fwd = plane[pos[:, None] + np.arange(L)[None, :]].copy()
+    fwd[rng.random((n, L)) < 0.03] = rng.integers(0, 4)
+    codes2 = np.stack([fwd, RC.COMPLEMENT[fwd[:, ::-1]]], axis=1)
+    cfg = RefConfig()
+    opts = cfg.unpaired_options()[0]
+    kw = dict(read_len=L, window_len=int(L * 1.4), cutoff=1000,
+              match_mode=opts.hit_list.match_mode,
+              threshold=opts.hit_list.threshold,
+              match_score=cfg.scores.match,
+              b_gap_open=cfg.scores.b_gap_open,
+              b_gap_extend=cfg.scores.b_gap_extend, threads=2)
+    cn_base = np.concatenate([[0], np.cumsum([s.n_contigs
+                                              for s in ref_subs])])
+    want, want_sh = ref_merge([(ref_f1(s, codes2, **kw), d)
+                               for d, s in enumerate(ref_subs)],
+                              cn_base, 2 * n)
+    got, got_sh = port_merge([(port_f1(s, codes2, **kw), d)
+                              for d, s in enumerate(port_subs)],
+                             cn_base, 2 * n)
+    assert want.n >= n and np.array_equal(got_sh, want_sh)
+    assert len(set(got_sh.tolist())) >= 2
+    for f in dataclasses.fields(want):
+        r, p = getattr(want, f.name), getattr(got, f.name)
+        assert p.dtype == r.dtype and np.array_equal(p, r), f.name
+    empty, sh = port_merge([(port_f1(port_subs[0], codes2[:0], **kw), 0)],
+                           cn_base, 0)
+    assert empty.n == 0 and len(sh) == 0

@@ -57,7 +57,8 @@ def test_port_sources_import_no_jax():
             "core/candidates.py", "core/batch_pipeline.py",
             "core/traceback.py", "core/sw_np.py", "core/sw_cs_np.py",
             "core/sw_cs_batch.py", "io/sam.py",
-            "io/shrimp_format.py"} <= rel
+            "io/shrimp_format.py", "parallel/__init__.py",
+            "parallel/meshmap.py"} <= rel
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -104,6 +105,58 @@ def test_maps_to_sam_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     n_rec, n_reads = map(int, res.stdout.split()[1::2])
     assert n_reads == 80 and n_rec >= 40
+
+
+def test_mesh_tiers_map_with_jax_blocked(tmp_path):
+    """The mesh tiers with `import jax` failing: MeshMapper and
+    ShardedIndexMapper on a mesh of two "cpu" shards write the
+    unsharded stream's SAM (the genome cut at a region boundary into two
+    contigs, one a shard)."""
+    gpath, rpath, _, _ = make_dataset(str(tmp_path), n_reads=64,
+                                      genome_len=16_384)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["shrimp_tpu"] = None
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from shrimp_tpu_torch.core.encode import encode_ls
+        from shrimp_tpu_torch.index.build import build_index
+        from shrimp_tpu_torch.index.seeds import default_seeds
+        from shrimp_tpu_torch.io.fasta import read_seqs
+        from shrimp_tpu_torch import fastpath
+        from shrimp_tpu_torch.mapper import Mapper
+        from shrimp_tpu_torch.parallel import meshmap
+        g = next(read_seqs({gpath!r}))
+        codes = encode_ls(g.seq)
+        half = len(codes) // 2
+        contigs = [("a", codes[:half]), ("b", codes[half:])]
+        idx = build_index(contigs, default_seeds())
+        reads = list(read_seqs({rpath!r}))
+        want = b"".join(fastpath.map_unpaired_sam_stream(
+            Mapper(idx, None, "cpu"), reads, batch_size=32))
+        mesh = meshmap.make_mesh(["cpu"] * 2)
+        got = meshmap.MeshMapper(idx, None, mesh=mesh).map_unpaired_sam(
+            reads, batch_size=32)
+        subs = [build_index(b, default_seeds())
+                for b in meshmap.split_contig_bins(contigs, 2)]
+        sim = meshmap.ShardedIndexMapper(subs, None, mesh=mesh)
+        got2 = sim.map_unpaired_sam(reads, batch_size=32)
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in ("jax", "jaxlib", "shrimp_tpu")]
+        assert not loaded, loaded
+        print("records", want.count(b"\\n"), "same", int(got == want),
+              "same_sharded", int(got2 == want))
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_rec, same, same_sharded = map(int, res.stdout.split()[1::2])
+    assert n_rec >= 32 and same == same_sharded == 1
 
 
 def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
