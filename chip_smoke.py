@@ -174,6 +174,23 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    partials. Each run prints reads/s (the unsharded stream's beside
    it), peak device memory, each shard's plane bytes and the inner
    mapper's device planes (none unless a fallback ran).
+22. The multi-process tier (shrimp_tpu_torch.parallel.dist): two rank
+   processes of parallel/dist_worker.py over gloo (a file:// init),
+   two shards each on cuda:0 (two ranks share the one card: the
+   exchanges, not scaling across cards). (a) phase 21 (c)'s four E. coli
+   contigs and reads (LS, LS pairs, CS, CS pairs; LS and LS pairs again
+   with read sharding), (b) DIST_LONG_READS 250 bp reads of phase 11 (the
+   per-shard traceback flow), (c) phase 21 (d)'s split-db bins and
+   reads. Every SAM, on both ranks, equal to ShardedIndexMapper's on the
+   same sub-indexes and reads and to the unsharded stream's ((c): the
+   CPU run of the first MESH_HG_CPU_READS reads is a prefix); read
+   sharding splits each rank's jobs and filter-1 windows. Each rank holds
+   every kernel of the path against its plain version on its own first
+   launch (`*_dist` records, dist_kernel_checks). Prints the slower
+   rank's reads/s beside ShardedIndexMapper's and the stream's, the
+   merge bytes and seconds, each rank's filter-1 windows, slice jobs,
+   peak device memory and stage seconds. A rank that fails or outlives
+   DIST_TIMEOUT_S fails the phase (both are killed).
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -189,7 +206,9 @@ the card's name and power limit, the kernels' JSON record (each
 kernel's launches on its slice, error, times and bound) and {"ok": true,
 "device": {...}}. `--phases 12,13` runs only the phases listed (the
 build always runs) and then prints no result; `--phases 20` runs the
-generic mapper's phase alone, `--phases 21` the mesh tiers'.
+generic mapper's phase alone, `--phases 21` the mesh tiers',
+`--phases 22` the multi-process tier's (with phase 21 (c) and (d) first,
+for its oracles).
 """
 from __future__ import annotations
 
@@ -2667,6 +2686,49 @@ def _against_unsharded(title, dev, tier, idx, cfg, reads, paired, sam, secs):
     if sam != want or lines < 0.8 * len(reads):
         raise AssertionError(f"21 {title}: the mesh's SAM differs from the "
                              "unsharded run's, or mostly unmapped")
+    return want, secs_u
+
+
+def _flow_kernels(suffix):
+    """The kernels of the sharded tiers' flows, each {record name: (the
+    module whose wrapper the flow calls, the wrapper's name there, kernel,
+    plain version, launch bound, launch counter, colour space)}: the LS
+    stats flow's, the CS flow's and the long-read traceback flow's."""
+    from shrimp_tpu_torch.core import sw, sw_cs, sw_cs_full, sw_full
+    from shrimp_tpu_torch.core import sw_vector
+    vec = (sw_vector.sw_vector_batch, sw_vector.sw_vector_batch_ref,
+           _vec_launch_bound)
+    ls_k = {"sw_vector" + suffix: (sw, "sw_vector_batch", *vec,
+                                   sw_vector.LAUNCHES, False),
+            "sw_full_stats" + suffix: (sw, "sw_full_stats",
+                                       sw_full.sw_full_stats,
+                                       sw_full.sw_full_stats_ref,
+                                       _stats_launch_bound, sw_full.LAUNCHES,
+                                       False)}
+    cs_k = {"sw_vector_cs" + suffix: (sw_cs, "sw_vector_batch", *vec,
+                                      sw_vector.CS_LAUNCHES, True),
+            "sw_cs_full" + suffix: (sw_cs, "sw_full_cs_dp",
+                                    sw_cs_full.sw_full_cs_dp,
+                                    sw_cs_full.sw_full_cs_dp_ref,
+                                    _cs_dp_launch_bound,
+                                    sw_cs_full.DP_LAUNCHES, True),
+            "cs_traceback" + suffix: (sw_cs, "cs_traceback",
+                                      sw_cs_full.cs_traceback,
+                                      sw_cs_full.cs_traceback_ref,
+                                      _cs_tb_launch_bound,
+                                      sw_cs_full.TB_LAUNCHES, True)}
+    long_k = {"sw_vector_g352" + suffix: (sw, "sw_vector_batch", *vec,
+                                          sw_vector.LAUNCHES, False),
+              "sw_full_bp" + suffix: (sw, "sw_full_bp", sw_full.sw_full_bp,
+                                      sw_full.sw_full_bp_ref,
+                                      _bp_launch_bound, sw_full.BP_LAUNCHES,
+                                      False),
+              "ls_traceback" + suffix: (sw, "traceback_pack",
+                                        sw_full.traceback_pack,
+                                        sw_full.traceback_pack_ref,
+                                        _tb_launch_bound,
+                                        sw_full.TB_LAUNCHES, False)}
+    return ls_k, cs_k, long_k
 
 
 def run_mesh_ecoli(dev, mesh, smi):
@@ -2675,42 +2737,10 @@ def run_mesh_ecoli(dev, mesh, smi):
     and the kernel records on its first per-shard launches."""
     from shrimp_tpu_torch import constants as C
     from shrimp_tpu_torch.config import MapperConfig
-    from shrimp_tpu_torch.core import sw, sw_cs, sw_cs_full, sw_full
-    from shrimp_tpu_torch.core import sw_vector
     from shrimp_tpu_torch.dataset import ecoli_cs_config
     from shrimp_tpu_torch.parallel.meshmap import MeshMapper, zmerge_psum
     cs = C.MODE_COLOUR_SPACE
-    ls_k = {"sw_vector_mesh": (sw, "sw_vector_batch",
-                               sw_vector.sw_vector_batch,
-                               sw_vector.sw_vector_batch_ref,
-                               _vec_launch_bound, sw_vector.LAUNCHES),
-            "sw_full_stats_mesh": (sw, "sw_full_stats", sw_full.sw_full_stats,
-                                   sw_full.sw_full_stats_ref,
-                                   _stats_launch_bound, sw_full.LAUNCHES)}
-    cs_k = {"sw_vector_cs_mesh": (sw_cs, "sw_vector_batch",
-                                  sw_vector.sw_vector_batch,
-                                  sw_vector.sw_vector_batch_ref,
-                                  _vec_launch_bound, sw_vector.CS_LAUNCHES),
-            "sw_cs_full_mesh": (sw_cs, "sw_full_cs_dp",
-                                sw_cs_full.sw_full_cs_dp,
-                                sw_cs_full.sw_full_cs_dp_ref,
-                                _cs_dp_launch_bound, sw_cs_full.DP_LAUNCHES),
-            "cs_traceback_mesh": (sw_cs, "cs_traceback",
-                                  sw_cs_full.cs_traceback,
-                                  sw_cs_full.cs_traceback_ref,
-                                  _cs_tb_launch_bound,
-                                  sw_cs_full.TB_LAUNCHES)}
-    long_k = {"sw_vector_g352_mesh": (sw, "sw_vector_batch",
-                                      sw_vector.sw_vector_batch,
-                                      sw_vector.sw_vector_batch_ref,
-                                      _vec_launch_bound, sw_vector.LAUNCHES),
-              "sw_full_bp_mesh": (sw, "sw_full_bp", sw_full.sw_full_bp,
-                                  sw_full.sw_full_bp_ref, _bp_launch_bound,
-                                  sw_full.BP_LAUNCHES),
-              "ls_traceback_mesh": (sw, "traceback_pack",
-                                    sw_full.traceback_pack,
-                                    sw_full.traceback_pack_ref,
-                                    _tb_launch_bound, sw_full.TB_LAUNCHES)}
+    ls_k, cs_k, long_k = _flow_kernels("_mesh")
     launches, rec = {}, {}
     for title, name, n_all, cfg, paired, kernels, n in (
             ("(a) LS", "ecoli_unpaired_ls", N_READS, MapperConfig(), False,
@@ -2734,9 +2764,9 @@ def run_mesh_ecoli(dev, mesh, smi):
         mm = MeshMapper(idx, cfg, mesh=mesh)
         torch.cuda.reset_peak_memory_stats(dev)
         for k in kernels.values():
-            k[-1].reset()
+            k[5].reset()
         sam, secs = _tier_run(mm, reads, paired, **kw)
-        n_k = {name: k[-1].n for name, k in kernels.items()}
+        n_k = {name: k[5].n for name, k in kernels.items()}
         print(f"21 {title}: launches {n_k}; peak device memory "
               f"{_peak_gib(dev)}; shards' plane bytes {mm.plane_bytes}; "
               f"inner mapper's planes {mm.m.device_planes()}; {smi}")
@@ -2769,7 +2799,7 @@ def run_mesh_ecoli(dev, mesh, smi):
                 {k: v[:2] for k, v in kernels.items()})
             for k, v in kernels.items():
                 rec[k] = _check_captured(
-                    k, *calls[k], v[2], v[3], v[4], cs=kernels is cs_k,
+                    k, *calls[k], v[2], v[3], v[4], cs=v[6],
                     plain_reps=1, what="the mesh path's first per-shard "
                     "launch")
             del calls
@@ -2801,6 +2831,10 @@ def run_mesh_hg(dev, mesh, smi):
         raise AssertionError("21 (b): the unsharded run was not two-phase")
 
 
+# phase 21 (c) and (d)'s indexes, reads and SAM, phase 22's oracles
+_SHARDED: dict = {}
+
+
 def _region_contigs(codes, n, clen):
     return [(f"chr{i + 1}", np.ascontiguousarray(codes[i * clen:
                                                        (i + 1) * clen]))
@@ -2829,6 +2863,7 @@ def run_sharded_ecoli(dev, mesh, smi):
             j[1], default_seeds(mode=j[0]), mode=j[0]), jobs))
     n = len(mesh) + 1
     built = {"ls": (idxs[0], idxs[1:n]), cs: (idxs[n], idxs[n + 1:])}
+    _SHARDED.update(ecoli_contigs=contigs, ecoli_indexes=built)
     print(f"21 (c) E. coli in 4 contigs of {ECOLI_CONTIG_LEN} bases: whole "
           f"and sub-indexes, LS and CS, in {time.perf_counter() - t0!r} s")
     for title, name, n_all, cfg, paired in (
@@ -2855,8 +2890,10 @@ def run_sharded_ecoli(dev, mesh, smi):
                 z is not None and z.max() > 0)):
             raise AssertionError(f"21 {title}: a whole-genome plane on the "
                                  "device, or no merged Z rows")
-        _against_unsharded(title, dev, sim, whole, cfg, reads, paired, sam,
-                           secs)
+        want, secs_u = _against_unsharded(title, dev, sim, whole, cfg, reads,
+                                          paired, sam, secs)
+        _SHARDED[name] = dict(reads=reads, cfg=cfg, paired=paired, sam=sam,
+                              secs=secs, want=want, secs_u=secs_u)
 
 
 def run_sharded_hg(dev, mesh, smi):
@@ -2932,12 +2969,271 @@ def run_sharded_hg(dev, mesh, smi):
           f"run's and a prefix of the full run's: {same}")
     if not same:
         raise AssertionError("21 (d): CUDA and CPU SAM bytes differ")
+    _SHARDED["hg"] = dict(bins=bins, reads=reads, cfg=cfg, paired=False,
+                          sam=sam, secs=secs, cpu=sam_cpu)
+
+
+# ------------------------------------------------------------ phase 22
+
+DIST_RANKS = 2            # of phase 21's four shards, two a rank
+DIST_LONG_READS = 2048
+DIST_TIMEOUT_S = 300      # both ranks are killed past it
+DIST_WARM_READS = 4096
+DIST_DEVICE = "cuda:0"
+DIST_HOOK = "chip_smoke:dist_kernel_checks"
+DIST_DIR = os.path.join("build", "dist22")
+# the dist path's kernel records: (launch counter, the jobs of its path)
+_DIST_LS_JOBS = ("a_ls", "a_ls_rs", "a_pairs", "a_pairs_rs", "c_hg")
+_DIST_CS_JOBS = ("a_cs", "a_cs_pairs")
+DIST_LAUNCHES = {
+    "sw_vector_dist": ("sw_vector", _DIST_LS_JOBS),
+    "sw_full_stats_dist": ("sw_full_stats", _DIST_LS_JOBS),
+    "sw_vector_cs_dist": ("sw_vector_cs", _DIST_CS_JOBS),
+    "sw_cs_full_dist": ("sw_cs_full", _DIST_CS_JOBS),
+    "cs_traceback_dist": ("cs_traceback", _DIST_CS_JOBS),
+    "sw_vector_g352_dist": ("sw_vector", ("b_long",)),
+    "sw_full_bp_dist": ("sw_full_bp", ("b_long",)),
+    "ls_traceback_dist": ("ls_traceback", ("b_long",))}
+
+
+def dist_kernel_checks(run, names, in_turn):
+    """`parallel/dist_worker.py --kernel-check chip_smoke:dist_kernel_checks`,
+    called in every rank: `run()` maps, and each kernel of `names`
+    (`_flow_kernels("_dist")`) is held against its plain version on this
+    rank's first launch of it in that run, with its device time, plain
+    time and bound; the ranks take turns (`in_turn`) so that their
+    timings do not overlap on the card."""
+    ks = {k: v for d in _flow_kernels("_dist") for k, v in d.items()
+          if k in names}
+    calls = _first_calls_of(run, {k: v[:2] for k, v in ks.items()})
+    missing = sorted(set(ks) - set(calls))
+    if missing:
+        raise AssertionError(f"{missing}: not launched on this rank's dist "
+                             "path")
+    rank = torch.distributed.get_rank()
+    return in_turn(lambda: {k: _check_captured(
+        k, *calls[k], v[2], v[3], v[4], cs=v[6], plain_reps=1,
+        what=f"rank {rank}'s first launch on the dist path")
+        for k, v in ks.items()})
+
+
+def _dist_cases():
+    """Phase 22's jobs: (job, genome, phase 21's workload (its reads
+    and oracles), MapperConfig keywords, paired, read sharding, kernel
+    records captured in it)."""
+    pairs, cs = {"pair_mode": "opp-in"}, {"mode": "cs"}
+    return (("a_ls", "ecoli_ls", "ecoli_unpaired_ls", {}, False, False,
+             ["sw_vector_dist", "sw_full_stats_dist"]),
+            ("a_ls_rs", "ecoli_ls", "ecoli_unpaired_ls", {}, False, True, []),
+            ("a_pairs", "ecoli_ls", "ecoli_paired_ls", pairs, True, False, []),
+            ("a_pairs_rs", "ecoli_ls", "ecoli_paired_ls", pairs, True, True,
+             []),
+            ("b_long", "ecoli_ls", "long", {}, False, False,
+             ["sw_vector_g352_dist", "sw_full_bp_dist", "ls_traceback_dist"]),
+            ("a_cs", "ecoli_cs", "ecoli_unpaired_cs", cs, False, False,
+             ["sw_vector_cs_dist", "sw_cs_full_dist", "cs_traceback_dist"]),
+            ("a_cs_pairs", "ecoli_cs", "ecoli_paired_cs",
+             dict(cs, **pairs), True, False, []),
+            ("c_hg", "hg", "hg", {}, False, False, []))
+
+
+def _dist_long_oracle(dev, mesh):
+    """Phase 22 (b)'s oracles: ShardedIndexMapper on phase 21 (c)'s four
+    LS sub-indexes and the unsharded card stream on their whole index,
+    DIST_LONG_READS of phase 11's 250 bp reads."""
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.parallel.meshmap import ShardedIndexMapper
+    whole, subs = _SHARDED["ecoli_indexes"]["ls"]
+    reads = _dataset("ecoli_unpaired_ls_long", N_READS)[1][:DIST_LONG_READS]
+    cfg = MapperConfig()
+    sam, secs = _tier_run(ShardedIndexMapper(subs, cfg, mesh=mesh), reads,
+                          False)
+    m = _mapper_cls(False)(whole, cfg, dev).upload_planes()
+    _map(m, reads[:B_CHUNK // 4], _ls_stream)             # warm-up
+    want, secs_u = _map(m, reads, _ls_stream)
+    return dict(reads=reads, cfg=cfg, paired=False, sam=sam, secs=secs,
+                want=want, secs_u=secs_u)
+
+
+def _run_ranks(jobs_path, out) -> None:
+    """DIST_RANKS rank processes of parallel/dist_worker.py over gloo (a
+    file:// init), their shards on DIST_DEVICE; all are
+    killed if either outlives DIST_TIMEOUT_S, and a rank that exits
+    non-zero fails the phase. Their output is printed after them."""
+    pg = os.path.abspath(os.path.join(DIST_DIR, "pg"))
+    logs = [os.path.join(DIST_DIR, f"rank{r}.log") for r in range(DIST_RANKS)]
+    procs = []
+    for r in range(DIST_RANKS):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "shrimp_tpu_torch.parallel.dist_worker",
+                 "--rank", str(r), "--world", str(DIST_RANKS), "--init",
+                 "file://" + pg, "--jobs", jobs_path, "--out", out,
+                 "--device", DIST_DEVICE, "--timeout", str(DIST_TIMEOUT_S),
+                 "--kernel-check", DIST_HOOK],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            for ln in f.read().splitlines()[-60:]:
+                print(f"22 rank {r}| {ln}")
+    if timed_out or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"22: a rank timed out ({timed_out}) or failed "
+                             f"(exit codes {[p.returncode for p in procs]})")
+
+
+def _report_diff(job, got: bytes, want: bytes) -> None:
+    """Print how two SAM texts differ (the first differing records) and
+    write both beside the phase's inputs for a closer look."""
+    a, b = got.split(b"\n"), want.split(b"\n")
+    bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    print(f"22 {job}: {len(a)} / {len(b)} lines, {len(bad)} differ; first:")
+    for i in bad[:4]:
+        print(f"  got  {a[i][:300]!r}\n  want {b[i][:300]!r}")
+    for tag, text in (("got", got), ("want", want)):
+        with open(os.path.join(DIST_DIR, f"{job}.{tag}.sam"), "wb") as f:
+            f.write(text)
+
+
+def run_dist(dev, smi):
+    """Phase 22: the multi-process tier, two ranks on the one card, two
+    shards each (["cuda:0"] * 2), over gloo: (a) phase 21 (c)'s E. coli
+    contigs and workloads (LS and LS pairs again with read sharding),
+    (b) DIST_LONG_READS 250 bp reads (the per-shard traceback flow),
+    (c) phase 21 (d)'s split-db bins and reads. Every SAM must equal, on
+    both ranks, ShardedIndexMapper's on the same four sub-indexes and
+    reads and the unsharded stream's (for (c) the CPU run of the first
+    MESH_HG_CPU_READS reads). Returns the launches of the dist path and
+    the kernel records of the ranks' first launches."""
+    import shutil
+    from shrimp_tpu_torch.parallel.dist_worker import write_genome
+    t0 = time.perf_counter()
+    if "ecoli_unpaired_ls" not in _SHARDED or "hg" not in _SHARDED:
+        mesh = _mesh()          # phase 21 did not run: its oracles now
+        run_sharded_ecoli(dev, mesh, smi)
+        run_sharded_hg(dev, mesh, smi)
+    oracles = dict(_SHARDED)
+    oracles["long"] = _dist_long_oracle(dev, _mesh())
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    write_genome(os.path.join(DIST_DIR, "ecoli.npz"),
+                 [[c] for c in _SHARDED["ecoli_contigs"]])
+    write_genome(os.path.join(DIST_DIR, "hg.npz"),
+                 [[(f"chr{i + 1}", b)] for i, b in
+                  enumerate(_SHARDED["hg"]["bins"])])
+    cases = _dist_cases()
+    warm = ("warm", "ecoli_ls", "ecoli_unpaired_ls", {}, False, False, [])
+    spec = dict(genomes=dict(ecoli_ls=dict(path="ecoli.npz", mode="ls"),
+                             ecoli_cs=dict(path="ecoli.npz", mode="cs"),
+                             hg=dict(path="hg.npz", mode="ls")), jobs=[])
+    for job, genome, wl, cfg, paired, rs, capture in (warm,) + cases:
+        reads = oracles[wl]["reads"]
+        if job == "warm":
+            reads = reads[:DIST_WARM_READS]
+        _write_fasta(os.path.join(DIST_DIR, job + ".fa"), reads)
+        spec["jobs"].append(dict(name=job, genome=genome, reads=job + ".fa",
+                                 paired=paired, read_sharding=rs,
+                                 batch_size=B_CHUNK, config=cfg,
+                                 capture=capture))
+    jobs_path = os.path.join(DIST_DIR, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(spec, f)
+    out = os.path.join(DIST_DIR, "out")
+    t1 = time.perf_counter()
+    print(f"22: {DIST_RANKS} ranks on one card ({smi}), "
+          f"{len(_SHARDED['ecoli_contigs']) // DIST_RANKS} shards each on "
+          f"{DIST_DEVICE}, over gloo; oracles and inputs ready in "
+          f"{t1 - t0!r} s. Two ranks sharing one card show the exchanges, "
+          "not scaling across cards")
+    _run_ranks(jobs_path, out)
+    print(f"22: the ranks ran in {time.perf_counter() - t1!r} s")
+    launches = {}
+    for job, genome, wl, cfg, paired, rs, capture in cases:
+        o = oracles[wl]
+        got = []
+        for r in range(DIST_RANKS):
+            stem = os.path.join(out, f"{job}.r{r}")
+            with open(stem + ".sam", "rb") as f, open(stem + ".json") as g:
+                got.append((f.read(), json.load(g)))
+        metas = [m for _, m in got]
+        for counter, jobs in DIST_LAUNCHES.values():
+            if job in jobs:
+                launches[counter, job] = sum(m["launches"][counter]
+                                             for m in metas)
+        wall = max(m["map_wall"] for m in metas)
+        n = len(o["reads"])
+        n_rec = got[0][0].count(b"\n")
+        same = all(sam == o["sam"] for sam, _ in got)
+        if wl == "hg":
+            same_u = all(sam.startswith(o["cpu"]) for sam, _ in got)
+            unsharded = (f"CPU run of the first {MESH_HG_CPU_READS} reads a "
+                         f"prefix of both: {same_u}")
+        else:
+            same_u = all(sam == o["want"] for sam, _ in got)
+            unsharded = (f"unsharded stream {n / o['secs_u']!r} reads/s, "
+                         f"identical: {same_u}")
+        print(f"22 {job}: {n} reads, the slower rank's wall {wall!r} s = "
+              f"{n / wall!r} reads/s; ShardedIndexMapper {n / o['secs']!r} "
+              f"reads/s, identical on both ranks: {same}; {unsharded}; "
+              f"{n_rec} records; merge bytes "
+              f"{[m['merge_bytes'] for m in metas]}, merge s "
+              f"{[m['merge_secs'] for m in metas]}; f1_local_windows "
+              f"{[m['f1_local_windows'] for m in metas]}; slice_jobs "
+              f"{[m['slice_jobs'] for m in metas]}; windows a read "
+              f"{metas[0]['windows_per_read']!r}; peak device memory "
+              f"{[m['peak_gib'] for m in metas]} GiB; launches "
+              f"{[m['launches'] for m in metas]}")
+        for r, m in enumerate(metas):
+            print(f"22 {job} rank {r} stage seconds: " + ", ".join(
+                f"{k} {v!r}" for k, v in m["stage_secs"].items()))
+        if not (same and same_u) or n_rec < 0.8 * n:
+            _report_diff(job, got[0][0], o["sam"])
+            raise AssertionError(f"22 {job}: a rank's SAM differs from its "
+                                 "oracles, or mostly unmapped")
+        if rs:
+            for key in ("slice_jobs", "f1_local_windows"):
+                v = [m[key] for m in metas]
+                if not (min(v) > 0 and max(v) <= 0.75 * sum(v)):
+                    raise AssertionError(f"22 {job}: {key} {v} not split")
+    rec = {}
+    recs = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out, f"kernels.r{r}.json")) as f:
+            recs.append(json.load(f))
+    n_k = {}
+    for name, (counter, jobs) in DIST_LAUNCHES.items():
+        n_k[name] = sum(launches[counter, j] for j in jobs)
+        if n_k[name] <= 0:
+            raise AssertionError(f"{name}: not launched by the dist path")
+        if any(name not in rr for rr in recs):
+            raise AssertionError(f"{name}: a rank left no kernel record")
+        rec[name] = dict(recs[0][name],
+                         err=max(rr[name]["err"] for rr in recs))
+        if rec[name]["err"] != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 "version on a rank's first launch")
+    print(f"22: launches of the dist path, both ranks: {n_k}; kernel "
+          f"records: rank 0 {recs[0]}; rank 1 {recs[1]}")
+    return n_k, rec
+
 
 
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 22))
+        return set(range(1, 23))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -3051,8 +3347,14 @@ def main() -> None:
         run_sharded_ecoli(dev, mesh, smi)
         run_sharded_hg(dev, mesh, smi)
         print(f"phase 21: {time.perf_counter() - t21!r} s")
+    if 22 in phases:
+        t22 = time.perf_counter()
+        ln, r = run_dist(dev, smi)
+        launches.update(ln)
+        rec.update(r)
+        print(f"phase 22: {time.perf_counter() - t22!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 22)):
+    if phases != set(range(1, 23)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -3117,6 +3419,22 @@ def main() -> None:
             ("sw_full_bp_mesh", "sw_full_bp.cu",
              "shrimp_tpu/core/sw_full_pallas.py:298"),
             ("ls_traceback_mesh", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("sw_vector_dist", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_stats_dist", "sw_full.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("sw_vector_cs_dist", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_dist", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_dist", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_g352_dist", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp_dist", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback_dist", "ls_traceback.cu",
              "shrimp_tpu/core/sw_jax.py:785"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "

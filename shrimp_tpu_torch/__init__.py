@@ -32,8 +32,12 @@ at 8 or more candidate windows a read):
 - the single-host mesh tiers (`parallel.meshmap.MeshMapper`,
   `ShardedIndexMapper`): the four streams over a tuple of devices, the
   genome range-sharded or one sub-index a shard, the Z statistics
-  recombined by collectives on the first device.
+  recombined by collectives on the first device;
+- the multi-process tier (`parallel.dist.DistMapper`, over
+  torch.distributed with gloo): each rank holds its own shards'
+  sub-indexes, the device rows, the alignment expansions and the Z
+  statistics are exchanged between ranks, and read sharding splits the
+  host work by reads (`parallel.dist_worker` runs one rank over files).
 
-Not yet: the multi-process tier (`DistMapper`), the host tools and the
-CLI's other subcommands.
+Not yet: the host tools and the CLI's other subcommands.
 """

@@ -36,8 +36,12 @@ the seams the reference has: `FastLS.dispatch_fn` (a `_fused_dispatch`
 twin; its `win["fetch"]` returns the rows on the host), filter 1 as a
 method (`FastLS._filter1`, `FastPaired._filter1_paired`), the per-job
 posteriors (`surv_post`, `last_rows`, `last_ri`) and the cross-shard Z
-hooks (`z1_merge_hook`, `zpair_merge_hook`). Not ported here: read
-sharding. As in the reference, a stream whose first batch the flat
+hooks (`z1_merge_hook`, `zpair_merge_hook`). The multi-process tier
+(`parallel/dist.py`) also shards the host work by reads: `read_slice`
+with `slice_select` (FastLS, FastPaired) has a stage select, expand and
+render only a slice of each batch; a rank-local batch with no jobs still
+joins the tier's expansion exchange (`FastLS._no_jobs`). As in the
+reference, a stream whose first batch the flat
 encoder rejects returns None and the caller runs the generic mapper
 (`mapper.Mapper.map_unpaired`, `paired.PairedMapper.map_paired`); a
 later rejected batch goes through the generic mapper inside the stream
@@ -487,15 +491,20 @@ def _fetch(ctx, n: int):
     """The dispatch's device results on the host: (vector scores int64
     [n], stats [n, 7] of the stats flow, (packed [n, 10], ops [n, W]) of
     the traceback flow); a two-phase dispatch returns the scores alone,
-    the others None. A dispatch that leaves `win["fetch"]` (the mesh
-    tiers') is read through it: () -> the packed [n, 3] stats rows. The
-    device tensors are freed."""
+    the others None. A dispatch that leaves `win["fetch"]` (the sharded
+    tiers') is read through it: () -> the packed [n, 3] stats rows, or
+    the traceback flow's (vec, packed, ops). The device tensors are
+    freed."""
     scores = np.empty(n, np.int64)
     stats = tb = None
     fetch = ctx["win"].get("fetch")
     if fetch is not None:
-        # a mesh dispatch: its packed stats rows, in window order
-        scores, stats = _unpack_stats3(fetch())
+        # a sharded dispatch: its rows, in window order
+        got = fetch()
+        if ctx["stats_flow"]:
+            scores, stats = _unpack_stats3(got)
+        else:
+            scores, tb = got[0], tuple(got[1:])
     elif ctx["win"].get("two_phase") is not None:
         for off, k, (vec,) in ctx["futures"]:
             scores[off:off + k] = vec[:k].cpu().numpy()
@@ -538,6 +547,15 @@ class FastLS:
         # [n_reads] the render divides by, merged across shards (the
         # sharded-index tier); None: the run's own z1
         self.z1_merge_hook = None
+        # read sharding (the multi-process tier): (lo, hi) has
+        # finalize + render run only for the batch's reads [lo, hi); with
+        # slice_select pass-1 selection, the vector gate and the
+        # expansion are sliced too (the expansion then asks the owner
+        # ranks for remote shards' rows); last_slice_jobs counts the
+        # jobs of the slices
+        self.read_slice = None
+        self.slice_select = False
+        self.last_slice_jobs = 0
         idx = mapper.index
         blob = b""
         offs = [0]
@@ -706,7 +724,7 @@ class FastLS:
         parts = []
         name_off = ctx["name_off"]
         names = ctx["names"].tobytes()
-        for r in range(ctx["B"]):
+        for r in range(*(self.read_slice or (0, ctx["B"]))):
             if nhits[r]:
                 continue
             q = (qual_raw[r].tobytes() if qual_raw is not None
@@ -724,13 +742,8 @@ class FastLS:
         diagonal chain (plane == 0, term == 0) are reconstructed closed
         form, vectorized; the rare indel / cross-plane paths are re-run
         by the native banded DP (hostpipe.cpp sw_full_tb_host)."""
-        m = self.m
-        sc = m.config.scores
         n_jobs = ctx2["n_jobs"]
-        jobs = ctx2["jobs"]
-        R, G = ctx2["R"], ctx2["G"]
-        L = ctx2["L"]
-        W = (R + G + 3) // 4
+        W = (ctx2["R"] + ctx2["G"] + 3) // 4
         packed = np.zeros((n_jobs, 10), np.int32)
         ops_pk = np.zeros((n_jobs, W), np.uint8)
         score, mi, mj, plane, run, term, matches = (
@@ -756,44 +769,57 @@ class FastLS:
             sub[ii, fb[ii]] = ((1 << (2 * rem[ii])) - 1).astype(np.uint8)
             ops_pk[rows] = sub
         need = np.nonzero(pos & ~closed)[0]
-        m.tally(full_host_tb=int(need.size))
-        if need.size:
-            idx = m.index
-            k2 = need.size
-            starts = ctx2["starts"][need]
-            rc = ctx2["rcmask"][need]
-            gpos = np.clip(starts[:, None]
-                           + np.arange(G, dtype=np.int64)[None, :],
-                           0, idx.total_len - 1)
-            gwin = np.ascontiguousarray(
-                np.where(rc[:, None], idx.codes_rc[gpos],
-                         idx.codes[gpos]).astype(np.uint8))
-            read = np.ascontiguousarray(
-                ctx2["read_tab"][jobs["ri"][need]])
-            glen = np.ascontiguousarray(
-                jobs["w_len"][need].astype(np.int32))
-            rlen = np.full(k2, L, np.int32)
-            ax = np.ascontiguousarray(ctx2["rx"][need])
-            ay = np.ascontiguousarray(ctx2["ry"][need])
-            alen = np.ascontiguousarray(ctx2["rl_"][need])
-            awid = np.ascontiguousarray(ctx2["rw_"][need])
-            rev = np.ascontiguousarray(ctx2["rev"][need].astype(np.uint8))
-            pk2 = np.zeros((k2, 10), np.int32)
-            op2 = np.zeros((k2, W), np.uint8)
-            p = _FSWParams(k2, G, R, W, sc.match, sc.mismatch,
-                           sc.a_gap_open, sc.a_gap_extend, sc.b_gap_open,
-                           sc.b_gap_extend, 0)
-            jb = _FSWJobs(_vp(gwin), _vp(glen), _vp(read), _vp(rlen),
-                          _vp(ax), _vp(ay), _vp(alen), _vp(awid),
-                          _vp(rev))
-            rv = self.lib.sw_full_tb_host(ctypes.byref(p),
-                                          ctypes.byref(jb), _vp(pk2),
-                                          _vp(op2))
-            if rv != 0:
-                raise RuntimeError(f"sw_full_tb_host failed ({rv})")
-            packed[need] = pk2
-            ops_pk[need] = op2
+        self.m.tally(full_host_tb=int(need.size))
+        self._expand_need(need, ctx2, packed, ops_pk)
         return packed, ops_pk, W
+
+    def _expand_need(self, need, ctx2, packed, ops_pk) -> None:
+        """The rows of the jobs `need` (indel and cross-plane paths) into
+        `packed` / `ops_pk`: the native banded DP re-run on their windows,
+        whose bytes come from the mapper's index. The multi-process tier
+        overrides it (the owner ranks expand, and exchange)."""
+        if not need.size:
+            return
+        m = self.m
+        sc = m.config.scores
+        jobs = ctx2["jobs"]
+        R, G, L = ctx2["R"], ctx2["G"], ctx2["L"]
+        W = ops_pk.shape[1]
+        idx = m.index
+        k2 = need.size
+        starts = ctx2["starts"][need]
+        rc = ctx2["rcmask"][need]
+        gpos = np.clip(starts[:, None]
+                       + np.arange(G, dtype=np.int64)[None, :],
+                       0, idx.total_len - 1)
+        gwin = np.ascontiguousarray(
+            np.where(rc[:, None], idx.codes_rc[gpos],
+                     idx.codes[gpos]).astype(np.uint8))
+        read = np.ascontiguousarray(
+            ctx2["read_tab"][jobs["ri"][need]])
+        glen = np.ascontiguousarray(
+            jobs["w_len"][need].astype(np.int32))
+        rlen = np.full(k2, L, np.int32)
+        ax = np.ascontiguousarray(ctx2["rx"][need])
+        ay = np.ascontiguousarray(ctx2["ry"][need])
+        alen = np.ascontiguousarray(ctx2["rl_"][need])
+        awid = np.ascontiguousarray(ctx2["rw_"][need])
+        rev = np.ascontiguousarray(ctx2["rev"][need].astype(np.uint8))
+        pk2 = np.zeros((k2, 10), np.int32)
+        op2 = np.zeros((k2, W), np.uint8)
+        p = _FSWParams(k2, G, R, W, sc.match, sc.mismatch,
+                       sc.a_gap_open, sc.a_gap_extend, sc.b_gap_open,
+                       sc.b_gap_extend, 0)
+        jb = _FSWJobs(_vp(gwin), _vp(glen), _vp(read), _vp(rlen),
+                      _vp(ax), _vp(ay), _vp(alen), _vp(awid),
+                      _vp(rev))
+        rv = self.lib.sw_full_tb_host(ctypes.byref(p),
+                                      ctypes.byref(jb), _vp(pk2),
+                                      _vp(op2))
+        if rv != 0:
+            raise RuntimeError(f"sw_full_tb_host failed ({rv})")
+        packed[need] = pk2
+        ops_pk[need] = op2
 
     # ---------------------------------------------------------- stage B
     def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray]:
@@ -810,6 +836,9 @@ class FastLS:
         fh = ctx["fh"]
         L, wlen = ctx["L"], ctx["wlen"]
         nhits = np.zeros(B, np.int32)
+        if self.read_slice is not None and self.z1_merge_hook is not None:
+            raise ValueError("read_slice and z1_merge_hook are mutually "
+                             "exclusive")
         if fh.n == 0:
             m.tally(reads=B)
             return self._unaligned_block(ctx, nhits), nhits
@@ -824,6 +853,21 @@ class FastLS:
 
         # ---- native pass1 selection over vector scores
         t0 = _time.perf_counter()
+        sliced = self.read_slice is not None and self.slice_select
+        sel_sl = slice(0, n)
+        if sliced:
+            # read sharding at full depth: pass-1 selection, the vector
+            # gate, the expansion and the render run on this rank's read
+            # slice only. Window rows are owner-major, so the slice's rows
+            # are one span (seg_start bounds); each sliced read's windows
+            # span every shard (the allgather ran before this), so its
+            # MQV denominator is whole without a merge
+            lo_s, hi_s = self.read_slice
+            sel_sl = slice(int(fh.seg_start[min(2 * lo_s, 2 * B)]),
+                           int(fh.seg_start[min(2 * hi_s, 2 * B)]))
+            n = sel_sl.stop - sel_sl.start
+            if n == 0:
+                return self._no_jobs(ctx, nhits)
         opts = m._unpaired_opts[0].pass1
         cap = max(n, 1)
         sel = {k: np.empty(cap, dt) for k, dt in
@@ -839,18 +883,20 @@ class FastLS:
             int(abs_or_pct(opts.window_overlap, wlen)),
             float(opts.threshold), opts.min_matches, opts.num_outputs,
             1, self.contig_lengths32.ctypes.data)
-        arrs = dict(owner=np.ascontiguousarray(fh.owner, np.int64),
-                    cn=np.ascontiguousarray(fh.cn, np.int32),
-                    g_off=np.ascontiguousarray(fh.g_off, np.int64),
-                    w_len=np.ascontiguousarray(fh.w_len, np.int32),
-                    matches=np.ascontiguousarray(fh.matches, np.int32),
-                    score_max=np.ascontiguousarray(fh.score_max, np.int64),
-                    ax=np.ascontiguousarray(fh.ax, np.int64),
-                    ay=np.ascontiguousarray(fh.ay, np.int64),
-                    alen=np.ascontiguousarray(fh.alen, np.int64),
-                    awid=np.ascontiguousarray(fh.awid, np.int64),
-                    scores=scores,
-                    swg=np.ascontiguousarray(fh.score_window_gen,
+        arrs = dict(owner=np.ascontiguousarray(fh.owner[sel_sl], np.int64),
+                    cn=np.ascontiguousarray(fh.cn[sel_sl], np.int32),
+                    g_off=np.ascontiguousarray(fh.g_off[sel_sl], np.int64),
+                    w_len=np.ascontiguousarray(fh.w_len[sel_sl], np.int32),
+                    matches=np.ascontiguousarray(fh.matches[sel_sl],
+                                                 np.int32),
+                    score_max=np.ascontiguousarray(fh.score_max[sel_sl],
+                                                   np.int64),
+                    ax=np.ascontiguousarray(fh.ax[sel_sl], np.int64),
+                    ay=np.ascontiguousarray(fh.ay[sel_sl], np.int64),
+                    alen=np.ascontiguousarray(fh.alen[sel_sl], np.int64),
+                    awid=np.ascontiguousarray(fh.awid[sel_sl], np.int64),
+                    scores=np.ascontiguousarray(scores[sel_sl]),
+                    swg=np.ascontiguousarray(fh.score_window_gen[sel_sl],
                                              np.int64))
         p1in = _P1In(**{k: _vp(v) for k, v in arrs.items()})
         p1out = _P1Out(cap, *[_vp(sel[k]) for k in
@@ -879,13 +925,12 @@ class FastLS:
         n_jobs = len(jsel)
         m.tally("pass1 select", _time.perf_counter() - t0)
         if n_jobs == 0:
-            m.tally(reads=B)
-            return self._unaligned_block(ctx, nhits), nhits
+            return self._no_jobs(ctx, nhits)
         jobs = {k: np.ascontiguousarray(sel[k][:n_sel][jsel]) for k in
                 ("ri", "gen_st", "cn", "g_off", "w_len", "score_max",
                  "ax", "ay", "alen", "awid", "matches", "swg",
                  "score_vector")}
-        rows = sel["src"][:n_sel][jsel]
+        rows = sel["src"][:n_sel][jsel] + sel_sl.start
         if tp is not None:
             # two-phase phase B: the full SW on the pass-1 + vector-gate
             # survivors only
@@ -893,16 +938,9 @@ class FastLS:
                                 stats_flow, fh, L, ctx["R"])
         t0 = _time.perf_counter()
         if stats_flow:
-            win = ctx["win"]
-            ctx2 = dict(n_jobs=n_jobs, jobs=jobs, R=ctx["R"], G=ctx["G"],
-                        L=L, read_tab=ctx["read_tab"],
-                        starts=win["starts"][rows],
-                        rcmask=win["rcmask"][rows],
-                        rx=win["rx"][rows], ry=win["ry"][rows],
-                        rl_=win["rl_"][rows], rw_=win["rw_"][rows],
-                        rev=win["rev"][rows])
             packed, ops_pk, W = self._stats_to_packed(
-                out2 if tp is not None else stats_all[rows], ctx2)
+                out2 if tp is not None else stats_all[rows],
+                _expand_ctx(ctx, rows, jobs, sliced))
         elif tp is not None:
             packed, ops_pk = out2
             W = ops_pk.shape[1]
@@ -911,6 +949,23 @@ class FastLS:
             ops_pk = np.ascontiguousarray(tb_all[1][rows])
             W = ops_pk.shape[1]
         m.tally("alignment expand", _time.perf_counter() - t0)
+        if sliced:
+            self.last_slice_jobs += n_jobs
+        elif self.read_slice is not None:
+            # read sharding, shallow: selection and the expansion ran over
+            # the whole batch on every rank; this rank renders only its
+            # slice (splitreads recast, README:236-276)
+            lo, hi = self.read_slice
+            smask = (jobs["ri"] >= lo) & (jobs["ri"] < hi)
+            jobs = {k: np.ascontiguousarray(v[smask])
+                    for k, v in jobs.items()}
+            rows = rows[smask]
+            packed = np.ascontiguousarray(packed[smask])
+            ops_pk = np.ascontiguousarray(ops_pk[smask])
+            n_jobs = int(smask.sum())
+            self.last_slice_jobs += n_jobs
+            if n_jobs == 0:
+                return self._no_jobs(ctx, nhits)
         t1 = _time.perf_counter()
         cal = m.cal
         fr = _FRParams(
@@ -940,14 +995,18 @@ class FastLS:
         fr.extra_sam = int(cfg.extra_sam_fields)
         if cfg.extra_sam_fields:
             idx0 = m.index
+            if idx0.codes is None:
+                # the multi-process tier: no rank holds the whole genome
+                # the ZE field is built from
+                raise ValueError("--extra-sam-fields needs the whole "
+                                 "genome on the host")
             fr.genome = idx0.codes.ctypes.data
             fr.genome_rc = idx0.codes_rc.ctypes.data
             fr.contig_offsets = self.contig_offsets32.ctypes.data
         if cfg.sam_unaligned:
             if ctx.get("qual_raw") is not None:
                 fr.qual_raw = ctx["qual_raw"].ctypes.data
-            fr.una_lo = 0
-            fr.una_hi = B
+            fr.una_lo, fr.una_hi = self.read_slice or (0, B)
         if self.surv_post is not None:
             # each emitted alignment's posterior at its job index
             self.surv_post = np.zeros(n_jobs, np.float64)
@@ -980,6 +1039,36 @@ class FastLS:
                 reads_mapped=int((nhits > 0).sum()),
                 alignments=int(nhits.sum()))
         return buf[:nb].tobytes(), nhits
+
+    def _no_jobs(self, ctx, nhits):
+        """The return of a batch with no jobs to render. A rank-local
+        batch (read_slice with slice_select) of the stats flow first
+        expands its none: the multi-process tier's expansion is an
+        exchange every rank joins (shrimp_tpu returns before it there,
+        and the other ranks wait for it)."""
+        if (ctx["stats_flow"] and self.read_slice is not None
+                and self.slice_select):
+            none = np.zeros(0, np.int64)
+            self._stats_to_packed(np.zeros((0, 7), np.int32), _expand_ctx(
+                ctx, none, dict(ri=none.astype(np.int32),
+                                w_len=none.astype(np.int32)), True))
+        self.m.tally(reads=ctx["B"])
+        return self._unaligned_block(ctx, nhits), nhits
+
+
+def _expand_ctx(ctx, rows, jobs, rank_local: bool) -> dict:
+    """What `FastLS._stats_to_packed` reads of the jobs at window rows
+    `rows` of the batch `ctx`: the jobs' read rows and window lengths
+    (`jobs`), their windows' geometry, and whether the job list is this
+    rank's own (`rank_local`: read_slice with slice_select) or the same
+    on every rank."""
+    win = ctx["win"]
+    return dict(n_jobs=len(rows), jobs=jobs, R=ctx["R"], G=ctx["G"],
+                L=ctx["L"], read_tab=ctx["read_tab"], rows=rows,
+                rank_local_jobs=rank_local, starts=win["starts"][rows],
+                rcmask=win["rcmask"][rows], rx=win["rx"][rows],
+                ry=win["ry"][rows], rl_=win["rl_"][rows],
+                rw_=win["rw_"][rows], rev=win["rev"][rows])
 
 
 def _finalize_render(lib, fr, frj, cap: int, nhits):
@@ -1290,12 +1379,13 @@ def _set_paired_render_flags(p, cfg, raw: np.ndarray, n_pairs: int):
     return rg_bytes
 
 
-def _paired_unaligned_block(cfg, ctx, body, r2_tag: bytes) -> bytes:
+def _paired_unaligned_block(cfg, ctx, body, r2_tag: bytes,
+                            pairs=None) -> bytes:
     """--sam-unaligned records for every pair of a batch with no
-    candidate windows (the bytes pairedpipe emits): the pair's QNAME,
-    the unmapped flags, `body(ri)` (the fields from SEQ on of read row
-    ri), the mate's read text under `r2_tag` with --sam-r2, the RG
-    suffix."""
+    candidate windows (the bytes pairedpipe emits), or for the pairs
+    [lo, hi) of `pairs`: the pair's QNAME, the unmapped flags, `body(ri)`
+    (the fields from SEQ on of read row ri), the mate's read text under
+    `r2_tag` with --sam-r2, the RG suffix."""
     if not cfg.sam_unaligned:
         return b""
     name_off = ctx["name_off"]
@@ -1304,7 +1394,7 @@ def _paired_unaligned_block(cfg, ctx, body, r2_tag: bytes) -> bytes:
     rg = (f"\tRG:Z:{cfg.read_group_name}".encode()
           if cfg.read_group_name else b"")
     parts = []
-    for pi in range(ctx["B"] // 2):
+    for pi in range(*(pairs or (0, ctx["B"] // 2))):
         nms = [names[name_off[2 * pi + k]:name_off[2 * pi + k + 1]].decode()
                for k in (0, 1)]
         q = _pair_qname(nms[0], nms[1]).encode()
@@ -1513,6 +1603,13 @@ class FastPaired:
         self.zpair_merge_hook = None
         self.zpair_win_shard = None
         self.zpair_n_shards = 0
+        # read sharding (the multi-process tier), as FastLS's: (plo, phi)
+        # has the native paired brain run only for the batch's pairs
+        # [plo, phi); with slice_select the expansion is sliced too;
+        # last_slice_jobs counts the windows of the slices
+        self.read_slice = None
+        self.slice_select = False
+        self.last_slice_jobs = 0
 
     def _filter1_paired(self, codes2, L: int, wlen: int, ro):
         """Paired candidate generation (the mate-pair region filter
@@ -1625,7 +1722,8 @@ class FastPaired:
             # picks: the reference's lazy full SW); the mesh tiers keep
             # the fused launch
             tp_ok = (self.fls.dispatch_fn is None
-                     and self.zpair_merge_hook is None)
+                     and self.zpair_merge_hook is None
+                     and self.read_slice is None)
             futures, win, G, stats_flow = (
                 self.fls.dispatch_fn or _fused_dispatch)(
                 m, fh, read_tab, L, R, rcf, n_reads=B if tp_ok else None)
@@ -1652,22 +1750,16 @@ class FastPaired:
         self.m.tally("alignment expand", _time.perf_counter() - t0)
         return out2
 
-    def _expand(self, ctx, rows, stats):
+    def _expand(self, ctx, rows, stats, rank_local: bool = False):
         """Alignment rows [k, 10] and packed ops of the window rows
-        `rows` from their [k, 7] full-SW stats (FastLS._stats_to_packed):
-        (packed, ops, W)."""
-        fh, win = ctx["fh"], ctx["win"]
-        ctx2 = dict(n_jobs=len(rows),
-                    jobs=dict(ri=win["ri"][rows],
-                              w_len=np.ascontiguousarray(fh.w_len[rows],
-                                                         np.int32)),
-                    R=ctx["R"], G=ctx["G"], L=ctx["L"],
-                    read_tab=ctx["read_tab"],
-                    starts=win["starts"][rows], rcmask=win["rcmask"][rows],
-                    rx=win["rx"][rows], ry=win["ry"][rows],
-                    rl_=win["rl_"][rows], rw_=win["rw_"][rows],
-                    rev=win["rev"][rows])
-        return self.fls._stats_to_packed(stats, ctx2)
+        `rows` from their [k, 7] full-SW stats (FastLS._stats_to_packed;
+        `rank_local`: rows of this rank's pair slice): (packed, ops,
+        W)."""
+        jobs = dict(ri=ctx["win"]["ri"][rows],
+                    w_len=np.ascontiguousarray(ctx["fh"].w_len[rows],
+                                               np.int32))
+        return self.fls._stats_to_packed(
+            stats, _expand_ctx(ctx, rows, jobs, rank_local))
 
     # ---------------------------------------------------------- stage B
     def stage_finish(self, ctx) -> Tuple[bytes, np.ndarray, np.ndarray]:
@@ -1682,12 +1774,18 @@ class FastPaired:
         pair_nhits = np.zeros(n_pairs, np.int32)
         read_nhits = np.zeros(B, np.int32)
         m.tally(reads=B)
-        if fh.n == 0:
-            qual_raw = ctx.get("qual_raw")
+        if self.read_slice is not None and self.zpair_merge_hook is not None:
+            raise ValueError("read_slice and zpair_merge_hook are mutually "
+                             "exclusive")
+        qual_raw = ctx.get("qual_raw")
+
+        def unaligned():
             return (_paired_unaligned_block(
                 cfg, ctx, lambda ri: ctx["seq_fwd"][ri].tobytes() + b"\t"
                 + (b"*" if qual_raw is None else qual_raw[ri].tobytes()),
-                b"\tR2:Z:"), pair_nhits, read_nhits)
+                b"\tR2:Z:", self.read_slice), pair_nhits, read_nhits)
+        if fh.n == 0:
+            return unaligned()
         n = int(fh.n)
         win = ctx["win"]
         tp = win.get("two_phase")
@@ -1700,12 +1798,37 @@ class FastPaired:
         owner = np.ascontiguousarray(fh.owner, np.int64)
         seg = np.ascontiguousarray(
             np.searchsorted(owner, np.arange(2 * B + 1)), np.int64)
+        rsl = slice(0, n)
+        sliced = False
+        if self.read_slice is not None:
+            # pair pi owns legs 2pi, 2pi + 1, owners 4pi..4pi + 3, whose
+            # window rows are one span (owner-major)
+            plo, phi = self.read_slice
+            rsl = slice(int(seg[min(4 * plo, 2 * B)]),
+                        int(seg[min(4 * phi, 2 * B)]))
+            seg = np.ascontiguousarray(
+                np.clip(seg, rsl.start, rsl.stop) - rsl.start, np.int64)
+            n = rsl.stop - rsl.start
+            self.last_slice_jobs += n
+            sliced = self.slice_select
+            if n == 0:
+                if sliced and stats_all is not None:
+                    # the multi-process tier's expansion is an exchange
+                    # every rank joins (FastLS._no_jobs)
+                    none = np.zeros(0, np.int64)
+                    self._expand(ctx, none, stats_all[none], True)
+                return unaligned()
         t0 = _time.perf_counter()
         W = (ctx["R"] + ctx["G"] + 3) // 4
         if stats_all is not None:
-            packed, ops_pk, W = self._expand(ctx, np.arange(n), stats_all)
+            # sliced: the expansion of this rank's pair span only
+            ex = np.arange(rsl.start, rsl.stop) if sliced else np.arange(
+                int(fh.n))
+            packed, ops_pk, W = self._expand(ctx, ex, stats_all[ex], sliced)
+            if not sliced:
+                packed, ops_pk = packed[rsl], ops_pk[rsl]
         elif tb_all is not None:
-            packed, ops_pk = tb_all
+            packed, ops_pk = tb_all[0][rsl], tb_all[1][rsl]
         m.tally("alignment expand", _time.perf_counter() - t0)
 
         # ---- one native call: pair-up .. SAM text
@@ -1721,14 +1844,14 @@ class FastPaired:
         sc = cfg.scores
         arrs = dict(
             seg=seg,
-            cn=np.ascontiguousarray(fh.cn, np.int32),
-            g_off=np.ascontiguousarray(fh.g_off, np.int64),
-            g_off_norm=np.ascontiguousarray(win["g_off_t"], np.int64),
-            gen_st=np.ascontiguousarray(win["rcmask"], np.int8),
-            w_len=np.ascontiguousarray(fh.w_len, np.int32),
-            matches=np.ascontiguousarray(fh.matches, np.int32),
-            score_max=np.ascontiguousarray(fh.score_max, np.int64),
-            vec=scores)
+            cn=np.ascontiguousarray(fh.cn[rsl], np.int32),
+            g_off=np.ascontiguousarray(fh.g_off[rsl], np.int64),
+            g_off_norm=np.ascontiguousarray(win["g_off_t"][rsl], np.int64),
+            gen_st=np.ascontiguousarray(win["rcmask"][rsl], np.int8),
+            w_len=np.ascontiguousarray(fh.w_len[rsl], np.int32),
+            matches=np.ascontiguousarray(fh.matches[rsl], np.int32),
+            score_max=np.ascontiguousarray(fh.score_max[rsl], np.int64),
+            vec=np.ascontiguousarray(scores[rsl]))
         if tp is None:
             arrs["packed"] = np.ascontiguousarray(packed, np.int32)
             arrs["ops_pk"] = np.ascontiguousarray(ops_pk, np.uint8)
@@ -1772,6 +1895,8 @@ class FastPaired:
             None, None, 0)
         # the RG bytes stay alive through the native calls
         rg_bytes = _set_paired_render_flags(p, cfg, ctx["raw"], n_pairs)
+        if self.read_slice is not None:
+            p.una_lo, p.una_hi = self.read_slice
         wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
         cap = max(1 << 20, n_pairs * 4 * (L + 320))
         ext = None        # p.ext_in points into it through the render

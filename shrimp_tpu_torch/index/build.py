@@ -12,11 +12,13 @@ The index files are the reference's (`save`/`load` one .npz,
 `save_split`/`load_split` the gmapper -S layout of one genome file and
 one file per seed, `save_mmap`/`load_mmap` a directory of raw .npy
 arrays), so an index saved by either package loads in the other.
-`trim` drops the lists longer than a cutoff before a re-save.
+`trim` drops the lists longer than a cutoff before a re-save and unmaps
+the hugepage buffers it replaces; `release` unmaps an index's buffers
+(`utils/hostmem.py`), which otherwise live for the process.
 
 Left out of the copy: the host-memory cap accounting
 (`utils/memmodel.py`: a pre-build footprint check and per-array
-counters that change no array). The CSR sort and the key projection run
+counters that change no array, `GenomeIndex._register_memory`). The CSR sort and the key projection run
 through the port's native library, which raises if it does not build.
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 from .. import constants as C
 from ..core import encode
 from ..native import get_lib
+from ..utils.hostmem import release as hp_release
 from ..utils.hostmem import to_hugepages
 from .seeds import Seed, sliding_mapidx, sliding_mapidx_hash
 
@@ -92,6 +95,21 @@ class GenomeIndex:
         max_w = (C.HASH_TABLE_POWER if self.hashed
                  else max(si.seed.weight for si in self.seeds))
         return max(1000, int((100 * self.total_len) // (4 ** max_w)))
+
+    def release(self) -> None:
+        """Unmap this index's hugepage buffers (the my_free analogue);
+        the index must not be used afterwards. Its planes become None and
+        its seeds an empty list, so a later use fails loudly instead of
+        reading unmapped pages."""
+        for si in self.seeds:
+            hp_release(si.offsets)
+            hp_release(si.positions)
+        for nm in ("codes", "codes_rc", "cs_codes", "cs_codes_rc"):
+            a = getattr(self, nm, None)
+            if a is not None:
+                hp_release(a)
+            setattr(self, nm, None)
+        self.seeds = []
 
     def _meta(self, **extra) -> dict:
         return dict({"mode": self.mode, "contig_names": self.contig_names,
@@ -226,6 +244,9 @@ class GenomeIndex:
             new_off = np.zeros(len(si.offsets), dtype=np.int64)
             np.cumsum(np.where(over, 0, lens), out=new_off[1:])
             new_pos = si.positions[np.repeat(~over, lens)]
+            # the untrimmed lists' buffers go now, not with the process
+            hp_release(si.offsets)
+            hp_release(si.positions)
             self.seeds[k] = SeedIndex(
                 seed=si.seed,
                 offsets=to_hugepages(_compact_offsets(new_off)),

@@ -433,7 +433,7 @@ class _MeshFastCS(FastCS):
         for sh, k in zip(mm.shards, counts.tolist()):
             sl = order[off:off + k]
             off += k
-            if k == 0:
+            if k == 0 or sh is None:    # None: another process's shard
                 parts.append(None)
                 continue
             a = args_all[sl]
@@ -496,8 +496,8 @@ class _MeshTier:
 
     @property
     def plane_bytes(self) -> List[int]:
-        """The device bytes of each shard's planes."""
-        return [sh.nbytes for sh in self.shards]
+        """The device bytes of each of this process's shards' planes."""
+        return [sh.nbytes for sh in self.shards if sh is not None]
 
     def _check_halo(self, G: int) -> None:
         if G > self.halo:

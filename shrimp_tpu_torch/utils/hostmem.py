@@ -5,7 +5,9 @@ Copied from `shrimp_tpu/utils/hostmem.py`: `to_hugepages`, which
 random per-kmer access makes every filter 1 lookup a dTLB miss on 4 KB
 pages; on 2 MB pages (MADV_HUGEPAGE, `native/hostmem.cpp`) the whole
 table needs a few hundred TLB entries. Buffers are kept alive by a
-module registry for the life of the process, as the index is.
+module registry keyed by the buffer's address; `release(arr)` unmaps one
+early (`GenomeIndex.release`, `GenomeIndex.trim`), otherwise they live
+for the process, as the index does.
 """
 from __future__ import annotations
 
@@ -37,3 +39,17 @@ def to_hugepages(arr: np.ndarray) -> np.ndarray:
     with _LOCK:
         _REGISTRY[ptr] = (ptr, nbytes)
     return out
+
+
+def release(arr: np.ndarray) -> bool:
+    """Unmap the hugepage buffer behind a `to_hugepages` result (the
+    array it returned, not a view of it); False for any other array.
+    Nothing may touch `arr` afterwards."""
+    from ..native import get_lib
+    ptr = int(arr.__array_interface__["data"][0])
+    with _LOCK:
+        ent = _REGISTRY.pop(ptr, None)
+    if ent is None:
+        return False
+    get_lib().hp_free(ctypes.c_void_p(ent[0]), ent[1])
+    return True

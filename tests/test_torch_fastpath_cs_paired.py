@@ -5,7 +5,13 @@ with fastq qualities, --sam-unaligned and a mate-pair region config,
 with the select-then-full dispatch forced and on a repeat-dense genome
 where it fires by itself, and over 4 and 16 lanes. The reference runs
 at lanes=1 throughout: its `lanes` > 1 raises UnboundLocalError.
-Tolerance: none, the bytes are equal."""
+Tolerance: none, the bytes are equal.
+
+Every index a test builds is released when it ends (`_released`): an
+index keeps about 270 MB of hugepage buffers until then, and 14 tests'
+worth held a test worker at 5 GB before the 16-lane case, whose lanes
+add as much again."""
+import gc
 import sys
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -30,6 +36,18 @@ from .test_torch_two_phase import NEVER, _dense_codes
 
 CS = RC.MODE_COLOUR_SPACE
 COMP = np.array([3, 2, 1, 0], np.uint8)
+
+
+_BUILT = []     # the indexes the running test built
+
+
+@pytest.fixture(autouse=True)
+def _released():
+    """Unmap the running test's indexes when it ends."""
+    yield
+    gc.collect()       # the JAX mapper's reference cycles hold its index
+    while _BUILT:
+        _BUILT.pop().release()
 
 
 @pytest.fixture(autouse=True)
@@ -80,11 +98,13 @@ def cs_pairs(seed, n_pairs, mode, glen=20_000, codes=None):
 
 
 def _indexes(codes):
-    return (build_index([("chrP", codes)], default_seeds(mode=CS),
-                        mode=CS),
-            port_index.build_index([("chrP", codes)],
-                                   port_seeds.default_seeds(mode=CS),
-                                   mode=CS))
+    built = (build_index([("chrP", codes)], default_seeds(mode=CS),
+                         mode=CS),
+             port_index.build_index([("chrP", codes)],
+                                    port_seeds.default_seeds(mode=CS),
+                                    mode=CS))
+    _BUILT.extend(built)
+    return built
 
 
 def _with_quals(recs, seed=3):
@@ -246,6 +266,7 @@ def test_cs_paired_gate_configs_return_none():
     _, pidx = _indexes(g)
     ls_idx = port_index.build_index([("chrP", g)],
                                     port_seeds.default_seeds())
+    _BUILT.append(ls_idx)
     for ix, kw in ((ls_idx, dict(mode="ls")),
                    (pidx, dict(mode=CS, single_best_mapping=True)),
                    (pidx, dict(mode=CS, shrimp_format=True)),

@@ -449,6 +449,59 @@ def test_index_trim_and_seed_subset_match_reference(indexes, tmp_path):
         PortGI.load_split(str(tmp_path / "ps.genome"))
 
 
+# ---------------------------------------------- the index memory release
+
+def _hp_ptr(a) -> int:
+    return int(a.__array_interface__["data"][0])
+
+
+def test_hostmem_release_matches_reference():
+    """release() unmaps a to_hugepages buffer once (True, then False) and
+    refuses an array it did not map, as the reference's does."""
+    from shrimp_tpu.utils import hostmem as ref_hm
+    from shrimp_tpu_torch.utils import hostmem as port_hm
+    a = np.arange(1 << 20, dtype=np.int32)            # 4 MB: mapped
+    outcomes = []
+    for hm in (ref_hm, port_hm):
+        h = hm.to_hugepages(a)
+        assert np.array_equal(h, a)
+        mapped = _hp_ptr(h) in hm._REGISTRY
+        outcomes.append((mapped, hm.release(h), hm.release(h),
+                         hm.release(a), hm.release(np.zeros(8))))
+        assert _hp_ptr(h) not in hm._REGISTRY
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[1] in ((True, True, False, False, False),
+                           (False, False, False, False, False))
+
+
+def test_index_release_and_trim_unmap_like_reference():
+    """trim unmaps the lists it replaces (the registry of mapped buffers
+    does not grow, though every trimmed seed maps new lists) and
+    GenomeIndex.release every hugepage buffer of an index, leaving it
+    unusable (planes None, no seeds), as the reference's do."""
+    from shrimp_tpu.utils import hostmem as ref_hm
+    from shrimp_tpu_torch.utils import hostmem as port_hm
+    contigs = _contigs()
+    outcomes = []
+    for build, enc, seeds, hm in ((ref_build, ref_encode, ref_seeds, ref_hm),
+                                  (port_build, port_encode, port_seeds,
+                                   port_hm)):
+        idx = build([(n, enc.encode_ls(s)) for n, s in contigs], seeds())
+        n0 = len(hm._REGISTRY)
+        dropped = idx.trim(1)
+        grew = len(hm._REGISTRY) - n0
+        held = {_hp_ptr(a) for a in [idx.codes, idx.codes_rc] + [
+            a for si in idx.seeds for a in (si.offsets, si.positions)]}
+        held &= set(hm._REGISTRY)
+        idx.release()
+        outcomes.append((dropped, grew, len(held),
+                         len(held & set(hm._REGISTRY)), idx.codes,
+                         idx.codes_rc, idx.seeds))
+    assert outcomes[0] == outcomes[1]
+    dropped, grew, held, still = outcomes[1][:4]
+    assert dropped > 0 and grew <= 0 and held > 0 and still == 0
+
+
 # ---------------------------------------------- the mesh tiers' host helpers
 
 @pytest.mark.parametrize("kw,L", [

@@ -58,7 +58,8 @@ def test_port_sources_import_no_jax():
             "core/traceback.py", "core/sw_np.py", "core/sw_cs_np.py",
             "core/sw_cs_batch.py", "io/sam.py",
             "io/shrimp_format.py", "parallel/__init__.py",
-            "parallel/meshmap.py"} <= rel
+            "parallel/meshmap.py", "parallel/dist.py",
+            "parallel/dist_worker.py"} <= rel
     for path in srcs:
         with open(path) as f:
             text = f.read()
@@ -157,6 +158,39 @@ def test_mesh_tiers_map_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     n_rec, same, same_sharded = map(int, res.stdout.split()[1::2])
     assert n_rec >= 32 and same == same_sharded == 1
+
+
+def test_dist_ranks_map_with_jax_blocked(tmp_path):
+    """Two ranks of the multi-process tier (parallel/dist_worker.py, 4
+    "cpu" shards each, gloo) with `import jax` and `import shrimp_tpu`
+    failing in them (tests/dist_data.BLOCKED): unpaired, read-sharded
+    and paired runs write the unsharded stream's SAM on both ranks."""
+    from shrimp_tpu_torch.paired import PairedMapper
+
+    from .dist_data import make_dataset as dist_dataset
+    from .dist_data import make_paired_dataset, run_ranks
+    contigs, reads = dist_dataset()
+    pcontigs, pairs = make_paired_dataset()
+    reads, pairs = reads[:64], pairs[:64]
+    res = run_ranks(str(tmp_path), {"ls": ("ls", contigs),
+                                    "pairs": ("ls", pcontigs)}, [
+        dict(name="u", genome="ls", reads=reads, batch_size=32),
+        dict(name="rs", genome="ls", reads=reads, batch_size=32,
+             read_sharding=True),
+        dict(name="p", genome="pairs", reads=pairs, batch_size=32,
+             paired=True, config=dict(pair_mode="opp-in"))])
+    idx = build_index(contigs, default_seeds())
+    pidx = build_index(pcontigs, default_seeds())
+    want = b"".join(fastpath.map_unpaired_sam_stream(
+        Mapper(idx, None, "cpu"), reads, batch_size=32, lanes=1))
+    want_p = b"".join(fastpath.map_paired_sam_stream(
+        PairedMapper(pidx, MapperConfig(pair_mode="opp-in"), "cpu"), pairs,
+        batch_size=32, lanes=1))
+    idx.release()
+    pidx.release()
+    assert want.count(b"\n") >= 60 and want_p.count(b"\n") >= 60
+    for name, w in (("u", want), ("rs", want), ("p", want_p)):
+        assert [sam == w for sam, _, _ in res[name]] == [True, True], name
 
 
 def test_maps_cs_to_sam_with_jax_blocked(tmp_path):
