@@ -191,6 +191,31 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    merge bytes and seconds, each rank's filter-1 windows, slice jobs,
    peak device memory and stage seconds. A rank that fails or outlives
    DIST_TIMEOUT_S fails the phase (both are killed).
+23. The split-db workflow through the CLI: shrimp_tpu_torch.cli.main
+   in-process in a temporary directory (deleted at the end), stdout to
+   files, `map` on the card. (a) Phase 21 (c)'s four E. coli contigs in
+   one FASTA: `split-db --ram-size` (from plan_index_ram: one contig a
+   chunk, 4 chunks), `project-db` and `project-db --cs`, a `map` a chunk
+   and `merge`, for SPLIT_READS reads of phase 5's LS workload and of
+   phase 17's CS pairs; each chunk's SAM body equal to the in-process
+   card stream's on the index project-db saved; the merged SAM of the
+   first SPLIT_CPU_READS reads equal to the --device cpu workflow's; the
+   LS merge equal to the whole index's card stream within the reference's
+   rule (tests/test_merge.py::_assert_equivalent; the CS pairs' only
+   printed); one `map` and the LS `merge` again as `python -m
+   shrimp_tpu_torch` subprocesses, the same bytes. (b) Phase 21 (d)'s
+   four bins and reads (two if the disk cannot hold four saved chunk
+   indexes): split-db, project-db, `map --strict-mem` on the whole genome
+   refused by the cap before its build, a `map` a chunk under `--max-mem`
+   equal to split-db's budget with no cap warning, `merge`; the merged
+   SAM of the first MESH_HG_CPU_READS reads equal to the CPU workflow's;
+   reads/s over map + merge beside phase 21 (d)'s and phase 22 (c)'s on
+   the same bins and reads. (c) `map --shrimp-format -P` (the generic
+   mapper) on PRETTY_READS E. coli reads, LS and CS, its output's prefix
+   for the first PRETTY_CPU_READS reads equal to the --device cpu run.
+   Every kernel of (a)-(c) held against its plain version on the first
+   launch of the first chunk's map (`*_cli` records); every map's
+   launch counters must rise.
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -208,7 +233,7 @@ kernel's launches on its slice, error, times and bound) and {"ok": true,
 build always runs) and then prints no result; `--phases 20` runs the
 generic mapper's phase alone, `--phases 21` the mesh tiers',
 `--phases 22` the multi-process tier's (with phase 21 (c) and (d) first,
-for its oracles).
+for its oracles), `--phases 23` the split-db workflow through the CLI.
 """
 from __future__ import annotations
 
@@ -2896,33 +2921,45 @@ def run_sharded_ecoli(dev, mesh, smi):
                               secs=secs, want=want, secs_u=secs_u)
 
 
+def _hg_split_data():
+    """(bins, reads) of the split-db runs (phases 21 (d), 22 (c), 23
+    (b)): four hg-like bins of HG_SUB_LEN bases (chr1..chr4) and
+    MESH_HG_READS reads drawn evenly from them, made once a run."""
+    from shrimp_tpu_torch import dataset
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    if "hg_data" not in _SHARDED:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            bins = list(ex.map(lambda i: dataset.hg_bin(HG_SUB_LEN, i),
+                               range(4)))
+        per = MESH_HG_READS // 4
+        drawn = [dataset.hg_reads(b, per) for b in bins]
+        reads = [SeqRecord(f"chr{i + 1}_{drawn[i][k].name}",
+                           drawn[i][k].seq)
+                 for k in range(per) for i in range(4)]
+        print(f"4 bins of {HG_SUB_LEN} bases (chr1..chr4) and "
+              f"{len(reads)} reads, a quarter from each, generated in "
+              f"{time.perf_counter() - t0!r} s")
+        _SHARDED["hg_data"] = (bins, reads)
+    return _SHARDED["hg_data"]
+
+
 def run_sharded_hg(dev, mesh, smi):
     """Phase 21 (d): the split-db workflow on-line: four hg-like bins of
     HG_SUB_LEN bases, one sub-index each, ShardedIndexMapper on
     MESH_HG_READS reads drawn evenly from them; the oracle is the CPU run
     of the same tier on the first MESH_HG_CPU_READS reads."""
-    from shrimp_tpu_torch import dataset
     from shrimp_tpu_torch.config import MapperConfig
     from shrimp_tpu_torch.index.build import build_index
     from shrimp_tpu_torch.index.seeds import default_seeds
-    from shrimp_tpu_torch.io.fasta import SeqRecord
     from shrimp_tpu_torch.parallel import meshmap
-    t0 = time.perf_counter()
+    bins, reads = _hg_split_data()
+    t1 = time.perf_counter()
     with ThreadPoolExecutor(4) as ex:
-        bins = list(ex.map(lambda i: dataset.hg_bin(HG_SUB_LEN, i),
-                           range(4)))
-        t1 = time.perf_counter()
         subs = list(ex.map(lambda i: build_index(
             [(f"chr{i + 1}", bins[i])], default_seeds()), range(4)))
-    t2 = time.perf_counter()
-    per = MESH_HG_READS // 4
-    drawn = [dataset.hg_reads(b, per) for b in bins]
-    reads = [SeqRecord(f"chr{i + 1}_{drawn[i][k].name}", drawn[i][k].seq)
-             for k in range(per) for i in range(4)]
-    del drawn
-    print(f"21 (d) 4 bins of {HG_SUB_LEN} bases (chr1..chr4) generated in "
-          f"{t1 - t0!r} s, their sub-indexes in {t2 - t1!r} s; "
-          f"{len(reads)} reads, a quarter from each")
+    print(f"21 (d) the 4 bins' sub-indexes in {time.perf_counter() - t1!r} "
+          "s")
     cfg = MapperConfig()
     merges = []
     orig = meshmap.zmerge_psum
@@ -3177,6 +3214,7 @@ def run_dist(dev, smi):
         n_rec = got[0][0].count(b"\n")
         same = all(sam == o["sam"] for sam, _ in got)
         if wl == "hg":
+            _SHARDED["hg"]["dist_rps"] = n / wall
             same_u = all(sam.startswith(o["cpu"]) for sam, _ in got)
             unsharded = (f"CPU run of the first {MESH_HG_CPU_READS} reads a "
                          f"prefix of both: {same_u}")
@@ -3229,11 +3267,584 @@ def run_dist(dev, smi):
     return n_k, rec
 
 
+# ------------------------------------------------------------ phase 23
+
+SPLIT_READS = 20_000          # (a): reads of each workload
+SPLIT_CPU_READS = 2048        # (a): the CPU workflow's reads
+PRETTY_READS = 4096           # (c)
+PRETTY_CPU_READS = 512
+# (b) keeps four saved chunk indexes of about 0.7 GB on disk, two below it
+SPLIT_MIN_FREE = 8 << 30
+
+
+def _launch_counters() -> dict:
+    from shrimp_tpu_torch.core import sw_cs_full, sw_full, sw_vector
+    return {"sw_vector": sw_vector.LAUNCHES,
+            "sw_vector_cs": sw_vector.CS_LAUNCHES,
+            "sw_full_stats": sw_full.LAUNCHES,
+            "sw_full_bp": sw_full.BP_LAUNCHES,
+            "ls_traceback": sw_full.TB_LAUNCHES,
+            "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+            "cs_traceback": sw_cs_full.TB_LAUNCHES}
+
+
+class _CLI:
+    """shrimp_tpu_torch.cli.main called in-process in one directory, each
+    call's stdout to a file (or nowhere) and its stderr to another. Each
+    call returns (seconds, [seconds of each GenomeIndex.load it made],
+    stderr text, {counter: launches it added})."""
+
+    def __init__(self, tmp):
+        # imported before any redirect: split_db and its kin bind
+        # `out=sys.stderr` when their module is first imported
+        from shrimp_tpu_torch.tools import split  # noqa: F401
+        self.tmp = tmp
+        self.calls = 0
+
+    def path(self, *parts):
+        return os.path.join(self.tmp, *parts)
+
+    def __call__(self, *argv, out=None):
+        import contextlib
+        from shrimp_tpu_torch import cli
+        from shrimp_tpu_torch.index.build import GenomeIndex
+        self.calls += 1
+        err_path = self.path(f"call{self.calls}.err")
+        loads, load = [], GenomeIndex.load
+
+        def timed_load(p):
+            t = time.perf_counter()
+            idx = load(p)
+            loads.append(time.perf_counter() - t)
+            return idx
+        counters = _launch_counters()
+        before = {k: c.n for k, c in counters.items()}
+        GenomeIndex.load = staticmethod(timed_load)
+        t0 = time.perf_counter()
+        try:
+            with open(out or os.devnull, "w") as f, \
+                    open(err_path, "w") as e, \
+                    contextlib.redirect_stdout(f), \
+                    contextlib.redirect_stderr(e):
+                # as sys.stdout's: `map` writes the header as text and
+                # the streams' SAM bytes to the binary buffer under it
+                f.reconfigure(write_through=True)
+                rc = cli.main(list(argv))
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+        finally:
+            GenomeIndex.load = staticmethod(load)
+        secs = time.perf_counter() - t0
+        with open(err_path) as f:
+            err = f.read()
+        if rc != 0:
+            raise AssertionError(f"23: {' '.join(argv)}: exit {rc}\n"
+                                 f"{err[-3000:]}")
+        return secs, loads, err, {k: c.n - before[k]
+                                  for k, c in counters.items()}
+
+
+def _sam_body(data) -> bytes:
+    b = data if isinstance(data, bytes) else data.encode()
+    return b"".join(ln + b"\n" for ln in b.split(b"\n")
+                    if ln and not ln.startswith(b"@"))
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _merge_equivalent(gl: str, wl: str) -> bool:
+    """The reference's rule for a merged record against the whole-genome
+    run's (tests/test_merge.py::_assert_equivalent): equal but for the
+    mapq (a merged mapq under 4 counts as 0, then within 1) and Z fields
+    (within 2 of 1/1000 neg-log units)."""
+    gf, wf = gl.split("\t"), wl.split("\t")
+    if len(gf) != len(wf):
+        return False
+    for i, (a, b) in enumerate(zip(gf, wf)):
+        if a == b:
+            continue
+        if i == 4:
+            ga = int(a)
+            if abs((0 if ga < 4 else ga) - int(b)) > 1:
+                return False
+        elif a.startswith("Z") and b.startswith("Z"):
+            if a[:5] != b[:5] or abs(int(a[5:]) - int(b[5:])) > 2:
+                return False
+        else:
+            return False
+    return True
+
+
+def _norm_unmapped(lines):
+    """The whole-genome run's unmapped records in mergesam's form: both
+    unmapped bits, mate fields cleared (tests/test_merge.py:154-167)."""
+    out = []
+    for ln in lines:
+        f = ln.split("\t")
+        if int(f[1]) & 0x4:
+            f = [f[0], str(int(f[1]) | 0xC), "*", "0", "0", "*", "*", "0",
+                 "0", f[9], f[10]] + [t for t in f[11:]
+                                     if t[:2] in ("CQ", "CS", "RG", "R2")]
+        out.append("\t".join(f))
+    return out
+
+
+def _against_whole(title, merged: bytes, whole: bytes, paired: bool,
+                   gate: bool) -> None:
+    """Sorted merged records against the whole-index run's: how many are
+    byte-equal, how many need the reference's rule, how many fail it."""
+    got = sorted(merged.decode().splitlines())
+    want = sorted(whole.decode().splitlines())
+    if paired:
+        got, want = sorted(_norm_unmapped(got)), sorted(_norm_unmapped(want))
+    same = sum(a == b for a, b in zip(got, want))
+    rule = sum(a != b and _merge_equivalent(a, b) for a, b in zip(got, want))
+    bad = len(got) - same - rule if len(got) == len(want) else None
+    for a, b in [(a, b) for a, b in zip(got, want)
+                 if not _merge_equivalent(a, b)][:3]:
+        print(f"23 {title}, outside the rule:\n  merged {a[:300]}\n  "
+              f"whole  {b[:300]}")
+    print(f"23 {title}: merged {len(got)} records, whole index "
+          f"{len(want)}; byte-equal {same}, equal within the reference's "
+          f"rule (mapq, Z fields) {rule}, outside it {bad}"
+          + ("" if gate else " (printed only: the reference asserts no "
+             "such merge)"))
+    if gate and bad != 0:
+        raise AssertionError(f"23 {title}: the merged records differ from "
+                             "the whole index's beyond the reference's rule")
+
+
+def _prefix_of(cpu: bytes, card: bytes, first) -> bool:
+    """`cpu` (a run on the `first` reads) is the prefix of `card` (the run
+    on all reads) that those reads own: the next record of `card`, if
+    any, belongs to a later read."""
+    names = {r.name for r in first} | {r.name.rsplit("/", 1)[0]
+                                       for r in first}
+    if not cpu or not card.startswith(cpu):
+        return False
+    rest = card[len(cpu):]
+    return not rest or rest.split(b"\t", 1)[0].decode() not in names
+
+
+def _kernel_records(suffix, calls, kernels, launches) -> dict:
+    """Each kernel of `kernels` ({name: (module, wrapper, kernel, plain,
+    bound, counter, cs)}, `_flow_kernels`' form) against its plain
+    version on the arguments `calls` captured, with its launches."""
+    rec = {}
+    for name, k in kernels.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: not launched by phase 23's maps")
+        rec[name] = _check_captured(
+            name, *calls[name], k[2], k[3], k[4], cs=k[6], plain_reps=1,
+            what=f"the first launch of the first {suffix} map")
+    return rec
+
+
+def _check_rise(title, added, kernels) -> None:
+    names = {k[5] for k in kernels.values()}
+    keys = [n for n, c in _launch_counters().items() if c in names]
+    low = [n for n in keys if added[n] <= 0]
+    if low:
+        raise AssertionError(f"23 {title}: the map launched no {low}")
+
+
+def _split_ecoli(dev, smi, cli):
+    """Phase 23 (a): E. coli in four contigs, split-db into four chunks,
+    project-db (LS and CS), a map a chunk and the merge, for phase 5's LS
+    reads and phase 17's CS pairs."""
+    from shrimp_tpu_torch import constants as C
+    from shrimp_tpu_torch import fastpath, fastpath_cs
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core.encode import decode_ls
+    from shrimp_tpu_torch.index.build import GenomeIndex, build_index
+    from shrimp_tpu_torch.index.seeds import default_seeds
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.paired import PairedMapper
+    from shrimp_tpu_torch.utils.memmodel import plan_index_ram
+    contigs = _SHARDED.get("ecoli_contigs") or _region_contigs(
+        _dataset("ecoli_unpaired_ls", N_READS)[0].codes, 4, ECOLI_CONTIG_LEN)
+    _write_fasta(cli.path("ecoli.fa"), [
+        SeqRecord(n, decode_ls(c)) for n, c in contigs])
+    # a budget that holds one contig a chunk, not two, in either space
+    fixed = plan_index_ram(0, 4, 12)
+    ram = (plan_index_ram(ECOLI_CONTIG_LEN, 4, 12, colour_space=True)
+           + (plan_index_ram(ECOLI_CONTIG_LEN, 4, 12) - fixed) // 2) / 2 ** 30
+    steps = []
+    for space in ("ls", "cs"):
+        os.makedirs(cli.path(space))
+        cs = ("--cs",) if space == "cs" else ()
+        secs = cli("split-db", cli.path("ecoli.fa"), "--ram-size", repr(ram),
+                   "--prefix", cli.path(space, "chunk"), *cs)[0]
+        chunks = sorted(cli.path(space, f) for f in os.listdir(cli.path(space))
+                        if f.endswith(".fa"))
+        if len(chunks) != 4:
+            raise AssertionError(f"23 (a): split-db --ram-size {ram!r} made "
+                                 f"{len(chunks)} chunks, not 4")
+        steps.append((f"split-db{' --cs' if cs else ''}", secs))
+        steps.append((f"project-db{' --cs' if cs else ''}",
+                      cli("project-db", *cs, *chunks)[0]))
+    print(f"23 (a) E. coli in 4 contigs of {ECOLI_CONTIG_LEN} bases, "
+          f"split-db --ram-size {ram!r} (one contig a chunk): "
+          + ", ".join(f"{a} {s!r} s" for a, s in steps))
+    ls_k, cs_k, _ = _flow_kernels("_cli")
+    cs_mode = C.MODE_COLOUR_SPACE
+    launches, rec = {}, {}
+    for title, space, wl, n_all, cfg, flags, kernels, stream in (
+            ("(a) LS", "ls", "ecoli_unpaired_ls", N_READS, MapperConfig(),
+             (), ls_k, fastpath.map_unpaired_sam_stream),
+            ("(a) CS pairs", "cs", "ecoli_paired_cs", PAIRED_READS,
+             MapperConfig(mode=cs_mode, pair_mode="opp-in"),
+             ("--cs", "-p", "opp-in"), cs_k,
+             fastpath_cs.map_paired_cs_sam_stream)):
+        reads = _dataset(wl, n_all)[1][:SPLIT_READS]
+        paired = cfg.pair_mode != "none"
+        rpath = cli.path(f"{space}.fa")
+        _write_fasta(rpath, reads)
+        npzs = [cli.path(space, f"chunk-{i:04d}.npz") for i in range(4)]
+        sams = [p[:-4] + ".sam" for p in npzs]
+        for c in kernels.values():
+            c[5].reset()
+        runs, calls = [], None
+        for i, (npz, sam) in enumerate(zip(npzs, sams)):
+            if i == 0:
+                out = []
+                calls = _first_calls_of(
+                    lambda: out.append(cli("map", *flags, rpath, npz,
+                                           out=sam)),
+                    {k: v[:2] for k, v in kernels.items()})
+                run = out[0]
+            else:
+                run = cli("map", *flags, rpath, npz, out=sam)
+            _check_rise(f"{title} chunk {i}", run[3], kernels)
+            runs.append(run)
+        merged = cli.path(space, "merged.sam")
+        m_secs = cli("merge", rpath, *sams, out=merged)[0]
+        n_k = {k: v[5].n for k, v in kernels.items()}
+        launches.update(n_k)
+        map_secs = sum(r[0] for r in runs)
+        print(f"23 {title}: {len(reads)} reads, 4 maps on {dev} "
+              f"{[r[0] for r in runs]} s (index loads "
+              f"{[r[1] for r in runs]} s), merge {m_secs!r} s of "
+              f"{sum(os.path.getsize(p) for p in sams)} SAM bytes: "
+              f"{len(reads) / (map_secs + m_secs)!r} reads/s over map + "
+              f"merge; launches {n_k}; {smi}")
+        # each chunk's SAM is the in-process card stream's on its index
+        for i, (npz, sam) in enumerate(zip(npzs, sams)):
+            m = (PairedMapper if paired else Mapper)(GenomeIndex.load(npz),
+                                                      cfg, dev)
+            want = b"".join(stream(m, reads))
+            if _sam_body(_read(sam)) != want or not want:
+                raise AssertionError(f"23 {title} chunk {i}: SAM body "
+                                     "differs from the in-process stream's")
+        # the CPU workflow on the first reads: the merged prefix
+        first = reads[:SPLIT_CPU_READS]
+        fpath = cli.path(f"{space}_first.fa")
+        _write_fasta(fpath, first)
+        t0 = time.perf_counter()
+        cpu_sams = [p[:-4] + ".cpu.sam" for p in npzs]
+        for npz, sam in zip(npzs, cpu_sams):
+            cli("map", "--device", "cpu", *flags, fpath, npz, out=sam)
+        cpu_merged = cli.path(space, "merged.cpu.sam")
+        cli("merge", fpath, *cpu_sams, out=cpu_merged)
+        merged_b = _sam_body(_read(merged))
+        same = _prefix_of(_sam_body(_read(cpu_merged)), merged_b, first)
+        print(f"23 {title}: the --device cpu workflow on the first "
+              f"{len(first)} reads in {time.perf_counter() - t0!r} s; its "
+              f"merged SAM is the card workflow's prefix for them: {same}")
+        if not same:
+            raise AssertionError(f"23 {title}: the CPU workflow's merged "
+                                 "SAM differs from the card's")
+        # the merged records against the whole index's card stream
+        o = _SHARDED.get(wl)
+        if o is None or o["reads"] != reads or o["cfg"] != cfg:
+            whole = build_index(contigs, default_seeds(mode=cfg.mode),
+                                mode=cfg.mode)
+            m = (PairedMapper if paired else Mapper)(whole, cfg, dev)
+            want = b"".join(stream(m, reads))
+            del whole, m
+        else:
+            want = o["want"]
+        _against_whole(f"{title} merged vs the whole index", merged_b,
+                       want, paired, gate=not paired)
+        if not paired:
+            # one map and one merge as `python -m shrimp_tpu_torch`
+            _subprocess_twins(cli, flags, rpath, npzs[0], sams, merged)
+        rec.update(_kernel_records(title[4:] + " chunk", calls, kernels,
+                                   n_k))
+        del calls
+    return launches, rec
+
+
+def _subprocess_twins(cli, flags, rpath, npz, sams, merged) -> None:
+    """`map` of the first chunk and `merge` as subprocesses: the bytes of
+    the in-process calls (the map's @PG line holds its own argv)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def run(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "shrimp_tpu_torch",
+                              *args], capture_output=True, cwd=cli.tmp,
+                             env=env, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"23 {' '.join(args)}: exit "
+                                 f"{res.returncode}\n"
+                                 f"{res.stderr.decode()[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    def no_pg(b):
+        return [ln for ln in b.split(b"\n") if not ln.startswith(b"@PG")]
+    got_map, s_map = run("map", *flags, rpath, npz)
+    got_merge, s_merge = run("merge", rpath, *sams)
+    same = (no_pg(got_map) == no_pg(_read(sams[0])),
+            got_merge == _read(merged))
+    print(f"23 (a) `python -m shrimp_tpu_torch map` of chunk 0 "
+          f"{s_map!r} s and `merge` {s_merge!r} s (process start "
+          f"included): the in-process calls' bytes: {same}")
+    if not all(same):
+        for tag, got, want in (("map", got_map, _read(sams[0])),
+                               ("merge", got_merge, _read(merged))):
+            a, b = got.split(b"\n"), want.split(b"\n")
+            bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            print(f"23 (a) {tag}: {len(a)} / {len(b)} lines, first "
+                  f"differing: {[(a[i][:200], b[i][:200]) for i in bad[:2]]}")
+        raise AssertionError("23 (a): a subprocess wrote other bytes than "
+                             "the in-process call")
+
+
+def _split_hg(dev, smi, cli):
+    """Phase 23 (b): the hg-like split-db run, bench_hg.py's workflow:
+    split-db, project-db, a map a chunk on the card under a memory cap
+    equal to split-db's budget, the merge."""
+    from shrimp_tpu_torch.core.encode import decode_ls
+    from shrimp_tpu_torch.io.fasta import SeqRecord
+    from shrimp_tpu_torch.utils import memmodel
+    import shutil
+    bins, reads = _hg_split_data()
+    free = shutil.disk_usage(cli.tmp).free
+    n_bins = 4 if free >= SPLIT_MIN_FREE else 2
+    if n_bins < 4:
+        keep = tuple(f"chr{i + 1}_" for i in range(n_bins))
+        reads = [r for r in reads if r.name.startswith(keep)]
+    print(f"23 (b) {free} bytes free on the temporary directory's disk: "
+          f"{n_bins} bins of {HG_SUB_LEN} bases, {len(reads)} reads"
+          + ("" if n_bins == 4 else " (cut from 4 bins: the disk cannot "
+             "hold four saved chunk indexes)"))
+    t0 = time.perf_counter()
+    gpath = cli.path("hg.fa")
+    _write_fasta(gpath, [SeqRecord(f"chr{i + 1}", decode_ls(bins[i]))
+                         for i in range(n_bins)])
+    rpath = cli.path("hg_reads.fa")
+    _write_fasta(rpath, reads)
+    fixed = memmodel.plan_index_ram(0, 4, 12)
+    cost = memmodel.plan_index_ram(HG_SUB_LEN, 4, 12) - fixed
+    ram = repr((fixed + cost + cost // 2) / 2 ** 30)
+    os.makedirs(cli.path("hg"))
+    s_split = cli("split-db", gpath, "--ram-size", ram, "--prefix",
+                  cli.path("hg", "chunk"))[0]
+    chunks = sorted(cli.path("hg", f) for f in os.listdir(cli.path("hg"))
+                    if f.endswith(".fa"))
+    if len(chunks) != n_bins:
+        raise AssertionError(f"23 (b): split-db made {len(chunks)} chunks")
+    s_proj = cli("project-db", *chunks)[0]
+    saved = sum(os.path.getsize(c[:-3] + ".npz") for c in chunks)
+    print(f"23 (b) inputs written, split-db --ram-size {ram} {s_split!r} "
+          f"s, project-db {s_proj!r} s ({saved} bytes of saved indexes); "
+          f"{time.perf_counter() - t0!r} s in all")
+    # the whole genome under the same cap: the pre-check refuses it
+    # before anything is built
+    t0 = time.perf_counter()
+    refused = None
+    try:
+        cli("map", "--strict-mem", "--max-mem", ram, rpath, gpath)
+    except memmodel.MemCapError as exc:
+        refused = str(exc)
+    tr = memmodel.tracker()
+    print(f"23 (b) map --strict-mem --max-mem {ram} on the whole genome: "
+          f"{refused!r} after {time.perf_counter() - t0!r} s; bytes "
+          f"accounted then {tr.crt_mem}")
+    if refused is None or "split-db" not in refused or tr.crt_mem != 0:
+        raise AssertionError("23 (b): the whole genome was not refused by "
+                             "the memory cap before its build")
+    kernels = {k: v for k, v in _flow_kernels("_hg_cli")[0].items()}
+    for c in kernels.values():
+        c[5].reset()
+    runs, calls = [], None
+    sams = [c[:-3] + ".sam" for c in chunks]
+    for i, (c, sam) in enumerate(zip(chunks, sams)):
+        args = ("map", "--max-mem", ram, rpath, c[:-3] + ".npz")
+        if i == 0:
+            out = []
+            calls = _first_calls_of(
+                lambda: out.append(cli(*args, out=sam)),
+                {k: v[:2] for k, v in kernels.items()})
+            run = out[0]
+        else:
+            run = cli(*args, out=sam)
+        warned = [ln for ln in run[2].splitlines() if "my_malloc" in ln]
+        if warned:
+            raise AssertionError(f"23 (b) chunk {i}: a cap warning {warned}")
+        _check_rise(f"(b) chunk {i}", run[3], kernels)
+        runs.append(run)
+    merged = cli.path("hg", "merged.sam")
+    m_secs = cli("merge", rpath, *sams, out=merged)[0]
+    n_k = {k: v[5].n for k, v in kernels.items()}
+    map_secs = sum(r[0] for r in runs)
+    rps = len(reads) / (map_secs + m_secs)
+    merged_b = _sam_body(_read(merged))
+    n_rec = merged_b.count(b"\n")
+    o = _SHARDED.get("hg")
+    print(f"23 (b) split-db workflow, {len(reads)} reads: "
+          f"{rps!r} reads/s over map + merge (bench_hg.py's span); maps on "
+          f"{dev} {[r[0] for r in runs]} s, their index loads "
+          f"{[r[1] for r in runs]} s; merge {m_secs!r} s of "
+          f"{sum(os.path.getsize(p) for p in sams)} SAM bytes; "
+          f"{n_rec} merged records; no cap warning under "
+          f"--max-mem {ram}; launches {n_k}; {smi}")
+    print("23 (b) beside it, the same bins and reads in this run: "
+          "ShardedIndexMapper (phase 21 (d)) "
+          + (f"{len(reads) / o['secs']!r} reads/s" if o and n_bins == 4
+             else "not in this run")
+          + ", DistMapper's slower rank (phase 22 (c)) "
+          + (f"{o['dist_rps']!r} reads/s" if o and "dist_rps" in o
+             and n_bins == 4 else "not in this run"))
+    if o and n_bins == 4:
+        got = Counter(merged_b.split(b"\n"))
+        want = Counter(_sam_body(o["sam"]).split(b"\n"))
+        print(f"23 (b) merged records byte-equal to ShardedIndexMapper's "
+              f"(information only): {sum((got & want).values()) - 1} of "
+              f"{sum(got.values()) - 1} (it has {sum(want.values()) - 1})")
+    first = reads[:MESH_HG_CPU_READS]
+    fpath = cli.path("hg_first.fa")
+    _write_fasta(fpath, first)
+    t0 = time.perf_counter()
+    cpu_sams = [p[:-4] + ".cpu.sam" for p in sams]
+    for c, sam in zip(chunks, cpu_sams):
+        cli("map", "--device", "cpu", "--max-mem", ram, fpath,
+            c[:-3] + ".npz", out=sam)
+    cpu_merged = cli.path("hg", "merged.cpu.sam")
+    cli("merge", fpath, *cpu_sams, out=cpu_merged)
+    same = _prefix_of(_sam_body(_read(cpu_merged)), merged_b, first)
+    print(f"23 (b) the --device cpu workflow on the first {len(first)} "
+          f"reads in {time.perf_counter() - t0!r} s; its merged SAM is the "
+          f"card workflow's prefix for them: {same}")
+    if not same:
+        raise AssertionError("23 (b): the CPU workflow's merged SAM differs "
+                             "from the card's")
+    rec = _kernel_records("hg chunk", calls, kernels, n_k)
+    del calls
+    return n_k, rec, rps
+
+
+def _pretty(dev, smi, cli):
+    """Phase 23 (c): map --shrimp-format -P, LS and CS, on E. coli: the
+    generic mapper on the card, against the --device cpu run."""
+    from shrimp_tpu_torch.core import sw_cs, sw_cs_full, sw_full, sw_vector
+    vec = (sw_vector.sw_vector_batch, sw_vector.sw_vector_batch_ref,
+           _vec_launch_bound)
+    launches, rec = {}, {}
+    for title, wl, flags, kernels in (
+            ("(c) LS -P", "ecoli_unpaired_ls", (), {
+                "sw_vector_pretty_cli": (sw_vector, "sw_vector_batch", *vec,
+                                         sw_vector.LAUNCHES, False),
+                "sw_full_bp_pretty_cli": (
+                    sw_full, "sw_full_bp", sw_full.sw_full_bp,
+                    sw_full.sw_full_bp_ref, _bp_launch_bound,
+                    sw_full.BP_LAUNCHES, False),
+                "ls_traceback_pretty_cli": (
+                    sw_full, "traceback_pack", sw_full.traceback_pack,
+                    sw_full.traceback_pack_ref, _tb_launch_bound,
+                    sw_full.TB_LAUNCHES, False)}),
+            ("(c) CS -P", "ecoli_unpaired_cs", ("--cs",), {
+                "sw_vector_cs_pretty_cli": (sw_vector, "sw_vector_batch",
+                                            *vec, sw_vector.CS_LAUNCHES,
+                                            True),
+                "sw_cs_full_pretty_cli": (
+                    sw_cs, "sw_full_cs_dp", sw_cs_full.sw_full_cs_dp,
+                    sw_cs_full.sw_full_cs_dp_ref, _cs_dp_launch_bound,
+                    sw_cs_full.DP_LAUNCHES, True),
+                "cs_traceback_pretty_cli": (
+                    sw_cs, "cs_traceback", sw_cs_full.cs_traceback,
+                    sw_cs_full.cs_traceback_ref, _cs_tb_launch_bound,
+                    sw_cs_full.TB_LAUNCHES, True)})):
+        reads = _dataset(wl, N_READS)[1][:PRETTY_READS]
+        tag = wl.split("_")[-1]
+        rpath = cli.path(f"pretty_{tag}.fa")
+        _write_fasta(rpath, reads)
+        args = ("map", *flags, "--shrimp-format", "-P", rpath,
+                cli.path("ecoli.fa"))
+        for c in kernels.values():
+            c[5].reset()
+        out, card = [], cli.path(f"pretty_{tag}.txt")
+        calls = _first_calls_of(lambda: out.append(cli(*args, out=card)),
+                                {k: v[:2] for k, v in kernels.items()})
+        run = out[0]
+        _check_rise(title, run[3], kernels)
+        n_k = {k: v[5].n for k, v in kernels.items()}
+        launches.update(n_k)
+        text = _read(card)
+        first = reads[:PRETTY_CPU_READS]
+        fpath = cli.path(f"pretty_{tag}_first.fa")
+        _write_fasta(fpath, first)
+        cpu = cli.path(f"pretty_{tag}.cpu.txt")
+        s_cpu = cli("map", "--device", "cpu", *flags, "--shrimp-format",
+                    "-P", fpath, cli.path("ecoli.fa"), out=cpu)[0]
+        cpu_text = _read(cpu)
+        same = _prefix_of(cpu_text, text, first)
+        hits, blocks = text.count(b"\n>"), text.count(b"\nG:")
+        print(f"23 {title}: {len(reads)} reads in {run[0]!r} s on {dev} "
+              f"(the genome's index built in the call) = "
+              f"{len(reads) / run[0]!r} reads/s; {hits} hits, {blocks} "
+              f"alignment blocks; launches {n_k}; the --device cpu run of "
+              f"the first {len(first)} reads ({s_cpu!r} s) is its prefix: "
+              f"{same}; {smi}")
+        if not same or blocks < 0.8 * len(reads):
+            raise AssertionError(f"23 {title}: the card's output differs "
+                                 "from the CPU run's, or mostly unmapped")
+        rec.update(_kernel_records(title[4:], calls, kernels, n_k))
+        del calls
+    return launches, rec
+
+
+def run_split_workflow(dev, smi):
+    """Phase 23: the split-db workflow and `map -P` through the CLI,
+    in-process, in a temporary directory deleted at the end. Returns the
+    launches of its maps and the `*_cli` kernel records."""
+    import tempfile
+    launches, rec = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _CLI(tmp)
+        t0 = time.perf_counter()
+        ln, r = _split_ecoli(dev, smi, cli)
+        launches.update(ln)
+        rec.update(r)
+        t1 = time.perf_counter()
+        # the E. coli chunk indexes go before the hg ones are written
+        for space in ("ls", "cs"):
+            for f in os.listdir(cli.path(space)):
+                if f.endswith(".npz"):
+                    os.remove(cli.path(space, f))
+        ln, r, _ = _split_hg(dev, smi, cli)
+        launches.update(ln)
+        rec.update(r)
+        t2 = time.perf_counter()
+        ln, r = _pretty(dev, smi, cli)
+        launches.update(ln)
+        rec.update(r)
+        print(f"23: (a) {t1 - t0!r} s, (b) {t2 - t1!r} s, (c) "
+              f"{time.perf_counter() - t2!r} s")
+    return launches, rec
+
+
 
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 23))
+        return set(range(1, 24))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -3353,8 +3964,14 @@ def main() -> None:
         launches.update(ln)
         rec.update(r)
         print(f"phase 22: {time.perf_counter() - t22!r} s")
+    if 23 in phases:
+        t23 = time.perf_counter()
+        ln, r = run_split_workflow(dev, smi)
+        launches.update(ln)
+        rec.update(r)
+        print(f"phase 23: {time.perf_counter() - t23!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 23)):
+    if phases != set(range(1, 24)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -3435,7 +4052,33 @@ def main() -> None:
             ("sw_full_bp_dist", "sw_full_bp.cu",
              "shrimp_tpu/core/sw_full_pallas.py:298"),
             ("ls_traceback_dist", "ls_traceback.cu",
-             "shrimp_tpu/core/sw_jax.py:785"))]
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("sw_vector_cli", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_stats_cli", "sw_full.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("sw_vector_cs_cli", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_cli", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_cli", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_hg_cli", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_stats_hg_cli", "sw_full.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("sw_vector_pretty_cli", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp_pretty_cli", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback_pretty_cli", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("sw_vector_cs_pretty_cli", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_pretty_cli", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_pretty_cli", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

@@ -1,4 +1,5 @@
-"""`python -m shrimp_tpu_torch {index,map} ...` (see cli.py)."""
+"""`python -m shrimp_tpu_torch {index,map,merge,split-db,...} ...` (see
+cli.py)."""
 import sys
 
 from .cli import main

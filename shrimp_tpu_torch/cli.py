@@ -1,21 +1,25 @@
-"""Command-line interface: `python -m shrimp_tpu_torch {index,map} ...`
+"""Command-line interface: `python -m shrimp_tpu_torch {index,map,merge,...}`
 
-Port of `shrimp_tpu/cli.py`: `index` and `map`, with the reference's
-flags, config building, index load/build/save and output, mirroring the
-gmapper command-line surface (gmapper/gmapper.c:1720-3110) with explicit
-subcommands instead of argv[0] dispatch; `map --cs` replaces the
-gmapper-cs symlink. Flag names follow gmapper's long options
-(gmapper-defaults.h:74-173). One flag is new: `--device` (default
-`cuda`) names the torch device the mapper runs on; `--device cpu` runs
-the plain PyTorch versions of the kernels, and `cuda` without a card
-raises. `map` writes its SAM through the fast streams where the config
-allows them and through the generic mapper otherwise, as the
-reference does.
+Port of `shrimp_tpu/cli.py`, every subcommand: `index` and `map`, with
+the reference's flags, config building, index load/build/save and
+output, mirroring the gmapper command-line surface
+(gmapper/gmapper.c:1720-3110) with explicit subcommands instead of
+argv[0] dispatch; `map --cs` replaces the gmapper-cs symlink. Flag names
+follow gmapper's long options (gmapper-defaults.h:74-173). One flag is
+new: `--device` (default `cuda`) names the torch device the mapper runs
+on; `--device cpu` runs the plain PyTorch versions of the kernels, and
+`cuda` without a card raises. `map` writes its SAM through the fast
+streams where the config allows them and through the generic mapper
+otherwise, as the reference does; `map --shrimp-format -P` prints each
+hit's alignment after its line. The memory cap (`--max-mem`, default
+64 GB, and `--strict-mem`) is installed before any index is built.
 
-Not yet ported, and answered with an error: `-P/--pretty`, the memory
-cap (`--max-mem`, `--strict-mem`), and the other subcommands (`merge`,
-`split-db`, `project-db`, `split-reads`, `split-contigs`, `temp-sink`,
-`fasta2fastq`, `lineindex`, `shrimp2sam` and the legacy tools).
+The host tools run the same on any machine and take no `--device`:
+`merge` (mergesam), the split-db workflow (`split-db`, `project-db`,
+`split-reads`, `split-contigs`), `temp-sink`, `fasta2fastq`,
+`lineindex`, `shrimp2sam`, and the legacy tools `probcalc`,
+`probcalc-mp`, `prettyprint`, `shrimp-var` and `colorconsensus`, which
+take their own arguments.
 """
 from __future__ import annotations
 
@@ -27,17 +31,9 @@ from typing import List, Optional
 
 from . import constants as C
 
-# subcommands and map flags of the reference CLI that the port does not
-# have yet
-NOT_PORTED_CMDS = ("merge", "split-db", "project-db", "split-reads",
-                   "split-contigs", "temp-sink", "fasta2fastq", "lineindex",
-                   "shrimp2sam", "probcalc", "probcalc-mp", "prettyprint",
-                   "shrimp-var", "colorconsensus")
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"error: {what} is not yet ported to "
-                      "shrimp_tpu_torch")
+# the legacy SHRiMP1 tools, which take their own argv verbatim
+LEGACY_TOOLS = ("probcalc", "probcalc-mp", "prettyprint", "shrimp-var",
+                "colorconsensus")
 
 
 def _add_map_flags(p: argparse.ArgumentParser) -> None:
@@ -184,11 +180,12 @@ def _add_map_flags(p: argparse.ArgumentParser) -> None:
                         "without mapping (gmapper -S); with -L and -z, "
                         "re-checkpoints the loaded index after trimming "
                         "(gmapper.c:2846-2857)")
-    p.add_argument("--max-mem", type=float, default=None, metavar="GB",
-                   help="global memory cap in GB: not yet ported")
+    p.add_argument("--max-mem", type=float, default=64.0, metavar="GB",
+                   help="global memory cap in GB (my_alloc_init analogue, "
+                        "gmapper.c:1740; default 64)")
     p.add_argument("--strict-mem", action="store_true",
-                   help="fail when the memory cap is exceeded: not yet "
-                        "ported")
+                   help="fail (not just warn) when the cap is exceeded "
+                        "(MYALLOC_ERR_MAX analogue)")
     p.add_argument("--device", default="cuda",
                    help="torch device to map on: cuda (the default; "
                         "raises without a card) or cpu (the plain "
@@ -268,8 +265,8 @@ def build_config(args) -> "MapperConfig":
     if args.ungapped and not args.local:
         raise SystemExit("error: cannot use global (or bfast) and "
                          "ungapped mode at the same time!")
-    if args.pretty:
-        raise _not_ported("-P/--pretty")
+    if args.pretty and not args.shrimp_format:
+        raise SystemExit("error: -P/--pretty requires --shrimp-format")
     if args.sam_unaligned and args.shrimp_format:
         raise SystemExit("error: when using flag --sam-unaligned must "
                          "also use SAM output")
@@ -525,8 +522,6 @@ def cmd_map(args) -> int:
     from .mapper import Mapper
     from .paired import PairedMapper
 
-    if args.max_mem is not None or args.strict_mem:
-        raise _not_ported("the memory cap (--max-mem, --strict-mem)")
     if args.cs and args.trim_front:
         # gmapper.c:2135: front trims would eat the CS primer base
         raise SystemExit(
@@ -665,6 +660,17 @@ def cmd_map(args) -> int:
                     out.write(shrimp_format.output_normal(
                         re_, h, idx, include_read=args.print_reads) + "\n")
                     total_lines += 1
+                    if args.pretty:
+                        # -P: alignment block after each hit line
+                        # (hit_output, gmapper/output.c:283-290)
+                        from .tools.prettyprint import output_pretty
+                        coff = int(idx.contig_offsets[h.cn])
+                        glen = int(idx.contig_lengths[h.cn])
+                        out.write(output_pretty(
+                            h, idx.codes[coff:coff + glen], glen,
+                            cfg.mode == C.MODE_COLOUR_SPACE,
+                            re_.codes[h.st], re_.read_len,
+                            re_.initbp[h.st], h.gen_st == 1) + "\n")
                 if al_f and hits:
                     write_read(al_f, re_)
                 if un_f and not hits:
@@ -780,6 +786,16 @@ def cmd_map(args) -> int:
     return 0
 
 
+def cmd_merge(args) -> int:
+    from .tools.mergesam import merge_sam_files
+    return merge_sam_files(args.reads, args.sams, sys.stdout,
+                           single_best=args.single_best_mapping,
+                           strata=args.strata,
+                           max_alignments=args.max_alignments,
+                           insert_size_mean=args.insert_size_mean,
+                           insert_size_stddev=args.insert_size_stddev)
+
+
 _NEG_VALUE_FLAGS = {"-m", "--match", "-i", "--mismatch", "-g", "--open-r",
                     "-q", "--open-q", "-e", "--ext-r", "-f", "--ext-q",
                     "-x", "--crossover", "-r", "--cmw-threshold",
@@ -833,17 +849,175 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="genome fasta file(s) or a saved .npz index")
     _add_map_flags(p_map)
 
-    for name in NOT_PORTED_CMDS:
-        p_np = sub.add_parser(name, add_help=False,
-                              help="not yet ported to shrimp_tpu_torch")
-        p_np.add_argument("tool_args", nargs=argparse.REMAINDER)
+    p_mrg = sub.add_parser("merge",
+                           help="merge per-shard SAM files (mergesam)")
+    p_mrg.add_argument("reads")
+    p_mrg.add_argument("sams", nargs="+")
+    p_mrg.add_argument("--single-best-mapping", action="store_true")
+    p_mrg.add_argument("--strata", action="store_true")
+    p_mrg.add_argument("--max-alignments", type=int, default=0)
+    p_mrg.add_argument("--insert-size-mean", type=float,
+                       default=C.DEF_INSERT_SIZE_MEAN)
+    p_mrg.add_argument("--insert-size-stddev", type=float,
+                       default=C.DEF_INSERT_SIZE_STDDEV)
 
-    args = ap.parse_args(argv)
-    if args.cmd in NOT_PORTED_CMDS:
-        raise _not_ported(f"the {args.cmd} subcommand")
+    p_sdb = sub.add_parser(
+        "split-db", help="bin-pack contigs into RAM-budget genome chunks "
+        "(utils/split-db.py)")
+    p_sdb.add_argument("genome", nargs="+")
+    p_sdb.add_argument("--ram-size", type=float, required=True,
+                       help="per-chunk RAM budget in GB")
+    p_sdb.add_argument("--prefix", required=True)
+    p_sdb.add_argument("--n-seeds", type=int, default=4)
+    p_sdb.add_argument("--seed-weight", type=int, default=12)
+    p_sdb.add_argument("--max-contig-len", type=int, default=0,
+                       help="split contigs longer than this into "
+                            "overlapping name/OFFSET pieces (beyond the "
+                            "reference, which never splits contigs; "
+                            "merge rebases and dedups exactly)")
+    p_sdb.add_argument("--contig-overlap", type=int, default=2000,
+                       help="halo overlap between contig pieces")
+    p_sdb.add_argument("--cs", action="store_true",
+                       help="size chunks with the colour-space RAM model "
+                            "(4 genome planes instead of 2), matching "
+                            "build_index's pre-check for CS genomes")
+
+    p_pdb = sub.add_parser(
+        "project-db", help="pre-build a saved index per genome chunk "
+        "(utils/project-db.py / gmapper -S)")
+    p_pdb.add_argument("chunks", nargs="+",
+                       help="chunk fasta files from split-db")
+    p_pdb.add_argument("-s", "--seeds", default=None)
+    p_pdb.add_argument("--cs", action="store_true")
+    p_pdb.add_argument("-H", "--hash-spaced-kmers", action="store_true")
+
+    p_srd = sub.add_parser(
+        "split-reads", help="split a read file into N chunks "
+        "(utils/splitreads.py)")
+    p_srd.add_argument("reads")
+    p_srd.add_argument("-n", "--n-chunks", type=int, required=True)
+    p_srd.add_argument("--prefix", required=True)
+    p_srd.add_argument("--paired", action="store_true",
+                       help="keep read pairs together")
+
+    p_sct = sub.add_parser(
+        "split-contigs", help="balanced contig->chunk assignment for a "
+        "RAM budget (utils/split-contigs.c)")
+    p_sct.add_argument("genome",
+                       help="fasta file, or - for name/size pairs on stdin")
+    p_sct.add_argument("ram_size", type=float,
+                       help="target RAM size in GB")
+    p_sct.add_argument("seed_weights", nargs="?", default=None,
+                       help="comma-separated seed weights (default 12,12,12)")
+
+    p_tsk = sub.add_parser(
+        "temp-sink", help="buffer stdin to a temp file, flush to DEST at "
+        "EOF (utils/temp-sink.c)")
+    p_tsk.add_argument("dest")
+    p_tsk.add_argument("-b", "--block-size", type=int, default=1 << 20)
+
+    p_f2q = sub.add_parser("fasta2fastq",
+                           help="fasta + .qual -> fastq (mergesam tool)")
+    p_f2q.add_argument("fasta")
+    p_f2q.add_argument("qual")
+
+    p_lin = sub.add_parser("lineindex",
+                           help="byte offset of every line (mergesam tool)")
+    p_lin.add_argument("file")
+
+    p_s2s = sub.add_parser("shrimp2sam",
+                           help="legacy SHRiMP-format output -> SAM")
+    p_s2s.add_argument("reads")
+    p_s2s.add_argument("shrimp_output")
+
+    # listed for --help only: a legacy tool's argv goes to it verbatim,
+    # leading options included, which a REMAINDER subparser would refuse
+    # (`probcalc -S ...` reads -S as one of the CLI's own options)
+    for tool in LEGACY_TOOLS:
+        sub.add_parser(tool, add_help=False,
+                       help="legacy %s tool (args passed through)"
+                       % tool.replace("-", "_"))
+
+    if argv and argv[0] in LEGACY_TOOLS:
+        args = argparse.Namespace(cmd=argv[0], tool_args=argv[1:])
+    else:
+        args = ap.parse_args(argv)
+    # my_alloc_init analogue (gmapper.c:1740): install the process-wide
+    # memory cap before any index build or load can allocate
+    from .utils import memmodel
+    memmodel.init(int(getattr(args, "max_mem", 64.0) * (1 << 30)),
+                  strict=bool(getattr(args, "strict_mem", False)))
+    if args.cmd in LEGACY_TOOLS:
+        import importlib
+        mod = importlib.import_module(
+            ".tools." + args.cmd.replace("-", "_"), __package__)
+        return mod.main(args.tool_args)
     if args.cmd == "index":
         return cmd_index(args)
-    return cmd_map(args)
+    if args.cmd == "map":
+        return cmd_map(args)
+    if args.cmd == "merge":
+        return cmd_merge(args)
+    if args.cmd == "split-db":
+        from .tools.split import split_db
+        split_db(args.genome, args.ram_size, args.prefix,
+                 n_seeds=args.n_seeds, weight=args.seed_weight,
+                 max_contig_len=args.max_contig_len,
+                 contig_overlap=args.contig_overlap,
+                 colour_space=args.cs)
+        return 0
+    if args.cmd == "project-db":
+        mode = C.MODE_COLOUR_SPACE if args.cs else C.MODE_LETTER_SPACE
+        for chunk in args.chunks:
+            idx = load_or_build_index([chunk], args.seeds, mode,
+                                      hashed=args.hash_spaced_kmers)
+            out_path = chunk.rsplit(".", 1)[0] + ".npz"
+            idx.save(out_path)
+            idx.release()   # un-account the chunk before the next build
+            print(f"Saved {out_path}", file=sys.stderr)
+        return 0
+    if args.cmd == "split-reads":
+        from .tools.split import split_reads
+        split_reads(args.reads, args.n_chunks, args.prefix,
+                    paired=args.paired)
+        return 0
+    if args.cmd == "split-contigs":
+        from .io.fasta import read_seqs
+        from .tools.split import split_contigs
+        if args.genome == "-":
+            toks = sys.stdin.read().split()
+            contigs = [(toks[i], int(toks[i + 1]))
+                       for i in range(0, len(toks) - 1, 2)]
+        else:
+            contigs = [(r.name, len(r.seq)) for r in read_seqs(args.genome)]
+        weights = ([int(w) for w in args.seed_weights.split(",")]
+                   if args.seed_weights else None)
+        chunks = split_contigs(contigs, args.ram_size, weights)
+        for i, ch in enumerate(chunks):
+            print(f"chunk {i + 1}:")
+            for name, size in ch:
+                print(f"{name}\t{size}")
+        return 0
+    if args.cmd == "temp-sink":
+        from .tools.split import temp_sink
+        temp_sink(args.dest, block_size=args.block_size)
+        return 0
+    if args.cmd == "fasta2fastq":
+        from .tools.split import fasta2fastq
+        fasta2fastq(args.fasta, args.qual, sys.stdout)
+        return 0
+    if args.cmd == "lineindex":
+        from .tools.split import lineindex
+        lineindex(args.file, sys.stdout)
+        return 0
+    if args.cmd == "shrimp2sam":
+        from .io.fasta import read_seqs
+        from .tools.shrimp2sam import shrimp2sam
+        reads = {r.name: r.seq for r in read_seqs(args.reads)}
+        with open(args.shrimp_output) as f:
+            shrimp2sam(f, reads, sys.stdout)
+        return 0
+    return 1
 
 
 if __name__ == "__main__":

@@ -16,10 +16,12 @@ arrays), so an index saved by either package loads in the other.
 the hugepage buffers it replaces; `release` unmaps an index's buffers
 (`utils/hostmem.py`), which otherwise live for the process.
 
-Left out of the copy: the host-memory cap accounting
-(`utils/memmodel.py`: a pre-build footprint check and per-array
-counters that change no array, `GenomeIndex._register_memory`). The CSR sort and the key projection run
-through the port's native library, which raises if it does not build.
+The host-memory cap (`utils/memmodel.py`) is the reference's:
+`build_index` checks the predicted footprint against the cap before it
+allocates, and every build or load registers the index's arrays
+(`_register_memory`), which `release` and `trim` un-account. The CSR
+sort and the key projection run through the port's native library,
+which raises if it does not build.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 from .. import constants as C
 from ..core import encode
 from ..native import get_lib
+from ..utils import memmodel
 from ..utils.hostmem import release as hp_release
 from ..utils.hostmem import to_hugepages
 from .seeds import Seed, sliding_mapidx, sliding_mapidx_hash
@@ -96,11 +99,33 @@ class GenomeIndex:
                  else max(si.seed.weight for si in self.seeds))
         return max(1000, int((100 * self.total_len) // (4 ** max_w)))
 
+    def _register_memory(self) -> None:
+        """Account the index's arrays against the process memory cap
+        (my-alloc genomemap counters); release() un-accounts them."""
+        tr = memmodel.tracker()
+        tracked = []
+        for nm in ("codes", "codes_rc", "cs_codes", "cs_codes_rc"):
+            a = getattr(self, nm, None)
+            if a is not None:
+                tr.track(a, "genomemap", nm)
+                tracked.append(a)
+        for i, si in enumerate(self.seeds):
+            tr.track(si.offsets, "genomemap", f"seed{i}_offsets")
+            tr.track(si.positions, "genomemap", f"seed{i}_positions")
+            tracked += [si.offsets, si.positions]
+        self._mem_tracked = tracked
+
     def release(self) -> None:
-        """Unmap this index's hugepage buffers (the my_free analogue);
-        the index must not be used afterwards. Its planes become None and
-        its seeds an empty list, so a later use fails loudly instead of
-        reading unmapped pages."""
+        """Drop this index's memory accounting and unmap its hugepage
+        buffers (the my_free analogue), so that a chunked build
+        (project-db) does not trip the cap on later chunks; the index
+        must not be used afterwards. Its planes become None and its seeds
+        an empty list, so a later use fails loudly instead of reading
+        unmapped pages."""
+        tr = memmodel.tracker()
+        for a in getattr(self, "_mem_tracked", []):
+            tr.untrack(a, "genomemap")
+        self._mem_tracked = []
         for si in self.seeds:
             hp_release(si.offsets)
             hp_release(si.positions)
@@ -129,6 +154,7 @@ class GenomeIndex:
             hashed=bool(meta.get("hashed", False)))
         if gi.mode == C.MODE_COLOUR_SPACE:
             gi.build_cs_projection()
+        gi._register_memory()
         return gi
 
     def save(self, path: str) -> None:
@@ -234,6 +260,8 @@ class GenomeIndex:
         at query time, but it shrinks a re-saved index (-L x -S y -z c,
         gmapper.c:2846-2857). Returns the number of lists dropped."""
         dropped = 0
+        tr = memmodel.tracker()
+        tracked = getattr(self, "_mem_tracked", [])
         for k, si in enumerate(self.seeds):
             lens = si.list_lengths().astype(np.int64)
             over = lens > cutoff
@@ -244,13 +272,22 @@ class GenomeIndex:
             new_off = np.zeros(len(si.offsets), dtype=np.int64)
             np.cumsum(np.where(over, 0, lens), out=new_off[1:])
             new_pos = si.positions[np.repeat(~over, lens)]
-            # the untrimmed lists' buffers go now, not with the process
-            hp_release(si.offsets)
-            hp_release(si.positions)
-            self.seeds[k] = SeedIndex(
+            # the untrimmed lists' buffers and their accounting go now,
+            # not with the process
+            for old in (si.offsets, si.positions):
+                if any(old is t for t in tracked):
+                    tr.untrack(old, "genomemap")
+                    tracked = [t for t in tracked if t is not old]
+                hp_release(old)
+            new_si = SeedIndex(
                 seed=si.seed,
                 offsets=to_hugepages(_compact_offsets(new_off)),
                 positions=to_hugepages(new_pos))
+            tr.track(new_si.offsets, "genomemap", f"seed{k}_offsets")
+            tr.track(new_si.positions, "genomemap", f"seed{k}_positions")
+            tracked += [new_si.offsets, new_si.positions]
+            self._mem_tracked = tracked
+            self.seeds[k] = new_si
         return dropped
 
     def save_mmap(self, dirpath: str) -> None:
@@ -302,6 +339,7 @@ class GenomeIndex:
         if os.path.exists(os.path.join(dirpath, "cs_codes.npy")):
             gi.cs_codes = m("cs_codes")
             gi.cs_codes_rc = m("cs_codes_rc")
+        gi._register_memory()   # memmaps count as 0 (paged by the OS)
         return gi
 
     def build_cs_projection(self) -> None:
@@ -350,6 +388,12 @@ def build_index(contigs: Sequence[tuple], seeds: Sequence[Seed],
     """
     names = [n for n, _ in contigs]
     lengths = np.array([len(c) for _, c in contigs], dtype=np.uint32)
+    # the memory cap's pre-check: the predicted footprint from the shared
+    # RAM model warns or fails before anything is allocated
+    memmodel.tracker().precheck_index(
+        int(lengths.sum()), len(seeds),
+        max((s.weight for s in seeds), default=0),
+        colour_space=(mode == C.MODE_COLOUR_SPACE))
     offsets = np.zeros(len(contigs), dtype=np.uint32)
     if len(contigs) > 1:
         offsets[1:] = np.cumsum(lengths[:-1],
@@ -404,6 +448,7 @@ def build_index(contigs: Sequence[tuple], seeds: Sequence[Seed],
         sorted_pos = to_hugepages(sorted_pos)
         gi.seeds.append(SeedIndex(seed=seed, offsets=csr_offsets,
                                   positions=sorted_pos))
+    gi._register_memory()
     return gi
 
 

@@ -8,7 +8,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 from .test_e2e_cs import make_cs_dataset
 from .test_e2e_paired import make_paired_dataset
@@ -142,14 +141,3 @@ def test_cs_index_then_map_matches_reference(tmp_path):
     want = _ref(tmp_path, "map", "--cs", rpath, gpath)
     assert _sam(got.stdout) == _sam(want.stdout)
     assert len(_sam(got.stdout)) > 30
-
-
-@pytest.mark.parametrize("args", [
-    ("merge", "reads.fa", "a.sam"),
-    ("map", "--device", "cpu", "--shrimp-format", "-P", "r.fa", "g.fa"),
-    ("map", "--device", "cpu", "--max-mem", "8", "r.fa", "g.fa"),
-], ids=["merge", "pretty", "max-mem"])
-def test_not_yet_ported_commands_exit_with_an_error(args):
-    from shrimp_tpu_torch import cli
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(list(args))

@@ -286,7 +286,11 @@ def test_compute_mp_ranges_matches_reference(indexes, mode):
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ("core/sw_np.py", "core/traceback.py", "core/candidates.py",
           "core/batch_pipeline.py", "core/sw_cs_np.py",
-          "core/sw_cs_batch.py", "io/sam.py", "io/shrimp_format.py")
+          "core/sw_cs_batch.py", "io/sam.py", "io/shrimp_format.py",
+          "utils/memmodel.py", "io/shrimp_input.py", "tools/mergesam.py",
+          "tools/split.py", "tools/shrimp2sam.py", "tools/prettyprint.py",
+          "tools/probcalc.py", "tools/probcalc_mp.py",
+          "tools/shrimp_var.py", "tools/colorconsensus.py", "tools/dag.py")
 
 
 @pytest.mark.parametrize("path", COPIED)
@@ -609,3 +613,51 @@ def test_merge_shard_flathits_matches_reference(index_memory_freed):
     empty, sh = port_merge([(port_f1(port_subs[0], codes2[:0], **kw), 0)],
                            cn_base, 0)
     assert empty.n == 0 and len(sh) == 0
+
+
+@pytest.mark.parametrize("mode", ["ls", "cs"])
+def test_memory_tracker_matches_reference(mode, tmp_path,
+                                          index_memory_freed):
+    """The memory cap's counters (utils/memmodel.py) after the same
+    build, save and load (one .npz, the split layout, the mmap image),
+    trim and release: the port's tracker reads the reference's at every
+    step, and a released index leaves nothing accounted."""
+    from shrimp_tpu.index.build import GenomeIndex as RefIndex
+    from shrimp_tpu.utils import memmodel as ref_mm
+    from shrimp_tpu_torch.index.build import GenomeIndex as PortIndex
+    from shrimp_tpu_torch.utils import memmodel as port_mm
+    contigs = _contigs()
+    steps = []
+    try:
+        for tag, mm, build, enc, seeds, gi in (
+                ("ref", ref_mm, ref_build, ref_encode, ref_seeds, RefIndex),
+                ("port", port_mm, port_build, port_encode, port_seeds,
+                 PortIndex)):
+            tr = mm.init()
+            got = []
+
+            def seen(what):
+                got.append((what, tr.crt_mem, tr.peak_mem,
+                            dict(tr.by_category)))
+            idx = build([(n, enc.encode_ls(s)) for n, s in contigs],
+                        seeds(mode=mode), mode=mode)
+            seen("build")
+            base = str(tmp_path / tag)
+            idx.save(base + ".npz")
+            idx.save_split(base)
+            idx.save_mmap(base + "_mmap")
+            loaded = [gi.load(base + ".npz"), gi.load_split(base + ".genome"),
+                      gi.load_mmap(base + "_mmap")]
+            seen("load")
+            assert loaded[0].trim(1) > 0
+            seen("trim")
+            for x in [idx] + loaded:
+                x.release()
+                seen("release")
+            steps.append(got)
+    finally:
+        ref_mm.init()
+        port_mm.init()
+    assert steps[0] == steps[1]
+    assert steps[1][0][1] > 0 and steps[1][-1][1] == 0
+    assert steps[1][2][1] < steps[1][1][1]
