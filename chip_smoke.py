@@ -965,7 +965,8 @@ def check_cs_kernels(dev):
     for G in (CS_G_MAIN, 2 * CS_G_MAIN):
         _print_launch_config("sw_vector (colour space)", "sw_vector_config",
                              CS_B_MAIN, G, CS_R)
-        _print_launch_config("sw_cs_full", "sw_cs_full_config", G)
+        _print_launch_config("sw_cs_full", "sw_cs_full_config", CS_B_MAIN,
+                             G, CS_R)
     for B, R, G in CS_SHAPES[:1] + CS_SHAPES[3:]:
         _print_launch_config("cs_traceback", "cs_traceback_config", B, G, R)
     for B, R, G in CS_SHAPES:

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -31,19 +33,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (name, argtypes). Every pointer and the stream are
 # c_void_p (a plain int would be cut to 32 bits); sizes and scores int.
+# A launch whose kernel can need device memory beside its outputs takes
+# it last, after the stream (`scratch`).
 _SIGNATURES = {
-    "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P],
+    "sw_vector_launch": [_P] * 6 + [_I] * 9 + [_P, _P],
     "sw_vector_config": [_I, _I, _I, _P],
+    "sw_vector_scratch": [_I, _I, _I, _P],
     "sw_full_stats_launch": [_P] * 10 + [_I] * 10 + [_P],
     "sw_full_stats_config": [_I, _I, _I, _P],
-    "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P],
-    "sw_cs_full_config": [_I, _P],
+    "sw_cs_full_launch": [_P] * 13 + [_I] * 11 + [_P, _P],
+    "sw_cs_full_config": [_I, _I, _I, _P],
+    "sw_cs_full_scratch": [_I, _I, _I, _P],
     "cs_traceback_launch": [_P] * 11 + [_I] * 3 + [_P],
     "cs_traceback_config": [_I, _I, _I, _P],
-    "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P],
+    "sw_full_bp_launch": [_P] * 11 + [_I] * 10 + [_P, _P],
     "sw_full_bp_config": [_I, _I, _I, _P],
-    "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P],
+    "sw_full_bp_scratch": [_I, _I, _I, _P],
+    "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P, _P],
     "ls_traceback_config": [_I, _I, _I, _P],
+    "ls_traceback_scratch": [_I, _I, _I, _P],
 }
 
 
@@ -168,6 +176,27 @@ def launch_config(name: str, *args: int) -> dict:
     out = (ctypes.c_int * len(CONFIG_KEYS))()
     check(getattr(load().lib, name)(*args, ctypes.addressof(out)), name)
     return dict(zip(CONFIG_KEYS, out))
+
+
+def scratch(kernel: str, B: int, G: int, R: int,
+            device: torch.device) -> Optional[torch.Tensor]:
+    """The device memory that a launch of `kernel` (B pairs, G columns, R
+    rows) needs beside its outputs, as its C entry point
+    `<kernel>_scratch` sizes it: a uint8 tensor on `device`, or None
+    where the launch's working set fits shared memory. Call it under
+    `torch.cuda.device(device)`: the size depends on the card."""
+    out = ctypes.c_longlong(0)
+    name = f"{kernel}_scratch"
+    check(getattr(load().lib, name)(B, G, R, ctypes.addressof(out)), name)
+    if out.value == 0:
+        return None
+    return torch.empty(out.value, dtype=torch.uint8, device=device)
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for a C entry point, None (null) for
+    None."""
+    return None if t is None else t.data_ptr()
 
 
 def check(rc: int, what: str) -> None:

@@ -7,11 +7,10 @@ from typing import Optional, Tuple
 
 import torch
 
-# the widest windows of the short-read kernels (sw_full.cu's and
-# sw_cs_full.cu's G buckets), and of the long-read kernels: the packed
-# flow's 14-bit window length caps G at 4095
+# the widest windows of the stats kernel (sw_full.cu's G buckets): the
+# stats flow takes G <= MAX_G, wider windows the traceback flow. The
+# other kernels take any G.
 MAX_G = 256
-MAX_G_LONG = 4095
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -29,13 +28,13 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 def check_cuda_shape(genome: torch.Tensor, what: str,
                      max_g: Optional[int] = None) -> None:
-    """The kernels run on CUDA tensors with G <= max_g (MAX_G unless
-    given); other devices have no kernel, and windows wider than MAX_G
-    belong to the long-read flow."""
-    max_g = MAX_G if max_g is None else max_g
+    """The kernels run on CUDA tensors of windows [B, G], G <= max_g
+    where the kernel has a limit (the stats kernel: MAX_G); other devices
+    have no kernel."""
     if genome.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {genome.device}")
-    if genome.dim() != 2 or genome.shape[1] > max_g:
+    if genome.dim() != 2 or (max_g is not None and genome.shape[1] > max_g):
+        limit = "" if max_g is None else f" with G <= {max_g}"
         raise NotImplementedError(
             f"{what}: genome windows of shape {tuple(genome.shape)}; the "
-            f"CUDA kernel takes [B, G] with G <= {max_g}")
+            f"CUDA kernel takes [B, G]{limit}")

@@ -22,10 +22,26 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ._args import MAX_G
 from .sw import _check_phase, fast_window_gather, window_gather_bytes
 from .sw_cs_batch import CSBatchResult, cs_layers_batch
 from .sw_cs_full import cs_traceback, sw_full_cs_dp
 from .sw_vector import _colour_lut, sw_vector_batch
+
+# int16 backpointers [rows, R, 4, G] a colour-space DP launch of windows
+# wider than MAX_G holds at most (512 MiB), as the letter-space traceback
+# flow's chunks hold at most 2^28 cells
+CS_BP_CELLS = 1 << 28
+
+
+def cs_wide_rows(R: int, G: int) -> Optional[int]:
+    """Rows of a colour-space DP launch of windows G wide and reads of R
+    rows: None (no cap) for G <= MAX_G, else the most whose backpointers
+    stay within CS_BP_CELLS (at least one). A row's results do not depend
+    on its launch, so the cap changes no byte."""
+    if G <= MAX_G:
+        return None
+    return max(1, CS_BP_CELLS // (R * 4 * G))
 
 
 def sw_full_cs(genome_ls: torch.Tensor, glen: torch.Tensor,
@@ -38,7 +54,21 @@ def sw_full_cs(genome_ls: torch.Tensor, glen: torch.Tensor,
                local_alignment: bool = False, indel_taboo_len: int = 0):
     """The 4-layer DP, then the traceback from its best cells: (packed
     [B, 12] int16, steps_rev [B, R + G] int8), as sw_full_cs_tpu_pallas
-    returns them. `thresh` zeroes the scores below it."""
+    returns them. `thresh` zeroes the scores below it. Windows wider than
+    MAX_G run in launches of at most `cs_wide_rows` rows, one after the
+    other, so that a launch's backpointers stay within CS_BP_CELLS."""
+    B, G = genome_ls.shape
+    cap = cs_wide_rows(qr.shape[2], G)
+    if cap is not None and B > cap:
+        parts = [sw_full_cs(
+            *(t[o:o + cap] for t in (genome_ls, glen, qr, rlen, ax, ay, alen,
+                                     awid, revcmpl, xover_rows, gx_col,
+                                     thresh)),
+            match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+            a_gap_ext=a_gap_ext, b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
+            local_alignment=local_alignment,
+            indel_taboo_len=indel_taboo_len) for o in range(0, B, cap)]
+        return tuple(torch.cat(x) for x in zip(*parts))
     best, bi, bj, bk, bfrm, bp = sw_full_cs_dp(
         genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl, xover_rows,
         gx_col, match=match, mismatch=mismatch, a_gap_open=a_gap_open,

@@ -262,6 +262,7 @@ def _launch_dp(genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl,
     stats = torch.empty((5, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _build.scratch("sw_cs_full", B, G, R, dev)
         rc = lib.sw_cs_full_launch(
             genome_ls.data_ptr(), qr.data_ptr(), xover_rows.data_ptr(),
             gx_col.data_ptr(), glen.data_ptr(), rlen.data_ptr(),
@@ -269,7 +270,7 @@ def _launch_dp(genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl,
             revcmpl.data_ptr(), bp.data_ptr(), stats.data_ptr(), B, G, R,
             match, mismatch, -a_gap_open, -a_gap_ext, -b_gap_open,
             -b_gap_ext, int(bool(local_alignment)), int(indel_taboo_len),
-            stream)
+            stream, _build.ptr(scratch))
     _build.check(rc, "sw_cs_full_launch")
     DP_LAUNCHES.add()
     return (*stats.unbind(0), bp)
@@ -286,7 +287,7 @@ def sw_full_cs_dp(genome_ls: torch.Tensor, glen: torch.Tensor,
     """(best, bi, bj, bk, bfrm [B] int32, bp [B, R, 4, G] int16). CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (uint8 windows and layers, int32 crossovers and per-pair arguments
-    incl. revcmpl, contiguous, G <= 256) or raise."""
+    incl. revcmpl, contiguous) or raise."""
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext, local_alignment=local_alignment,

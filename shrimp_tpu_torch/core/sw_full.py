@@ -14,8 +14,8 @@ cells are reset to the mode's init values on every row.
   windows go to the traceback flow below.
 - `sw_full_bp` (`csrc/sw_full_bp.cu`): emit_bp=True, through
   `sw_full_batch_pallas`: (score, max_i, max_j, plane) int32 [B] and
-  the backpointers `nw | n << 2 | w << 4` as uint8 [B, R, G], for every
-  G up to 4095.
+  the backpointers `nw | n << 2 | w << 4` as uint8 [B, R, G], for any
+  G.
 - `traceback_pack` (`csrc/ls_traceback.cu`): the on-device traceback
   `shrimp_tpu/core/sw_jax.py::_traceback_pack` (device code, not
   Pallas): walks the backpointers from the best cell and packs [B, 10]
@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._args import MAX_G_LONG, check_cuda_shape, check_tensor
+from ._args import MAX_G, check_cuda_shape, check_tensor
 
 NEG = -(2 ** 30)
 FILL = -(2 ** 28)
@@ -257,7 +257,7 @@ def _launch(genome, glen, read, rlen, ax, ay, alen, awid, revcmpl, *,
             match, mismatch, a_gap_open, a_gap_ext, b_gap_open, b_gap_ext,
             local_alignment) -> torch.Tensor:
     B, G, R, dev = _check_dp_args("sw_full_stats", genome, glen, read, rlen,
-                                  ax, ay, alen, awid, revcmpl, None)
+                                  ax, ay, alen, awid, revcmpl, MAX_G)
     lib = _build.load().lib
     out = torch.empty((B, 8), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -300,19 +300,20 @@ def _launch_bp(genome, glen, read, rlen, ax, ay, alen, awid, revcmpl, *,
                match, mismatch, a_gap_open, a_gap_ext, b_gap_open,
                b_gap_ext, local_alignment):
     B, G, R, dev = _check_dp_args("sw_full_bp", genome, glen, read, rlen, ax,
-                                  ay, alen, awid, revcmpl, MAX_G_LONG)
+                                  ay, alen, awid, revcmpl, None)
     lib = _build.load().lib
     st = torch.empty((4, B), dtype=torch.int32, device=dev)
     bp = torch.empty((B, R, G), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _build.scratch("sw_full_bp", B, G, R, dev)
         rc = lib.sw_full_bp_launch(
             genome.data_ptr(), glen.data_ptr(), read.data_ptr(),
             rlen.data_ptr(), ax.data_ptr(), ay.data_ptr(), alen.data_ptr(),
             awid.data_ptr(), revcmpl.data_ptr(), st.data_ptr(),
             bp.data_ptr(), B, G, R, match, mismatch, -a_gap_open,
             -a_gap_ext, -b_gap_open, -b_gap_ext, int(bool(local_alignment)),
-            stream)
+            stream, _build.ptr(scratch))
     _build.check(rc, "sw_full_bp_launch")
     BP_LAUNCHES.add()
     return (*st.unbind(0), bp)
@@ -327,7 +328,7 @@ def sw_full_bp(genome: torch.Tensor, glen: torch.Tensor, read: torch.Tensor,
     """(score, max_i, max_j, plane) int32 [B] and backpointers uint8
     [B, R, G]. CPU tensors take the plain version; CUDA tensors launch
     the kernel (uint8 windows and reads, int32 per-pair arguments incl.
-    revcmpl, contiguous, G <= 4095) or raise."""
+    revcmpl, contiguous) or raise."""
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext, local_alignment=local_alignment)
@@ -419,7 +420,7 @@ def traceback_pack_ref(genome: torch.Tensor, read: torch.Tensor,
 def _launch_tb(genome, read, score, max_i, max_j, plane, bp):
     B, R, G = bp.shape
     dev = bp.device
-    check_cuda_shape(genome, "traceback_pack", MAX_G_LONG)
+    check_cuda_shape(genome, "traceback_pack")
     check_tensor("bp", bp, torch.uint8, (B, R, G), dev)
     check_tensor("genome", genome, torch.uint8, (B, G), dev)
     check_tensor("read", read, torch.uint8, (B, R), dev)
@@ -437,11 +438,12 @@ def _launch_tb(genome, read, score, max_i, max_j, plane, bp):
     ops = torch.empty((B, W), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _build.scratch("ls_traceback", B, G, R, dev)
         rc = lib.ls_traceback_launch(
             genome.data_ptr(), read.data_ptr(), score.data_ptr(),
             max_i.data_ptr(), max_j.data_ptr(), plane.data_ptr(),
             bp.data_ptr(), packed.data_ptr(), ops.data_ptr(), B, G, R,
-            stream)
+            stream, _build.ptr(scratch))
     _build.check(rc, "ls_traceback_launch")
     TB_LAUNCHES.add()
     return packed, ops

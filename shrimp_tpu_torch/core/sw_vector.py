@@ -23,7 +23,7 @@ import torch
 
 from .. import _build
 from .. import constants as C
-from ._args import MAX_G_LONG, check_cuda_shape, check_tensor
+from ._args import check_cuda_shape, check_tensor
 
 NEG = -(2 ** 30)
 FILL = -(2 ** 28)
@@ -97,7 +97,7 @@ def sw_vector_batch_ref(genome: torch.Tensor, glen: torch.Tensor,
 
 def _launch(genome, glen, read, rlen, g_row0, *, match, mismatch,
             a_gap_open, a_gap_ext, b_gap_open, b_gap_ext) -> torch.Tensor:
-    check_cuda_shape(genome, "sw_vector_batch", MAX_G_LONG)
+    check_cuda_shape(genome, "sw_vector_batch")
     B, G = genome.shape
     R = read.shape[1]
     dev = genome.device
@@ -113,11 +113,12 @@ def _launch(genome, glen, read, rlen, g_row0, *, match, mismatch,
                                 b_gap_ext)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _build.scratch("sw_vector", B, G, R, dev)
         rc = lib.sw_vector_launch(
-            genome.data_ptr(),
-            None if g_row0 is None else g_row0.data_ptr(), glen.data_ptr(),
+            genome.data_ptr(), _build.ptr(g_row0), glen.data_ptr(),
             read.data_ptr(), rlen.data_ptr(), out.data_ptr(), B, G, R,
-            match, mismatch, goa, gea, gob, geb, stream)
+            match, mismatch, goa, gea, gob, geb, stream,
+            _build.ptr(scratch))
     _build.check(rc, "sw_vector_launch")
     (LAUNCHES if g_row0 is None else CS_LAUNCHES).add()
     return out
@@ -131,7 +132,7 @@ def sw_vector_batch(genome: torch.Tensor, glen: torch.Tensor,
                     cs_mode: bool = False) -> torch.Tensor:
     """[B] int32 vector-SW scores. CPU tensors take the plain version;
     CUDA tensors launch the kernel (uint8 windows, g_row0 and reads,
-    int32 lengths, contiguous, G <= 4095) or raise."""
+    int32 lengths, contiguous) or raise."""
     kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
               a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
               b_gap_ext=b_gap_ext)

@@ -47,6 +47,11 @@
 // - The warp writes the [R + G] step row, zero tail included, with
 //   coalesced byte stores; the leading crossover is set in shared memory
 //   first.
+// - Any G: a pair's shared memory is the band (12.5 KB) plus 2G + 5R
+//   bytes, which fits a block to about G + 2.5R = 110,000. Past that the
+//   kernel's GLOBAL instance stages the band alone: the walk reads the
+//   window and the layers where they lie and writes its step codes into
+//   the output row, whose tail the warp then zeroes.
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -89,9 +94,15 @@ __host__ __device__ inline int band_len(int R) {
   return (band_rows(R) + 1) * 4 * RS + 8;
 }
 // bytes of shared memory of one pair: the band, the window, the read
-// layers and the step codes
-__host__ __device__ inline int pair_bytes(int G, int R) {
-  return pad16(2 * band_len(R)) + pad16(G) + pad16(4 * R) + pad16(R + G);
+// layers and the step codes (the band alone where those do not fit a
+// block: the walk then reads the window and the layers and writes the
+// step codes in device memory)
+__host__ __device__ inline long long pair_bytes(int G, int R) {
+  return pad16(2 * band_len(R)) + (long long)pad16(G) + pad16(4 * R)
+         + pad16(R + G);
+}
+__host__ __device__ inline int band_bytes(int R) {
+  return pad16(2 * band_len(R));
 }
 
 // 16- and 4-byte copies from device to shared memory that do not pass
@@ -156,6 +167,7 @@ __device__ __forceinline__ void load_band(int16_t* band,
   }
 }
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(32 * PAIRS)
 cs_traceback_kernel(const uint8_t* __restrict__ genome,
                     const uint8_t* __restrict__ qr,
@@ -172,14 +184,20 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
-  uint8_t* base = reinterpret_cast<uint8_t*>(smem) + warp * pair_bytes(G, R);
+  const int W = R + G;
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem)
+                  + warp * (GLOBAL ? band_bytes(R) : pair_bytes(G, R));
   const int TR = band_rows(R);
   int16_t* band = reinterpret_cast<int16_t*>(base);
-  uint8_t* gsh = base + pad16(2 * band_len(R));   // the window
-  uint8_t* qsh = gsh + pad16(G);                  // the read layers [4, R]
-  int8_t* ssh = reinterpret_cast<int8_t*>(qsh + pad16(4 * R));   // steps
+  int8_t* out = steps + (size_t)b * W;   // the step row
+  // the window, the read layers [4, R] and the step codes: staged in
+  // shared memory, or (GLOBAL) where they lie in device memory
+  uint8_t* gst = base + band_bytes(R);
+  uint8_t* qst = gst + pad16(G);
+  const uint8_t* gsh = GLOBAL ? genome + (size_t)b * G : gst;
+  const uint8_t* qsh = GLOBAL ? qr + (size_t)b * 4 * R : qst;
+  int8_t* ssh = GLOBAL ? out : reinterpret_cast<int8_t*>(qst + pad16(4 * R));
   const int16_t* bpb = bp + (size_t)b * R * 4 * G;
-  const int W = R + G;
   const int best = best_[b];
   const int score = best >= thresh_[b] ? best : 0;
   const int bi = bi_[b], bj = bj_[b], bk = bk_[b], bfrm = bfrm_[b];
@@ -194,10 +212,12 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
     load_band(band, bpb, G, top, ci, cj, lane);
     // the window and the read layers, in 4-byte pieces (G is a multiple
     // of 8; the launch refuses genome and qr off a 4-byte boundary)
-    for (int c = 4 * lane; c < G; c += 128)
-      cp_async4(gsh + c, genome + (size_t)b * G + c);
-    for (int c = 4 * lane; c < 4 * R; c += 128)
-      cp_async4(qsh + c, qr + (size_t)b * 4 * R + c);
+    if (!GLOBAL) {
+      for (int c = 4 * lane; c < G; c += 128)
+        cp_async4(gst + c, genome + (size_t)b * G + c);
+      for (int c = 4 * lane; c < 4 * R; c += 128)
+        cp_async4(qst + c, qr + (size_t)b * 4 * R + c);
+    }
     cp_async_wait();
     __syncwarp();
     // the from-code of the walk's cell, its direction-pair code clamped
@@ -287,9 +307,10 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
     nops = __shfl_sync(FULL_MASK, nops, 0);
     __syncwarp();
   }
-  // the step row, the walk's codes then zeros
-  int8_t* out = steps + (size_t)b * W;
-  for (int s = lane; s < W; s += 32) out[s] = s < nops ? ssh[s] : 0;
+  // the step row, the walk's codes then zeros (GLOBAL: the codes are in
+  // place)
+  for (int s = GLOBAL ? nops + lane : lane; s < W; s += 32)
+    out[s] = s < nops ? ssh[s] : 0;
   if (lane == 0) {
     int16_t* p = packed + (size_t)b * 12;
     const int vals[12] = {score, bi, bj, bk, nops, rs, gs, nm, nmm, ins,
@@ -302,11 +323,27 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
 // Threads per block for a launch of B pairs: a warp per pair, PAIRS warps
 // halved (down to one) while some SM would get no block or the pairs'
 // shared memory does not fit a block; sets the kernel's dynamic shared
-// memory limit when above 48 KB.
-cudaError_t prepare(int B, int G, int R, int* threads, int* smem) {
-  const decltype(&cs_traceback_kernel) ks[] = {cs_traceback_kernel};
-  return banded::prepare(ks, B, 32, 32 * PAIRS, pair_bytes(G, R), threads,
-                         smem);
+// memory limit when above 48 KB. `global`: one pair's window, read
+// layers and step codes do not fit a block (the GLOBAL kernel).
+cudaError_t prepare(int B, int G, int R, int* threads, int* smem,
+                    bool* global) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  *global = pair_bytes(G, R) > optin;
+  if (*global) {
+    const decltype(&cs_traceback_kernel<true>) ks[] = {
+        cs_traceback_kernel<true>};
+    return banded::prepare(ks, B, 32, 32 * PAIRS, band_bytes(R), threads,
+                           smem);
+  }
+  const decltype(&cs_traceback_kernel<false>) ks[] = {
+      cs_traceback_kernel<false>};
+  return banded::prepare(ks, B, 32, 32 * PAIRS,
+                         static_cast<int>(pair_bytes(G, R)), threads, smem);
 }
 
 }  // namespace
@@ -332,12 +369,14 @@ extern "C" int cs_traceback_launch(const void* genome, const void* qr,
            | reinterpret_cast<uintptr_t>(qr)) & 3) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int threads = 32, smem = 0;
-  const cudaError_t e = prepare(B, G, R, &threads, &smem);
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &threads, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int pairs = threads / 32;
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  cs_traceback_kernel<<<(B + pairs - 1) / pairs, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = global ? cs_traceback_kernel<true> : cs_traceback_kernel<false>;
+  kernel<<<(B + pairs - 1) / pairs, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(genome), static_cast<const uint8_t*>(qr),
       i32(best), i32(bi), i32(bj), i32(bk), i32(bfrm),
       static_cast<const int16_t*>(bp), i32(thresh),
@@ -350,8 +389,10 @@ extern "C" int cs_traceback_launch(const void* genome, const void* qr,
 extern "C" int cs_traceback_config(int B, int G, int R, void* out) {
   if (G < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   int threads = 32, smem = 0;
-  const cudaError_t e = prepare(B, G, R, &threads, &smem);
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &threads, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return banded::config(cs_traceback_kernel, 32, threads, smem,
-                        static_cast<int*>(out));
+  return banded::config(global ? cs_traceback_kernel<true>
+                               : cs_traceback_kernel<false>,
+                        32, threads, smem, static_cast<int*>(out));
 }

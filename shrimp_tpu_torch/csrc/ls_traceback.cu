@@ -46,6 +46,11 @@
 //   tail included; the insertion, deletion and match/mismatch counts are
 //   popcounts over the ops words, summed over the warp, and lane 0
 //   counts only the matches.
+// - Any G: a pair's shared memory is the two tiles (5 KB) plus about
+//   1.25 (R + G) bytes, which fits a block to about R + G = 180,000. Past
+//   that the kernel's GLOBAL instance stages the tiles alone: the walk
+//   reads the window and the read where they lie and collects its ops
+//   words in a device-memory scratch that the caller allocates.
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -86,9 +91,10 @@ __host__ __device__ inline int op_words(int G, int R) {
   return (R + G + 15) / 16;
 }
 // bytes of shared memory of one pair: two tile buffers, the genome
-// window, the read and the ops
-__host__ __device__ inline int pair_bytes(int G, int R) {
-  return 2 * TILE + pad16(G) + pad16(R) + pad16(4 * op_words(G, R));
+// window, the read and the ops (the tiles alone in the GLOBAL instance)
+__host__ __device__ inline long long pair_bytes(int G, int R) {
+  return 2 * TILE + (long long)pad16(G) + pad16(R)
+         + pad16(4 * op_words(G, R));
 }
 
 // 16-byte copy from device to shared memory that does not pass through
@@ -137,6 +143,7 @@ __device__ __forceinline__ void load_tile(uint8_t* buf,
   }
 }
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(32 * PAIRS)
 ls_traceback_kernel(const uint8_t* __restrict__ genome,
                     const uint8_t* __restrict__ read,
@@ -146,15 +153,21 @@ ls_traceback_kernel(const uint8_t* __restrict__ genome,
                     const int32_t* __restrict__ plane,
                     const uint8_t* __restrict__ bp,
                     int32_t* __restrict__ packed, uint8_t* __restrict__ ops,
-                    int B, int G, int R) {
+                    uint32_t* __restrict__ scratch, int B, int G, int R) {
   extern __shared__ int4 smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
-  uint8_t* base = reinterpret_cast<uint8_t*>(smem) + warp * pair_bytes(G, R);
-  uint8_t* gsh = base + 2 * TILE;   // the genome window
-  uint8_t* rsh = gsh + pad16(G);    // the read
-  uint32_t* opw = reinterpret_cast<uint32_t*>(rsh + pad16(R));
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem)
+                  + warp * (GLOBAL ? 2 * TILE : pair_bytes(G, R));
+  // the genome window, the read and the ops words: staged in shared
+  // memory, or (GLOBAL) the inputs where they lie and the pair's scratch
+  uint8_t* gst = base + 2 * TILE;
+  uint8_t* rst = gst + pad16(G);
+  const uint8_t* gsh = GLOBAL ? genome + (size_t)b * G : gst;
+  const uint8_t* rsh = GLOBAL ? read + (size_t)b * R : rst;
+  uint32_t* opw = GLOBAL ? scratch + (size_t)b * op_words(G, R)
+                         : reinterpret_cast<uint32_t*>(rst + pad16(R));
   const uint8_t* bpb = bp + (size_t)b * R * G;
   const int L = R + G;
 
@@ -165,8 +178,10 @@ ls_traceback_kernel(const uint8_t* __restrict__ genome,
   int ci = min(max(i0, 0), R - 1), cj = min(max(j0, 0), G - 1);
   int top = tile_top(ci), left = tile_left(cj), cur = 0;
   load_tile(base, bpb, G, top, ci, left, lane);
-  for (int k = lane; k < G; k += 32) gsh[k] = genome[(size_t)b * G + k];
-  for (int k = lane; k < R; k += 32) rsh[k] = read[(size_t)b * R + k];
+  if (!GLOBAL) {
+    for (int k = lane; k < G; k += 32) gst[k] = genome[(size_t)b * G + k];
+    for (int k = lane; k < R; k += 32) rst[k] = read[(size_t)b * R + k];
+  }
   for (int k = lane; k < op_words(G, R); k += 32) opw[k] = 0;
   cp_async_wait();
   __syncwarp();
@@ -287,8 +302,11 @@ ls_traceback_kernel(const uint8_t* __restrict__ genome,
 
 // Pairs per block for a launch of B pairs: PAIRS when every SM still gets
 // a block and PAIRS pairs' shared memory fits a block, else fewer. Sets
-// the kernel's dynamic shared memory limit when above 48 KB.
-cudaError_t prepare(int B, int G, int R, int* pairs, int* smem) {
+// the kernel's dynamic shared memory limit when above 48 KB. `global`:
+// one pair's window, read and ops do not fit a block (the GLOBAL
+// instance, the tiles alone in shared memory).
+cudaError_t prepare(int B, int G, int R, int* pairs, int* smem,
+                    bool* global) {
   int dev = 0, sms = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -297,12 +315,15 @@ cudaError_t prepare(int B, int G, int R, int* pairs, int* smem) {
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
+  *global = pair_bytes(G, R) > optin;
+  const long long pb = *global ? 2 * TILE : pair_bytes(G, R);
   int p = B / PAIRS >= sms ? PAIRS : 1;
-  while (p > 1 && p * pair_bytes(G, R) > optin) --p;
+  while (p > 1 && p * pb > optin) --p;
   *pairs = p;
-  *smem = p * pair_bytes(G, R);
+  *smem = static_cast<int>(p * pb);
   if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(ls_traceback_kernel,
+  return cudaFuncSetAttribute(*global ? ls_traceback_kernel<true>
+                                      : ls_traceback_kernel<false>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *smem);
 }
@@ -313,27 +334,49 @@ cudaError_t prepare(int B, int G, int R, int* pairs, int* smem) {
 // bp [B, R, G] u8 -> packed [B, 10] i32, ops [B, (R+G+3)/4] u8. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue when G is
 // not a multiple of 16 or bp is not 16-byte aligned: the tiles load in
-// 16-byte pieces).
+// 16-byte pieces) or, where the launch needs one (ls_traceback_scratch),
+// for a null scratch.
 extern "C" int ls_traceback_launch(const void* genome, const void* read,
                                    const void* score, const void* max_i,
                                    const void* max_j, const void* plane,
                                    const void* bp, void* packed, void* ops,
-                                   int B, int G, int R, void* stream) {
+                                   int B, int G, int R, void* stream,
+                                   void* scratch) {
   if (B <= 0) return 0;
   if (G < 1 || R < 1 || (G & 15) != 0
       || (reinterpret_cast<uintptr_t>(bp) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int pairs = 1, smem = 0;
-  const cudaError_t e = prepare(B, G, R, &pairs, &smem);
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (global && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  ls_traceback_kernel<<<(B + pairs - 1) / pairs, 32 * pairs, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = global ? ls_traceback_kernel<true> : ls_traceback_kernel<false>;
+  kernel<<<(B + pairs - 1) / pairs, 32 * pairs, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(genome), static_cast<const uint8_t*>(read),
       i32(score), i32(max_i), i32(max_j), i32(plane),
       static_cast<const uint8_t*>(bp), static_cast<int32_t*>(packed),
-      static_cast<uint8_t*>(ops), B, G, R);
+      static_cast<uint8_t*>(ops), static_cast<uint32_t*>(scratch), B, G,
+      R);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device memory, in bytes, that a launch of B pairs of G columns and
+// R rows needs beside its outputs, into *(long long*)out: the pairs' ops
+// words where one pair's window, read and ops do not fit a block's
+// shared memory, else 0. Returns a cudaError_t.
+extern "C" int ls_traceback_scratch(int B, int G, int R, void* out) {
+  long long* o = static_cast<long long*>(out);
+  *o = 0;
+  if (B <= 0 || G < 1 || R < 1) return 0;
+  int pairs = 1, smem = 0;
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
+  if (global) *o = 4LL * op_words(G, R) * B;
+  return static_cast<int>(e);
 }
 
 // The launch configuration of B pairs of G columns and R rows: out[0..5]
@@ -345,14 +388,16 @@ extern "C" int ls_traceback_config(int B, int G, int R, void* out) {
   if (G < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(out);
   int pairs = 1, smem = 0;
-  cudaError_t e = prepare(B, G, R, &pairs, &smem);
+  bool global = false;
+  cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
+  auto kernel = global ? ls_traceback_kernel<true> : ls_traceback_kernel<false>;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, ls_traceback_kernel);
+  e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, ls_traceback_kernel, 32 * pairs, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    32 * pairs, smem);
   o[0] = pairs;
   o[1] = 32;
   o[2] = smem;

@@ -44,9 +44,21 @@
 // one contiguous run, and each lane stores its strip from registers in
 // 16-byte pieces, in lane order. Every cell is computed, in band or not;
 // out-of-band cells take their init values as in the reference.
+//
+// Windows wider than 256 (CS reads over about 180 colours: G = 352 at
+// 250 colours, 1408 at 1000) take a second kernel, one warp per pair,
+// whose strip length is not a compile-time constant: its lanes run over
+// 32 consecutive columns of one layer at a time, and the W chain is a
+// 5-step max scan over each such chunk on top of the running max the
+// chunk before carries in (sw_cs_full_wide_kernel, below). Its row
+// buffers, 96 bytes a column, sit in shared memory up to about 2,400
+// columns (the 227 KB a block can opt into), in a device-memory scratch
+// that the caller allocates past that.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "banded_sw.cuh"
 
 namespace {
 
@@ -411,6 +423,331 @@ sw_cs_full_kernel(const uint8_t* __restrict__ genome,
   }
 }
 
+// ---- windows wider than 256: the wide kernel
+
+// int32 of one pair's row buffers in the wide kernel: the previous and
+// the current row, 3 planes x 4 layers, each layer G + 1 slots (slot 0
+// is the pad column j = -1, slot 1 + j column j)
+__host__ __device__ inline long long wide_row_ints(int G) {
+  return 2LL * 12 * (G + 1);
+}
+// bytes of one pair's shared memory in the wide kernel: the row buffers
+// and the genome window
+inline long long wide_pair_bytes(int G) {
+  return 4 * wide_row_ints(G) + ((G + 15) & ~15);
+}
+
+// The 4-layer DP of one pair on one warp, for any G: the recurrence and
+// the candidate order of sw_cs_full_kernel, with the lanes over columns
+// instead of strips. A row runs layer by layer; a layer runs in chunks
+// of 32 consecutive columns, lane l on column j0 + l: NW and N from the
+// previous row of all four layers (cells out of band take their init
+// values without a scan), then the W chain a_j + j*gea as an inclusive
+// __shfl_up_sync max scan over the chunk, on top of the running max
+// that the chunk before carries in (FILL at column 0); the left
+// neighbour's nw and raw w come by shuffle, column -1's are the pad
+// column's. Each lane keeps its best cell (value larger, then j smaller,
+// then k smaller), reduced over the warp once a row. The backpointers
+// leave in 64-byte warp stores of a layer's row, which runs contiguous
+// in [B, R, 4, G]. ROWS: the two row buffers; they and the window sit
+// in shared memory while one pair fits a block (GLOBAL false), past that
+// in a device-memory scratch of wide_row_ints(G) int32 a pair, the
+// window read from device memory.
+template <bool GLOBAL>
+__global__ void __launch_bounds__(32 * PAIRS)
+sw_cs_full_wide_kernel(const uint8_t* __restrict__ genome,
+                       const uint8_t* __restrict__ qr,
+                       const int32_t* __restrict__ xover,
+                       const int32_t* __restrict__ gx_,
+                       const int32_t* __restrict__ glen_,
+                       const int32_t* __restrict__ rlen_,
+                       const int32_t* __restrict__ ax_,
+                       const int32_t* __restrict__ ay_,
+                       const int32_t* __restrict__ alen_,
+                       const int32_t* __restrict__ awid_,
+                       const int32_t* __restrict__ rev_,
+                       int16_t* __restrict__ bp, int32_t* __restrict__ stats,
+                       int* __restrict__ scratch, int B, int G, int R, int m,
+                       int mm, int goa, int gea, int gob, int geb, int local,
+                       int taboo) {
+  extern __shared__ int4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  const int L = G + 1, PLANE = 4 * L, BUF = 3 * PLANE;
+  int* prev;
+  const uint8_t* gsh;
+  if (GLOBAL) {
+    prev = scratch + (size_t)b * wide_row_ints(G);
+    gsh = genome + (size_t)b * G;
+  } else {
+    prev = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(smem)
+                                  + (size_t)warp * wide_pair_bytes(G));
+    uint8_t* g = reinterpret_cast<uint8_t*>(prev + 2 * BUF);
+    for (int j = lane; j < G; j += 32) g[j] = genome[(size_t)b * G + j];
+    gsh = g;
+  }
+  int* cur = prev + BUF;
+  const uint8_t* q = qr + (size_t)b * 4 * R;
+  const int32_t* xr = xover + (size_t)b * R;
+  const int gl = glen_[b], rl = rlen_[b];
+  const int ax = ax_[b], ay = ay_[b], alen = alen_[b], awid = awid_[b];
+  const bool rv = rev_[b] != 0;
+  const int gx = gx_[b];
+
+  // row -1 starts layer 0 at 0 and layers 1..3 at the global crossover,
+  // with the N and W planes offset by the gap opens, in every slot
+  for (int x = lane; x < PLANE; x += 32) {
+    const int off = x < L ? 0 : gx;
+    prev[x] = off;
+    prev[PLANE + x] = off - gob;
+    prev[2 * PLANE + x] = off - goa;
+  }
+  __syncwarp();
+
+  int best = 0, bi = 0, bj = 0, bk = 0, bfrm = 0;
+  for (int i = 0; i < R; ++i) {
+    // band for this row (anchor_get_x_range), clipped to [0, glen-1]
+    int x_min = i < ay ? 0 : (i <= ay + alen - 1 ? ax + (i - ay)
+                                                  : ax + alen);
+    x_min = min(max(x_min, 0), gl - 1);
+    const int ay2 = ay - (awid - 1);
+    int x_max = i < ay2 ? ax + awid - 2
+                        : (i <= ay2 + alen - 1 ? ax + (awid - 1) + (i - ay2)
+                                               : gl - 1);
+    x_max = min(max(x_max, 0), gl - 1);
+    // keep the band opaque to the optimizer (the ptxas min/max fold of
+    // banded_sw.cuh)
+    asm volatile("" : "+r"(x_min), "+r"(x_max));
+    const int xc = xr[i];
+    // taboo: no N-plane entry (or exit to NW) near the read end
+    const bool no_taboo = taboo == 0 || i < rl - taboo;
+    const bool rec = local ? i < rl : i == rl - 1;
+    if (lane < 4) {   // this row's pad column j = -1 of layer `lane`
+      const int init_nw = local ? (lane == 0 ? 0 : xc) : NEG;
+      cur[lane * L] = init_nw;
+      cur[PLANE + lane * L] = local ? init_nw - gob : NEG;
+      cur[2 * PLANE + lane * L] = local ? init_nw - goa : NEG;
+    }
+    // the lane's best cell of the row: value, then j, then k
+    int rb = NEG, rj = G, rk = 0, rfrm = 0;
+    for (int k = 0; k < 4; ++k) {
+      const int init_nw = local ? (k == 0 ? 0 : xc) : NEG;
+      const int init_n = local ? init_nw - gob : NEG;
+      const int init_w = local ? init_nw - goa : NEG;
+      const int qk = q[k * R + i];
+      int16_t* bprow = bp + (((size_t)b * R + i) * 4 + k) * G;
+      // carried from column j0 - 1: the W chain's running max, nw and the
+      // raw w (the pad column's at j0 = 0)
+      int carry_c = FILL, carry_nw = init_nw, carry_w = init_w;
+      for (int j0 = 0; j0 < G; j0 += 32) {
+        const int j = j0 + lane;
+        const bool inb = j < G && j >= x_min && j <= x_max;
+        int nw_val = init_nw, n_val = init_n, nw_bk = 0, n_bk = 0;
+        if (inb) {
+          // NW: 12 candidates, groups in layer order [k, others
+          // ascending], groups after the first pay the crossover, from
+          // the previous row's column j - 1 (slot j)
+          Best grp[4];
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            const int x = l == k ? 0 : xc;
+            const int d_nw = prev[l * L + j];
+            const int d_n = prev[PLANE + l * L + j];
+            const int d_w = prev[2 * PLANE + l * L + j];
+            const int c_n = no_taboo ? d_n + x : 2 * NEG;
+            if (rv) {
+              grp[l].take(d_w + x, NWW, l);
+              grp[l].take(c_n, NWN, l);
+              grp[l].take(d_nw + x, NWNW, l);
+            } else {
+              grp[l].take(d_nw + x, NWNW, l);
+              grp[l].take(c_n, NWN, l);
+              grp[l].take(d_w + x, NWW, l);
+            }
+          }
+          const Best nw = in_order(grp, k);
+          const int gch = gsh[j];
+          const int sc = (gch == BASE_N || qk == BASE_N) ? 0
+                                                         : (gch == qk ? m
+                                                                      : mm);
+          nw_val = nw.val + sc;
+          nw_bk = nw.bk;
+          if (local && nw_val <= init_nw) {
+            nw_val = init_nw;
+            nw_bk = 0;
+          }
+          // N: 8 candidates (open, extend) per layer group, in the same
+          // group order, from the previous row's column j (slot j + 1)
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            const int x = l == k ? 0 : xc;
+            const int u_nw = prev[l * L + j + 1];
+            const int u_n = prev[PLANE + l * L + j + 1];
+            const int c_open = no_taboo ? u_nw - gob - geb + x : 2 * NEG;
+            const int c_ext = u_n - geb + x;
+            grp[l] = Best();
+            if (rv) {
+              grp[l].take(c_ext, NN, l);
+              grp[l].take(c_open, NNW, l);
+            } else {
+              grp[l].take(c_open, NNW, l);
+              grp[l].take(c_ext, NN, l);
+            }
+          }
+          const Best n = in_order(grp, k);
+          n_val = n.val;
+          n_bk = n.bk;
+          if (local && n_val <= init_nw) {
+            n_val = init_nw;
+            n_bk = 0;
+          }
+        }
+
+        // W: the chain's term of column j from its left nw, an
+        // inclusive max scan over the chunk on top of the carry
+        int left_nw = __shfl_up_sync(FULL_MASK, nw_val, 1);
+        if (lane == 0) left_nw = carry_nw;
+        const int c_open_w = no_taboo ? left_nw - goa - gea : 2 * NEG;
+        int a = c_open_w;
+        if (local) a = max(a, init_nw);
+        if (j == x_min) a = max(a, init_w - gea);
+        int c = inb ? a + j * gea : FILL;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int u = __shfl_up_sync(FULL_MASK, c, d);
+          if (lane >= d) c = max(c, u);
+        }
+        c = max(c, carry_c);
+        const int w_raw = inb ? c - j * gea : init_w;
+        int w_left = __shfl_up_sync(FULL_MASK, w_raw, 1);
+        if (lane == 0) w_left = carry_w;
+        const int c_ext_w = w_left - gea;
+        const bool take_ext = rv ? !(c_open_w > c_ext_w) : c_ext_w > c_open_w;
+        int w_val = w_raw;
+        int w_bk = (take_ext ? WW : WNW) << 2 | k;
+        if (local && w_raw <= init_nw) {
+          w_val = init_nw;
+          w_bk = 0;
+        }
+        if (!inb) w_bk = 0;
+        carry_c = __shfl_sync(FULL_MASK, c, 31);
+        carry_nw = __shfl_sync(FULL_MASK, nw_val, 31);
+        carry_w = __shfl_sync(FULL_MASK, w_raw, 31);
+
+        if (j < G) {
+          cur[k * L + j + 1] = nw_val;
+          cur[PLANE + k * L + j + 1] = n_val;
+          cur[2 * PLANE + k * L + j + 1] = w_val;
+          bprow[j] = static_cast<int16_t>(nw_bk | n_bk << 5 | w_bk << 10);
+          if (rec && inb) {
+            const int cm = max(max(nw_val, n_val), w_val);
+            if (cm > rb || (cm == rb && (j < rj || (j == rj && k < rk)))) {
+              rb = cm;
+              rj = j;
+              rk = k;
+              // the reference picks max(value, NEG) at the selected
+              // cell, then prefers nw, w if strictly greater, then n
+              const int nw_c = max(nw_val, NEG), n_c = max(n_val, NEG),
+                        w_c = max(w_val, NEG);
+              int frm = nw_bk, fs = nw_c;
+              if (w_c > fs) frm = w_bk;
+              fs = max(fs, w_c);
+              if (n_c > fs) frm = n_bk;
+              rfrm = frm;
+            }
+          }
+        }
+      }
+    }
+
+    // the row's best cell: largest value, then smallest j, then smallest
+    // k; across rows the strict > keeps the earliest row
+    if (rec) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const int v2 = __shfl_xor_sync(FULL_MASK, rb, d);
+        const int j2 = __shfl_xor_sync(FULL_MASK, rj, d);
+        const int k2 = __shfl_xor_sync(FULL_MASK, rk, d);
+        const int f2 = __shfl_xor_sync(FULL_MASK, rfrm, d);
+        if (v2 > rb || (v2 == rb && (j2 < rj || (j2 == rj && k2 < rk)))) {
+          rb = v2;
+          rj = j2;
+          rk = k2;
+          rfrm = f2;
+        }
+      }
+      if (rb > best) {
+        best = rb;
+        bi = i;
+        bj = rj;
+        bk = rk;
+        bfrm = rfrm;
+      }
+    }
+    __syncwarp();
+    int* tmp = prev;
+    prev = cur;
+    cur = tmp;
+  }
+  if (lane == 0) {
+    stats[b] = best;
+    stats[B + b] = bi;
+    stats[2 * B + b] = bj;
+    stats[3 * B + b] = bk;
+    stats[4 * B + b] = bfrm;
+  }
+}
+
+// The wide kernel's launch for B pairs of G columns: threads per block
+// (banded::prepare: PAIRS warps, halved while some SM would get no
+// block or the pairs' shared memory does not fit a block), its dynamic
+// shared memory, and whether the row buffers go to device memory (one
+// pair's do not fit a block); sets the shared memory limit above 48 KB.
+cudaError_t wide_prepare(int B, int G, int* threads, int* smem,
+                         bool* global) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  *global = wide_pair_bytes(G) > optin;
+  if (*global) {
+    const decltype(&sw_cs_full_wide_kernel<true>) ks[] = {
+        sw_cs_full_wide_kernel<true>};
+    return banded::prepare(ks, B, 32, 32 * PAIRS, 0, threads, smem);
+  }
+  const decltype(&sw_cs_full_wide_kernel<false>) ks[] = {
+      sw_cs_full_wide_kernel<false>};
+  return banded::prepare(ks, B, 32, 32 * PAIRS,
+                         static_cast<int>(wide_pair_bytes(G)), threads,
+                         smem);
+}
+
+cudaError_t launch_wide(const void* const* in, void* bp, void* stats,
+                        void* scratch, int B, int G, int R, int m, int mm,
+                        int goa, int gea, int gob, int geb, int local,
+                        int taboo, cudaStream_t stream) {
+  int threads = 32, smem = 0;
+  bool global = false;
+  cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
+  if (e != cudaSuccess) return e;
+  if (global && scratch == nullptr) return cudaErrorInvalidValue;
+  auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
+  auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const int pairs = threads / 32;
+  auto kernel = global ? sw_cs_full_wide_kernel<true>
+                       : sw_cs_full_wide_kernel<false>;
+  kernel<<<(B + pairs - 1) / pairs, threads, smem, stream>>>(
+      u8(in[0]), u8(in[1]), i32(in[2]), i32(in[3]), i32(in[4]), i32(in[5]),
+      i32(in[6]), i32(in[7]), i32(in[8]), i32(in[9]), i32(in[10]),
+      static_cast<int16_t*>(bp), static_cast<int32_t*>(stats),
+      static_cast<int*>(scratch), B, G, R, m, mm, goa, gea, gob, geb, local,
+      taboo);
+  return cudaGetLastError();
+}
+
 template <int GMAX>
 cudaError_t prepare(int* smem) {
   *smem = PAIRS * Geo<GMAX>::BYTES;
@@ -464,8 +801,11 @@ cudaError_t config(int* out) {
 // [B, R] i32, gx/glen/rlen/ax/ay/alen/awid/rev [B] i32 -> bp [B, R, 4, G]
 // i16, stats [5, B] i32 (best, bi, bj, bk, bfrm). goa/gea/gob/geb are the
 // open and extend costs as positive penalties (open NOT including
-// extend). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for G > 256).
+// extend). G <= 256 takes the strip kernel of its G bucket, wider
+// windows the wide kernel; `scratch` is the device memory of
+// sw_cs_full_scratch's size (null when that is 0). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for G < 1,
+// or a null scratch where the wide kernel needs one).
 extern "C" int sw_cs_full_launch(const void* genome, const void* qr,
                                  const void* xover, const void* gx,
                                  const void* glen, const void* rlen,
@@ -474,8 +814,9 @@ extern "C" int sw_cs_full_launch(const void* genome, const void* qr,
                                  const void* rev, void* bp, void* stats,
                                  int B, int G, int R, int m, int mm, int goa,
                                  int gea, int gob, int geb, int local,
-                                 int taboo, void* stream) {
+                                 int taboo, void* stream, void* scratch) {
   if (B <= 0) return 0;
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* in[] = {genome, qr, xover, gx, glen, rlen,
                       ax, ay, alen, awid, rev};
@@ -490,19 +831,45 @@ extern "C" int sw_cs_full_launch(const void* genome, const void* qr,
     e = launch<256>(in, bp, stats, B, G, R, m, mm, goa, gea, gob, geb,
                     local, taboo, st);
   else
-    e = cudaErrorInvalidValue;
+    e = launch_wide(in, bp, stats, scratch, B, G, R, m, mm, goa, gea, gob,
+                    geb, local, taboo, st);
   return static_cast<int>(e);
 }
 
-// The launch configuration of windows G wide: out[0..5] = pairs per
-// block, threads per pair, dynamic shared memory bytes per block,
-// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// registers per thread and local (spill) bytes per thread. Returns a
+// The device memory, in bytes, that a launch of B pairs of G columns
+// needs beside its outputs, into *(long long*)out: the wide kernel's row
+// buffers where one pair's do not fit a block's shared memory, else 0.
+// (R is not read; the signature is every <kernel>_scratch's.) Returns a
 // cudaError_t.
-extern "C" int sw_cs_full_config(int G, void* out) {
+extern "C" int sw_cs_full_scratch(int B, int G, int R, void* out) {
+  (void)R;
+  long long* o = static_cast<long long*>(out);
+  *o = 0;
+  if (G <= 256 || B <= 0) return 0;
+  int threads = 32, smem = 0;
+  bool global = false;
+  const cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
+  if (global) *o = 4 * wide_row_ints(G) * B;
+  return static_cast<int>(e);
+}
+
+// The launch configuration of B pairs of windows G wide (R is not
+// read): out[0..5] = pairs per block, threads per pair, dynamic shared
+// memory bytes per block, resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread
+// and local (spill) bytes per thread. Returns a cudaError_t.
+extern "C" int sw_cs_full_config(int B, int G, int R, void* out) {
+  (void)R;
   int* o = static_cast<int*>(out);
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (G <= 64) return static_cast<int>(config<64>(o));
   if (G <= 128) return static_cast<int>(config<128>(o));
   if (G <= 256) return static_cast<int>(config<256>(o));
-  return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 32, smem = 0;
+  bool global = false;
+  const cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return banded::config(global ? sw_cs_full_wide_kernel<true>
+                               : sw_cs_full_wide_kernel<false>,
+                        32, threads, smem, o);
 }

@@ -10,7 +10,7 @@
 // runs them. Outputs are bit-equal to sw_full_batch_pallas: st [4, B]
 // int32 = score, max_i, max_j, plane, and the backpointers
 // nw | n << 2 | w << 4 of every cell as uint8 [B, R, G] (out-of-band
-// cells 0), for every G up to 4095 (the packed flow's 14-bit glen).
+// cells 0), for any G.
 //
 // What bounds it on an H100: integer ALU over the in-band cells, about
 // thirty int32 operations each, and the fixed work of every row (the
@@ -33,7 +33,11 @@
 // tie-break flips cost nothing in the strip loops. The backpointer row
 // is kept zero outside the band (the columns that leave the band are
 // cleared) and leaves shared memory whole, in 16-byte coalesced stores,
-// so every byte of the output is written.
+// so every byte of the output is written. A pair's shared memory is
+// about 14 bytes a column plus the read, which fits a block to about
+// 16,000 columns (the 227 KB a block can opt into); past that the
+// kernel's GLOBAL instance keeps the same layout in a device-memory
+// scratch that the caller allocates.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -61,8 +65,8 @@ struct BpPlanes {
   uint8_t* bpo;
   int G;
 
-  __host__ __device__ static int bytes(int G, int R) {
-    return pad16(3 * G * 4) + 2 * pad16(G) + pad16(R) + 32;
+  __host__ __device__ static long long bytes(int G, int R) {
+    return pad16(3 * G * 4) + 2LL * pad16(G) + pad16(R) + 32;
   }
   __device__ BpPlanes(uint8_t* base, uint8_t* bpo, int G, int R)
       : nnp(reinterpret_cast<int2*>(base)),
@@ -115,7 +119,7 @@ struct BpPlanes {
   }
 };
 
-template <bool LOCAL>
+template <bool LOCAL, bool GLOBAL>
 __global__ void __launch_bounds__(32 * PAIRS, 8)
 sw_full_bp_kernel(const uint8_t* __restrict__ genome,
                   const int32_t* __restrict__ glen,
@@ -127,14 +131,17 @@ sw_full_bp_kernel(const uint8_t* __restrict__ genome,
                   const int32_t* __restrict__ awid,
                   const int32_t* __restrict__ rev,
                   int32_t* __restrict__ st_out, uint8_t* __restrict__ bp,
-                  int B, int G, int R, int m, int mm, int goa, int gea,
-                  int gob, int geb) {
+                  uint8_t* __restrict__ scratch, int B, int G, int R, int m,
+                  int mm, int goa, int gea, int gob, int geb) {
   extern __shared__ int4 smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
-  BpPlanes P(reinterpret_cast<uint8_t*>(smem) + warp * BpPlanes::bytes(G, R),
-             bp + (size_t)b * R * G, G, R);
+  // the pair's planes: shared memory, or (GLOBAL) its scratch
+  uint8_t* base = GLOBAL ? scratch + (size_t)b * BpPlanes::bytes(G, R)
+                         : reinterpret_cast<uint8_t*>(smem)
+                               + (size_t)warp * BpPlanes::bytes(G, R);
+  BpPlanes P(base, bp + (size_t)b * R * G, G, R);
   for (int j = lane; j < pad16(G); j += 32) P.bprow[j] = 0;
   if (lane == 0) {
     P.pk[0] = P.pk[1] = 0;
@@ -164,13 +171,29 @@ sw_full_bp_kernel(const uint8_t* __restrict__ genome,
 
 // Pairs per block for a launch of B pairs of G columns: PAIRS when every
 // SM still gets a block and PAIRS pairs' shared memory fits a block,
-// else fewer (banded::prepare).
-cudaError_t prepare(int B, int G, int R, int* pairs, int* smem) {
-  const decltype(&sw_full_bp_kernel<false>) ks[] = {sw_full_bp_kernel<false>,
-                                                    sw_full_bp_kernel<true>};
+// else fewer (banded::prepare). `global`: one pair's planes do not fit
+// a block (the GLOBAL instances, no dynamic shared memory).
+cudaError_t prepare(int B, int G, int R, int* pairs, int* smem,
+                    bool* global) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  *global = BpPlanes::bytes(G, R) > optin;
   int threads = 32;
-  const cudaError_t e = banded::prepare(ks, B, 32, 32 * PAIRS,
-                                        BpPlanes::bytes(G, R), &threads, smem);
+  if (*global) {
+    const decltype(&sw_full_bp_kernel<false, true>) ks[] = {
+        sw_full_bp_kernel<false, true>, sw_full_bp_kernel<true, true>};
+    e = banded::prepare(ks, B, 32, 32 * PAIRS, 0, &threads, smem);
+  } else {
+    const decltype(&sw_full_bp_kernel<false, false>) ks[] = {
+        sw_full_bp_kernel<false, false>, sw_full_bp_kernel<true, false>};
+    e = banded::prepare(ks, B, 32, 32 * PAIRS,
+                        static_cast<int>(BpPlanes::bytes(G, R)), &threads,
+                        smem);
+  }
   *pairs = threads / 32;
   return e;
 }
@@ -181,8 +204,10 @@ cudaError_t prepare(int B, int G, int R, int* pairs, int* smem) {
 // i32 -> st [4, B] i32 (score, max_i, max_j, plane), bp [B, R, G] u8,
 // every byte written. goa/gea/gob/geb are the open and extend costs as
 // positive penalties (open NOT including extend, as in sw_full_pallas).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// G outside [1, 4095]).
+// `scratch` is the device memory of sw_full_bp_scratch's size (null when
+// that is 0). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for G < 1, or a null scratch where the launch
+// needs one).
 extern "C" int sw_full_bp_launch(const void* genome, const void* glen,
                                  const void* read, const void* rlen,
                                  const void* ax, const void* ay,
@@ -190,21 +215,43 @@ extern "C" int sw_full_bp_launch(const void* genome, const void* glen,
                                  const void* rev, void* st, void* bp, int B,
                                  int G, int R, int m, int mm, int goa,
                                  int gea, int gob, int geb, int local,
-                                 void* stream) {
+                                 void* stream, void* scratch) {
   if (B <= 0 || R <= 0) return 0;
-  if (G < 1 || G > 4095) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   int pairs = 1, smem = 0;
-  const cudaError_t e = prepare(B, G, R, &pairs, &smem);
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (global && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  auto kernel = local ? sw_full_bp_kernel<true> : sw_full_bp_kernel<false>;
+  auto kernel = global ? (local ? sw_full_bp_kernel<true, true>
+                                : sw_full_bp_kernel<false, true>)
+                       : (local ? sw_full_bp_kernel<true, false>
+                                : sw_full_bp_kernel<false, false>);
   kernel<<<(B + pairs - 1) / pairs, 32 * pairs, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(genome), i32(glen),
       static_cast<const uint8_t*>(read), i32(rlen), i32(ax), i32(ay),
       i32(alen), i32(awid), i32(rev), static_cast<int32_t*>(st),
-      static_cast<uint8_t*>(bp), B, G, R, m, mm, goa, gea, gob, geb);
+      static_cast<uint8_t*>(bp), static_cast<uint8_t*>(scratch), B, G, R, m,
+      mm, goa, gea, gob, geb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device memory, in bytes, that a launch of B pairs of G columns and
+// R rows needs beside its outputs, into *(long long*)out: the pairs'
+// planes where one pair's do not fit a block's shared memory, else 0.
+// Returns a cudaError_t.
+extern "C" int sw_full_bp_scratch(int B, int G, int R, void* out) {
+  long long* o = static_cast<long long*>(out);
+  *o = 0;
+  if (B <= 0 || G < 1 || R < 1) return 0;
+  int pairs = 1, smem = 0;
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
+  if (global) *o = BpPlanes::bytes(G, R) * B;
+  return static_cast<int>(e);
 }
 
 // The launch configuration of B pairs of G columns and R rows (of the
@@ -213,11 +260,12 @@ extern "C" int sw_full_bp_launch(const void* genome, const void* glen,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread
 // and local (spill) bytes per thread. Returns a cudaError_t.
 extern "C" int sw_full_bp_config(int B, int G, int R, void* out) {
-  if (G < 1 || G > 4095 || R < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   int pairs = 1, smem = 0;
-  const cudaError_t e = prepare(B, G, R, &pairs, &smem);
+  bool global = false;
+  const cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return banded::config(sw_full_bp_kernel<false>, 32, 32 * pairs, smem,
-                        static_cast<int*>(out));
+  return banded::config(global ? sw_full_bp_kernel<false, true>
+                               : sw_full_bp_kernel<false, false>,
+                        32, 32 * pairs, smem, static_cast<int*>(out));
 }

@@ -38,12 +38,15 @@
 // The read byte of the next row is loaded one step ahead. Blocks hold up
 // to 128 threads, halved while some SM would get no block.
 //
-// Windows wider than 256 (long reads: G = 352 at 250 bp, up to 4095 in
-// the packed flow) take a second kernel, one warp per pair, because
+// Windows wider than 256 (long reads: G = 352 at 250 bp, 4224 at
+// 3000 bp; any G) take a second kernel, one warp per pair, because
 // their rows do not fit a segment's registers and a launch of a few
 // hundred long pairs needs all the lanes it can get. Lane l owns a
 // strip of S consecutive columns (S odd: distinct shared-memory banks);
-// the previous row's H and F and the genome window sit in shared memory.
+// the previous row's H and F and the genome window sit in shared memory,
+// 9 bytes a column, up to about 25,800 columns (the 227 KB a block can
+// opt into); past that H and F sit in a device-memory scratch that the
+// caller allocates and the window is read where it lies.
 // A row runs in two passes over each strip: (1) h0 = max(0, H diagonal
 // + s, F) and the strip's maximum of the E chain terms h0[k] + k*gea
 // (each lane reads its left neighbour's diagonal H before any lane
@@ -162,32 +165,42 @@ __device__ __forceinline__ int warp_exclusive_max(int v, int lane) {
 }
 
 // bytes of dynamic shared memory of the wide kernel: H, F, the window
-inline int wide_smem(int G) { return 2 * G * 4 + ((G + 15) & ~15); }
+inline long long wide_smem(int G) {
+  return 8LL * G + ((G + 15) & ~15);
+}
 
+// GLOBAL: H and F in scratch (2G int32 a pair), the window read in place
+template <bool GLOBAL>
 __global__ void __launch_bounds__(32)
 sw_vector_wide_kernel(const uint8_t* __restrict__ genome,
                       const uint8_t* __restrict__ g_row0,
                       const int32_t* __restrict__ glen,
                       const uint8_t* __restrict__ read,
                       const int32_t* __restrict__ rlen,
-                      int32_t* __restrict__ out, int G, int R, int m,
-                      int mm, int goa, int gea, int gob, int geb) {
+                      int32_t* __restrict__ out, int* __restrict__ scratch,
+                      int G, int R, int m, int mm, int goa, int gea, int gob,
+                      int geb) {
   extern __shared__ int4 smem[];
-  int* h = reinterpret_cast<int*>(smem);   // H of the previous row
-  int* f = h + G;                          // F of the previous row
-  uint8_t* gsh = reinterpret_cast<uint8_t*>(f + G);
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
+  // H and F of the previous row, and the window
+  int* h = GLOBAL ? scratch + (size_t)b * 2 * G : reinterpret_cast<int*>(smem);
+  int* f = h + G;
+  uint8_t* gst = reinterpret_cast<uint8_t*>(f + G);
+  const uint8_t* gsh = GLOBAL ? genome + (size_t)b * G : gst;
   const int nj = min(glen[b], G);
   const int ni = min(rlen[b], R);
   for (int j = lane; j < nj; j += 32) {
     h[j] = 0;
     f[j] = NEG;
-    gsh[j] = genome[(size_t)b * G + j];
+    if (!GLOBAL) gst[j] = genome[(size_t)b * G + j];
   }
   __syncwarp();
   const int S = ((nj + 31) / 32) | 1;
-  const int j0 = min(lane * S, nj), j1 = min(j0 + S, nj);
+  int j0 = min(lane * S, nj), j1 = min(j0 + S, nj);
+  // keep the strip bounds opaque to the optimizer (the ptxas min/max
+  // fold of banded_sw.cuh)
+  asm volatile("" : "+r"(j0), "+r"(j1));
   const uint8_t* rd = read + (size_t)b * R;
   int best = 0;
   for (int i = 0; i < ni; ++i) {
@@ -255,6 +268,24 @@ int launch(const void* genome, const void* g_row0, const void* glen,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wide kernel's dynamic shared memory for windows G wide, and
+// whether H and F go to device memory (they do not fit a block); sets the
+// shared memory limit above 48 KB.
+cudaError_t wide_prepare(int G, int* smem, bool* global) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  *global = wide_smem(G) > optin;
+  *smem = *global ? 0 : static_cast<int>(wide_smem(G));
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sw_vector_wide_kernel<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+}
+
 template <int GMAX, int L>
 int narrow_config(int B, int* o) {
   int threads = THREADS;
@@ -268,16 +299,19 @@ int narrow_config(int B, int* o) {
 // genome [B, G] u8, g_row0 [B, G] u8 or null (letter space), glen [B]
 // i32, read [B, R] u8, rlen [B] i32 -> out [B] i32. goa/gob are open +
 // extend costs and gea/geb extend costs, all as positive penalties.
-// G <= 256 takes the narrow kernel (a segment of lanes per pair),
-// 256 < G <= 4095 the warp-per-pair kernel. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for G outside [1, 4095]).
+// G <= 256 takes the narrow kernel (a segment of lanes per pair), wider
+// windows the warp-per-pair kernel; `scratch` is the device memory of
+// sw_vector_scratch's size (null when that is 0). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for G < 1,
+// or a null scratch where the wide kernel needs one).
 extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
                                 const void* glen, const void* read,
                                 const void* rlen, void* out, int B, int G,
                                 int R, int m, int mm, int goa, int gea,
-                                int gob, int geb, void* stream) {
+                                int gob, int geb, void* stream,
+                                void* scratch) {
   if (B <= 0) return 0;
-  if (G < 1 || G > 4095) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G <= 64)
     return launch<64, LANES_64>(genome, g_row0, glen, read, rlen, out, B, G,
@@ -288,13 +322,37 @@ extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
   if (G <= 256)
     return launch<256, LANES_256>(genome, g_row0, glen, read, rlen, out, B,
                                   G, R, m, mm, goa, gea, gob, geb, st);
-  sw_vector_wide_kernel<<<B, 32, wide_smem(G), st>>>(
+  int smem = 0;
+  bool global = false;
+  const cudaError_t e = wide_prepare(G, &smem, &global);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (global && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = global ? sw_vector_wide_kernel<true>
+                       : sw_vector_wide_kernel<false>;
+  kernel<<<B, 32, smem, st>>>(
       static_cast<const uint8_t*>(genome),
       static_cast<const uint8_t*>(g_row0),
       static_cast<const int32_t*>(glen), static_cast<const uint8_t*>(read),
-      static_cast<const int32_t*>(rlen), static_cast<int32_t*>(out), G, R,
-      m, mm, goa, gea, gob, geb);
+      static_cast<const int32_t*>(rlen), static_cast<int32_t*>(out),
+      static_cast<int*>(scratch), G, R, m, mm, goa, gea, gob, geb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device memory, in bytes, that a launch of B pairs of G columns
+// needs beside its output, into *(long long*)out: the wide kernel's H
+// and F where they do not fit a block's shared memory, else 0. (R is
+// not read.) Returns a cudaError_t.
+extern "C" int sw_vector_scratch(int B, int G, int R, void* out) {
+  (void)R;
+  long long* o = static_cast<long long*>(out);
+  *o = 0;
+  if (G <= 256 || B <= 0) return 0;
+  int smem = 0;
+  bool global = false;
+  const cudaError_t e = wide_prepare(G, &smem, &global);
+  if (global) *o = 8LL * G * B;
+  return static_cast<int>(e);
 }
 
 // The launch configuration of B pairs of G columns (R is not read; the
@@ -304,11 +362,16 @@ extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
 // registers per thread and local (spill) bytes per thread, of the
 // kernel that sw_vector_launch takes for G. Returns a cudaError_t.
 extern "C" int sw_vector_config(int B, int G, int R, void* out) {
-  if (G < 1 || G > 4095 || R < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(out);
   if (G <= 64) return narrow_config<64, LANES_64>(B, o);
   if (G <= 128) return narrow_config<128, LANES_128>(B, o);
   if (G <= 256) return narrow_config<256, LANES_256>(B, o);
-  return banded::config(sw_vector_wide_kernel, 32, 32, wide_smem(G), o);
+  int smem = 0;
+  bool global = false;
+  const cudaError_t e = wide_prepare(G, &smem, &global);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return banded::config(global ? sw_vector_wide_kernel<true>
+                               : sw_vector_wide_kernel<false>,
+                        32, 32, smem, o);
 }

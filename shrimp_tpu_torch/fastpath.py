@@ -27,9 +27,9 @@ Port of the flows of `shrimp_tpu/fastpath.py`:
 device. Arguments go up on packed IO where `_packed_io` allows it (16 B a
 window, 4-bit reads), else as [B, 10] int32 rows with a byte read table
 (more than 2^16 read rows); the windows come from the mapper's word plane
-or, where it has none (planes over ~1 Gbp), byte by byte. An index of
-2^31 bases or more and windows wider than MAX_G_LONG raise
-NotImplementedError. The host stages run through the port's own native
+or, where it has none (planes over ~1 Gbp), byte by byte. The windows
+may be of any width (the traceback flow's kernels take any G); an index
+of 2^31 bases or more raises NotImplementedError. The host stages run through the port's own native
 library (`native/`, a copy of the reference's C++), so the SAM bytes are
 the reference's. The mesh tiers (`parallel/meshmap.py`) plug in through
 the seams the reference has: `FastLS.dispatch_fn` (a `_fused_dispatch`
@@ -64,7 +64,7 @@ from .io.fasta import SeqRecord
 from .io.sam import _pair_qname
 from .native import get_lib
 from .native.filter1_py import generate_candidates_native
-from .core._args import MAX_G, MAX_G_LONG
+from .core._args import MAX_G
 from .core.sw import (sw_vec_full_stats_from_index, sw_vec_full_stats_packed,
                       sw_vec_full_tb_from_index, sw_vec_full_tb_packed)
 from .mapper import FULL_BATCH, FULL_BUCKETS, _round_up
@@ -387,8 +387,7 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
     4-bit reads); others (more than 2^16 read rows) on the unpacked
     flow's [B, 10] rows and byte read table. Without the mapper's word
     plane (planes over ~1 Gbp) the windows are gathered byte by byte.
-    Windows wider than MAX_G_LONG, and indexes of 2^31 bases or more,
-    raise NotImplementedError.
+    Indexes of 2^31 bases or more raise NotImplementedError.
 
     At LS_TWO_PHASE_WPR or more windows per read of the `n_reads` reads
     (None: never) the dispatch takes two phases, as the reference's
@@ -402,10 +401,6 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
     _check_index_len(m.index)
     n = fh.n
     win, G = _normalize_win(m, fh, L, rcf)
-    if G > MAX_G_LONG:
-        raise NotImplementedError(
-            f"windows of G={G} columns: the long-read kernels take G <= "
-            f"{MAX_G_LONG}")
     packed_io = _packed_io(G, R, int(fh.w_len.max()), read_tab.shape[0])
     kw = dict(G=G, match=sc.match, mismatch=sc.mismatch,
               a_gap_open=sc.a_gap_open, a_gap_ext=sc.a_gap_extend,

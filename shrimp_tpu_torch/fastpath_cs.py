@@ -43,7 +43,7 @@ import torch
 
 from . import constants as C
 from .config import MapperConfig, abs_or_pct
-from .core.sw_cs import sw_vec_cs_full_from_index
+from .core.sw_cs import cs_wide_rows, sw_vec_cs_full_from_index
 from .core.sw_cs_batch import cs_layers_batch
 from .fastpath import (FastLS, _P1In, _P1Out, _P1Params, _PPParams, _PPWin,
                        _check_index_len, _filter1_paired,
@@ -434,10 +434,15 @@ class FastCS:
     def _cs_chunks(self, args, CB, rtab_dev, qr_dev, xov_dev, kw):
         """sw_vec_cs_full_from_index over the rows of `args` in chunks of
         CB rows, the last padded with 1-cell windows: [(off, k,
-        result)]. Without the mapper's word planes (planes over ~1 Gbp)
-        the step gathers its windows byte by byte."""
+        result)]. A chunk that runs the 4-layer DP on windows wider than
+        MAX_G holds at most `cs_wide_rows` rows, so that its backpointers
+        stay within 2^28 cells. Without the mapper's word planes (planes
+        over ~1 Gbp) the step gathers its windows byte by byte."""
         m = self.m
         dev = m.device
+        cap = cs_wide_rows(rtab_dev.shape[1], kw["G"])
+        if cap is not None and kw.get("phase", "fused") != "vec":
+            CB = min(CB, cap)
         planes = m._dev_cs_planes()
         cats = m._dev_cs_cat_words() or (None, None)
         n = len(args)

@@ -33,9 +33,8 @@ same planes. Every statistics update goes through `tally`, which takes a
 lock: the streams' lane threads share one Mapper (a bare `+=` loses
 updates).
 
-On CUDA, windows wider than the kernels take (colour space over 256
-columns, letter space over 4095) raise NotImplementedError naming their
-reads; nothing falls back to the CPU.
+On CUDA every launch runs a kernel, for windows of any width; nothing
+falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -53,7 +52,6 @@ from .config import (MapperConfig, Pass2Options, ReadMappingOptions,
                      abs_or_pct, is_absolute)
 from .core import batch_pipeline as bp
 from .core import candidates, encode, sw_cs_np
-from .core._args import MAX_G, MAX_G_LONG
 from .core.sw import cat_word_plane
 from .core.sw_cs import sw_full_cs_dispatch, sw_full_cs_finish
 from .core.sw_cs_batch import CSBatchResult, post_sw_forward_backward_batch
@@ -425,18 +423,6 @@ class Mapper:
             return None if cat is None else (self._upload(ccat), cat)
         return self._lazy("_cs_cat_words_dev", make)
 
-    def _check_width(self, G: int, max_g: int, rows, what: str) -> None:
-        """On CUDA, a launch of windows wider than the kernel takes raises
-        NotImplementedError naming its reads; `rows()` gives (read name,
-        window length) of each window of the launch."""
-        if self.device.type != "cuda" or G <= max_g:
-            return
-        names = sorted({nm for nm, w in rows() if _round_up(w, 32) > max_g})
-        raise NotImplementedError(
-            f"{what}: reads {names[:8]}{' ...' if len(names) > 8 else ''} "
-            f"have windows of up to {G} columns; the CUDA kernels take "
-            f"G <= {max_g}")
-
     # ------------------------------------------------------------ read prep
     def prepare_read(self, rec: SeqRecord,
                      trim: bool = True) -> Optional[ReadEntry]:
@@ -588,8 +574,6 @@ class Mapper:
             scores = self._gapless_scores(entries, ri_a, st_a, goff_a,
                                           ax_a, ay_a, rlens)
         elif self.config.mode == C.MODE_LETTER_SPACE:
-            self._check_width(G, MAX_G_LONG, lambda: _named(entries, ri_a, wl_a),
-                              "vector SW")
             # LS pass1 scores the forward-strand window against the
             # strand-st read (mapping.c:1323-1328)
             gwin = _gather_rows(idx.codes, goff_a, G)
@@ -603,8 +587,6 @@ class Mapper:
             # CS pass1 reverse-normalizes first (mapping.c:1297-1319):
             # window from the CS genome (fwd or per-contig rc), read is
             # the input-strand colour read, first row vs lstocs(ls, initbp)
-            self._check_width(G, MAX_G_LONG, lambda: _named(entries, ri_a, wl_a),
-                              "vector SW")
             inp = np.array([e.input_strand for e in entries], np.int64)
             eff_rc = st_a != inp[ri_a]
             cn_a = idx.contig_of(goff_a)
@@ -1022,8 +1004,6 @@ class Mapper:
         n = len(jobs)
         G = _round_up(max(max(h.w_len for _, h in jobs), 16), 32)
         R = _round_up(max(entries[ri].read_len for ri, _ in jobs), 8)
-        self._check_width(G, MAX_G_LONG, lambda: [
-            (entries[ri].name, h.w_len) for ri, h in jobs], "full SW")
         glen = np.ones(n, np.int32)
         rwin = np.full((n, R), 254, np.uint8)
         rlen = np.ones(n, np.int32)
@@ -1104,9 +1084,6 @@ class Mapper:
         n = len(retries)
         G = _round_up(max(jobs[i][1].w_len for i in retries), 32)
         R = _round_up(max(entries[jobs[i][0]].read_len for i in retries), 8)
-        self._check_width(G, MAX_G_LONG, lambda: [
-            (entries[jobs[i][0]].name, jobs[i][1].w_len) for i in retries],
-            "full SW (local retry)")
         gwin = np.zeros((n, G), np.uint8)
         glen = np.ones(n, np.int32)
         rwin = np.full((n, R), 254, np.uint8)
@@ -1173,9 +1150,6 @@ class Mapper:
         n = len(jobs)
         G = _round_up(max(max(h.w_len for _, h in jobs), 16), 32)
         R = _round_up(max(entries[ri].read_len for ri, _ in jobs), 8)
-        self._check_width(G, MAX_G, lambda: [
-            (entries[ri].name, h.w_len) for ri, h in jobs],
-            "colour-space full SW")
         gwin = np.zeros((n, G), np.uint8)
         glen = np.ones(n, np.int32)
         cwin = np.full((n, R), C.BASE_N, np.uint8)
@@ -1631,8 +1605,6 @@ class Mapper:
             g = self._gapless_scores(sub, ri_a, st_a, goff_a,
                                      fh.ax, fh.ay, rlens)
             return (lambda: g) if defer else g
-        self._check_width(G, MAX_G_LONG, lambda: _named(sub, ri_a, wl_a),
-                          "vector SW")
         if self.config.mode == C.MODE_LETTER_SPACE:
             rtab = np.full((len(sub) * 2, R), 254, np.uint8)
             for ri, e in enumerate(sub):
@@ -2098,11 +2070,6 @@ def _cs_strings(steps: np.ndarray, gwin: np.ndarray, qr: np.ndarray,
             ii += 1
             jj += 1
     return "".join(d_chars), "".join(q_chars)
-
-
-def _named(entries: List[ReadEntry], ri, w_len):
-    """(read name, window length) of each window of a launch."""
-    return [(entries[int(r)].name, int(w)) for r, w in zip(ri, w_len)]
 
 
 def _dedup(hits: List[Hit], keyfunc) -> List[Hit]:
