@@ -216,6 +216,28 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    Every kernel of (a)-(c) held against its plain version on the first
    launch of the first chunk's map (`*_cli` records); every map's
    launch counters must rise.
+24. Windows past the old kernel widths (CS over 256 columns, LS over
+   4,095). (a) The CS vector SW, the 4-layer DP (its wide kernel) and
+   the CS traceback at (B, R, G) = (1024, 256, 352) and (64, 1000, 1408),
+   and the LS vector SW, full SW with backpointers and traceback at
+   (32, 3000, 4224), against their plain versions on the card (tolerance
+   0): global and local, taboo 0 and 4, revcmpl rows, BASE_N cells, pad
+   rows, dataset.edge_bands, pairs with one gap of 33-120 columns, and
+   the CS traceback on dataset.cs_walk_pairs; then one shape per kernel
+   past its shared-memory fit, where its device-memory path runs
+   (asserted from its launch configuration and scratch size): CS at
+   (8, 64, 110,592) (walks at (4, 16, 115,200)), LS at (4, 256, 182,272).
+   Prints launch configurations, times and bounds. (b) Three slices, each
+   with its launch counts set to 0 just before and read just after, every
+   launch's G past 256, at least 95 % of reads mapped, alignments with
+   indels, reads/s, stage seconds and peak device memory, and the SAM of
+   the first reads equal to the CPU run's (its CS chunk buckets start at
+   64 rows; a row's bytes do not depend on its chunk): WIDE_CS_READS CS
+   reads of 250 colours (dataset.ecoli_unpaired_cs_long) through
+   fastpath_cs.map_unpaired_cs_sam_stream, WIDE_CS1000_READS of 1,000
+   colours through Mapper.map_unpaired, WIDE_LS_READS LS reads of 3,000 bp
+   (dataset.ecoli_unpaired_ls_long, longest_read_len 4000) through
+   fastpath.map_unpaired_sam_stream (the unpacked traceback flow).
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -233,10 +255,12 @@ kernel's launches on its slice, error, times and bound) and {"ok": true,
 build always runs) and then prints no result; `--phases 20` runs the
 generic mapper's phase alone, `--phases 21` the mesh tiers',
 `--phases 22` the multi-process tier's (with phase 21 (c) and (d) first,
-for its oracles), `--phases 23` the split-db workflow through the CLI.
+for its oracles), `--phases 23` the split-db workflow through the CLI,
+`--phases 24` the wide windows.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -802,10 +826,11 @@ def run_slice(dev, counters, test_bound):
     return launches
 
 
-def _cs_vec_pairs(rng, B, G, R):
+def _cs_vec_pairs(rng, B, G, R, pads=256):
     """CS-mode vector inputs: colour windows with their row-0 colours,
     colour reads (half copied from their window, with dot colours),
-    lengths; the main path's pad rows (glen = rlen = 1) at the front."""
+    lengths; `pads` of the main path's pad rows (glen = rlen = 1) at the
+    front."""
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     g0 = rng.integers(0, 4, (B, G)).astype(np.uint8)
     r = rng.integers(0, 4, (B, R)).astype(np.uint8)
@@ -819,15 +844,15 @@ def _cs_vec_pairs(rng, B, G, R):
     g[rng.random((B, G)) < 0.005] = BASE_N
     glen = rng.integers(1, G + 1, B).astype(np.int32)
     rlen = rng.integers(R - 8, R + 1, B).astype(np.int32)
-    glen[:256] = rlen[:256] = 1
+    glen[:pads] = rlen[:pads] = 1
     return dict(genome=g, glen=glen, read=r, rlen=rlen, g_row0=g0)
 
 
-def _cs_dp_pairs(rng, B, G, R):
+def _cs_dp_pairs(rng, B, G, R, pads=256):
     """4-layer DP inputs: letter windows; four letter layers per read, one
     of which follows its window (two substitutions) in half the pairs;
-    BASE_N cells; per-row crossovers; both strands; pad rows (glen =
-    rlen = alen = awid = 1, thresh = 1) at the front, then B / 16 pairs
+    BASE_N cells; per-row crossovers; both strands; `pads` pad rows (glen
+    = rlen = alen = awid = 1, thresh = 1) at the front, then B / 16 pairs
     at the edge bands."""
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     qr = rng.integers(0, 4, (B, 4, R)).astype(np.uint8)
@@ -847,10 +872,10 @@ def _cs_dp_pairs(rng, B, G, R):
              xover=rng.integers(2 * XOVER, 0, (B, R)),
              gx=np.full(B, XOVER), thresh=rng.integers(0, 200, B))
     for k in ("glen", "rlen", "alen", "awid", "thresh"):
-        a[k][:256] = 1
+        a[k][:pads] = 1
     for k in ("ax", "ay", "revcmpl"):
-        a[k][:256] = 0
-    _with_edge_bands(a, rng, 256, B // 16, G, R)
+        a[k][:pads] = 0
+    _with_edge_bands(a, rng, pads, B // 16, G, R)
     return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
             for k, v in a.items()}
 
@@ -1187,13 +1212,13 @@ def run_cs_slice(dev, counters, test_bound):
     return launches
 
 
-def _long_pairs(rng, B, G, R):
+def _long_pairs(rng, B, G, R, pads=64):
     """Long-read pairs: in half of them the read is copied from its
     window (4 substitutions; a 1-3 bp insertion or deletion in every
     other one) with the band along its diagonal, as filter 1 gives
     them; random bands and reads elsewhere; BASE_N cells; revcmpl rows;
-    the main path's pad rows (glen = alen = awid = 1) at the front, then
-    B / 32 pairs at the edge bands."""
+    `pads` of the main path's pad rows (glen = alen = awid = 1) at the
+    front, then B / 32 pairs at the edge bands."""
     g = rng.integers(0, 4, (B, G)).astype(np.uint8)
     r = rng.integers(0, 4, (B, R)).astype(np.uint8)
     a = dict(genome=g, glen=rng.integers(R, G + 1, B), read=r,
@@ -1217,10 +1242,10 @@ def _long_pairs(rng, B, G, R):
     r[rng.random((B, R)) < 0.005] = BASE_N
     g[rng.random((B, G)) < 0.005] = BASE_N
     for k in ("glen", "alen", "awid"):
-        a[k][:64] = 1
+        a[k][:pads] = 1
     for k in ("ax", "ay", "revcmpl"):
-        a[k][:64] = 0
-    _with_edge_bands(a, rng, 64, B // 32, G, R)
+        a[k][:pads] = 0
+    _with_edge_bands(a, rng, pads, B // 32, G, R)
     return {k: v.astype(np.int32) if v.dtype != np.uint8 else v
             for k, v in a.items()}
 
@@ -1366,7 +1391,7 @@ def _check_tb_refuses(dev):
         rc = lib.ls_traceback_launch(
             g.data_ptr(), r.data_ptr(), z.data_ptr(), z.data_ptr(),
             z.data_ptr(), z.data_ptr(), bp.data_ptr(), packed.data_ptr(),
-            ops.data_ptr(), B, G, R, stream)
+            ops.data_ptr(), B, G, R, stream, None)
         try:
             sw_full.traceback_pack(g, r, z, z, z, z, bp)
             raised = False
@@ -3842,10 +3867,406 @@ def run_split_workflow(dev, smi):
 
 
 
+# ----------------------------------------------------------------- phase 24
+# Windows past the old kernel widths. (a) The kernels at the CS launches
+# of 250- and 1000-colour reads and the LS launch of 3000 bp reads, and
+# one shape per kernel past its shared-memory fit, where its device-memory
+# path runs: the 4-layer DP's row buffers (96 bytes a column) and the CS
+# traceback's window, layers and step codes at G = 110,592 (the CS walks
+# at G = 115,200, R = 16); the vector SW's H and F (8 bytes a column),
+# the full SW's planes (14) and the LS traceback's window, read and ops
+# at G = 182,272.
+WIDE_CS_SHAPES = ((1024, 256, 352), (64, 1000, 1408), (8, 64, 110_592))
+WIDE_CS_WALKS = ((64, 256, 352), (4, 1000, 1408), (4, 16, 115_200))
+WIDE_LS_SHAPES = ((32, 3000, 4224), (4, 256, 182_272))
+# (b) the slices, each with the reads its CPU run maps again
+WIDE_CS_READS, WIDE_CS_CPU_READS = 20_000, 64
+WIDE_CS1000_READS, WIDE_CS1000_CPU_READS = 1024, 8
+WIDE_LS_READS, WIDE_LS_CPU_READS = 2000, 1
+WIDE_LS_CONFIG = dict(longest_read_len=4000)
+
+
+def _with_cs_long_gaps(a, rng, lo, n):
+    """Rows [lo, lo + n) of the 4-layer DP pairs `a`: one letter layer
+    (the others random) follows its window with one gap of 33 to 120
+    columns (dataset.long_gaps), with its band geometry, so that the
+    walks run long W or N stretches."""
+    from shrimp_tpu_torch.dataset import long_gaps
+    R = a["qr"].shape[2]
+    gap = long_gaps(rng, a["genome"][lo:lo + n], R)
+    k0 = rng.integers(0, 4, n)
+    a["qr"][lo + np.arange(n), k0] = gap.pop("read")
+    for k, v in gap.items():
+        a[k][lo:lo + n] = v
+
+
+def _past_fit(name, B, G, R, scratch=True) -> str:
+    """Prints the launch configuration of kernel `name` at a wide shape
+    and returns where its working set goes, "device" memory or "shared":
+    device where it needs a scratch (`<name>_scratch`), or, for a kernel
+    with none (`scratch` False: the CS traceback), where it stages fewer
+    bytes a pair than the window's."""
+    from shrimp_tpu_torch import _build
+    _print_launch_config(name, f"{name}_config", B, G, R)
+    if scratch:
+        t = _build.scratch(name, B, G, R, torch.device("cuda"))
+        past = t is not None
+        print(f"{name} ({B}, {R}, {G}): device-memory scratch "
+              f"{0 if t is None else t.numel()} B")
+    else:
+        c = _build.launch_config(f"{name}_config", B, G, R)
+        past = c["smem_bytes"] // c["pairs_per_block"] < G
+    return "device" if past else "shared"
+
+
+def _plain_once(fn):
+    """(result, ms by CUDA events) of one call of a plain version: at
+    these shapes a call takes seconds, so the check's own call is the
+    timed one."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _wide_times(kernels, plain_ms, reps=3) -> dict:
+    """{name: (device ms, CUDA-event ms, plain ms)} of each kernel call
+    in `kernels` ({name: fn}), beside its plain version's time."""
+    return {k: (_device_ms(fn, reps), _time_ms(fn, reps), plain_ms[k])
+            for k, fn in kernels.items()}
+
+
+def check_wide_kernels(dev):
+    """Phase 24 (a): the kernels on wide windows against their plain
+    versions (tolerance 0), with times and bounds. Returns the records of
+    the three slices' kernels."""
+    from shrimp_tpu_torch.core import sw_cs_full, sw_full, sw_vector
+    from shrimp_tpu_torch.dataset import cs_walk_pairs
+    names = ("sw_vector_cs_wide", "sw_cs_full_wide", "cs_traceback_wide",
+             "sw_vector_cs_wide1000", "sw_cs_full_wide1000",
+             "cs_traceback_wide1000", "sw_vector_wide", "sw_full_bp_wide",
+             "ls_traceback_wide")
+    rec = {k: dict(err=0) for k in names}
+    err_of = dict.fromkeys(("sw_vector_cs", "sw_cs_full", "cs_traceback",
+                            "sw_vector", "sw_full_bp", "ls_traceback"), 0)
+    vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
+    rng = np.random.default_rng(20261019)
+    for (B, R, G), last in zip(WIDE_CS_SHAPES, (False, False, True)):
+        where = {k: _past_fit(k, B, G, R, k != "cs_traceback")
+                 for k in ("sw_cs_full", "cs_traceback", "sw_vector")}
+        if last != (where["sw_cs_full"] == where["cs_traceback"]
+                    == "device"):
+            raise AssertionError(f"({B}, {R}, {G}): the CS kernels' path "
+                                 f"is {where}")
+        pads = max(1, B // 16)
+        vn = _cs_vec_pairs(rng, B, G, R, pads=pads)
+        v = {k: torch.from_numpy(x).to(dev) for k, x in vn.items()}
+        v4 = (v["genome"], v["glen"], v["read"], v["rlen"], v["g_row0"])
+        got = sw_vector.sw_vector_batch(*v4, cs_mode=True, **vkw)
+        want, p_ms = _plain_once(lambda: sw_vector.sw_vector_batch_ref(
+            *v4, cs_mode=True, **vkw))
+        plain = dict(sw_vector_cs=p_ms)
+        err = _err([got], [want])
+        err_of["sw_vector_cs"] = max(err_of["sw_vector_cs"], err)
+        print(f"sw_vector_cs B={B} G={G} R={R}: max |kernel - plain| = "
+              f"{err}")
+        an = _cs_dp_pairs(rng, B, G, R, pads=pads)
+        _with_cs_long_gaps(an, rng, B // 2, max(1, B // 8))
+        a = {k: torch.from_numpy(x).to(dev) for k, x in an.items()}
+        dp = tuple(a[k] for k in _DP_ORDER)
+        modes = (((False, 0), (True, 4)) if R > 256 or last else
+                 ((False, 0), (False, 4), (True, 0), (True, 4)))
+        for local, taboo in modes:
+            kw = dict(CS_KW, local_alignment=local, indel_taboo_len=taboo)
+            *st, bp = sw_cs_full.sw_full_cs_dp(*dp, **kw)
+            (*st_w, bp_w), p_ms = _plain_once(
+                lambda: sw_cs_full.sw_full_cs_dp_ref(*dp, **kw))
+            plain.setdefault("sw_cs_full", p_ms)
+            err = _err([*st, bp], [*st_w, bp_w])
+            del bp_w
+            err_of["sw_cs_full"] = max(err_of["sw_cs_full"], err)
+            tb = (a["genome"], a["qr"], *st, bp, a["thresh"])
+            got = sw_cs_full.cs_traceback(*tb)
+            want, p_ms = _plain_once(lambda: sw_cs_full.cs_traceback_ref(*tb))
+            plain.setdefault("cs_traceback", p_ms)
+            err_tb = _err(got, want)
+            err_of["cs_traceback"] = max(err_of["cs_traceback"], err_tb)
+            pk = want[0].to(torch.int64)
+            print(f"sw_cs_full B={B} G={G} R={R} local={local} "
+                  f"taboo={taboo}: max |kernel - plain| = {err}; "
+                  f"cs_traceback: {err_tb} (aligned rows "
+                  f"{int((pk[:, 0] > 0).sum())}, with crossovers "
+                  f"{int((pk[:, 11] > 0).sum())}, with a gap over 32: "
+                  f"{int(((pk[:, 9] > 32) | (pk[:, 10] > 32)).sum())})")
+            del st, bp, tb, got, want
+        if last:
+            del a, dp, v, v4
+            torch.cuda.empty_cache()
+            continue
+        # times at the main path's modes (global, taboo 0: the first of
+        # `modes`, whose plain calls were timed)
+        st_bp = sw_cs_full.sw_full_cs_dp(*dp, **CS_KW)
+        tb = (a["genome"], a["qr"], *st_bp, a["thresh"])
+        times = _wide_times(dict(
+            sw_vector_cs=lambda: sw_vector.sw_vector_batch(
+                *v4, cs_mode=True, **vkw),
+            sw_cs_full=lambda: sw_cs_full.sw_full_cs_dp(*dp, **CS_KW),
+            cs_traceback=lambda: sw_cs_full.cs_traceback(*tb)), plain)
+        packed = sw_cs_full.cs_traceback(*tb)[0]
+        bounds = dict(
+            sw_vector_cs=_vector_bound(vn, B, G, R, cs=True),
+            sw_cs_full=_bound(
+                _cs_dp_bytes(B, R, G), OPS["sw_cs_full"]
+                * _band_cells(an, np.minimum(an["rlen"], R)),
+                OPS["sw_cs_full"] * B * R * G),
+            cs_traceback=_cs_tb_bound(packed, B, R, G))
+        suffix = "_wide" if G == WIDE_CS_SHAPES[0][2] else "_wide1000"
+        for name, (k_ms, ev_ms, p_ms) in times.items():
+            b = bounds[name]
+            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms (device; "
+                  f"{ev_ms!r} ms a call by CUDA events), plain {p_ms!r} "
+                  f"ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; all "
+                  f"R x G cells: {b['bound_all_ms']!r} ms)")
+            rec[name + suffix].update(ms=k_ms, plain_ms=p_ms, **b)
+        print(f"cs_traceback B={B} G={G} R={R}, the test pairs' global "
+              f"walks: {_walks(packed[:, 4][packed[:, 4] > 0])}")
+        del a, dp, tb, st_bp, v, v4, packed
+        torch.cuda.empty_cache()
+    for B, R, G in WIDE_CS_WALKS:
+        w = cs_walk_pairs(rng, B, R, G)
+        tb = tuple(torch.from_numpy(w[k]).to(dev) for k in (
+            "genome", "qr", "best", "bi", "bj", "bk", "bfrm", "bp",
+            "thresh"))
+        del w
+        path = _past_fit("cs_traceback", B, G, R, scratch=False)
+        got = sw_cs_full.cs_traceback(*tb)
+        torch.cuda.synchronize()
+        want = sw_cs_full.cs_traceback_ref(*tb)
+        err = _err(got, want)
+        err_of["cs_traceback"] = max(err_of["cs_traceback"], err)
+        n = want[0][:, 4].to(torch.int64)
+        print(f"cs_traceback edge walks B={B} R={R} G={G} ({path} path): "
+              f"max |kernel - plain| = {err}; walks {int((n > 0).sum())}, "
+              f"steps {int(n.sum())}")
+        del tb, got, want
+        if (G > 100_000) != (path == "device"):
+            raise AssertionError(f"cs_traceback ({B}, {R}, {G}): {path} "
+                                 f"path")
+    torch.cuda.empty_cache()
+    for (B, R, G), last in zip(WIDE_LS_SHAPES, (False, True)):
+        where = {k: _past_fit(k, B, G, R)
+                 for k in ("sw_vector", "sw_full_bp", "ls_traceback")}
+        if any((p == "device") != last for p in where.values()):
+            raise AssertionError(f"({B}, {R}, {G}): the LS kernels' path "
+                                 f"is {where}")
+        a = _long_pairs(rng, B, G, R, pads=max(1, B // 16))
+        _with_long_gaps(a, rng, B // 2, max(1, B // 8))
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        v4 = (t["genome"], t["glen"], t["read"], t["rlen"])
+        full = tuple(t[k] for k in ("genome", "glen", "read", "rlen", "ax",
+                                    "ay", "alen", "awid", "revcmpl"))
+        got = sw_vector.sw_vector_batch(*v4, **KW)
+        want, p_ms = _plain_once(lambda: sw_vector.sw_vector_batch_ref(
+            *v4, **KW))
+        plain = dict(sw_vector=p_ms)
+        err = _err([got], [want])
+        err_of["sw_vector"] = max(err_of["sw_vector"], err)
+        print(f"sw_vector B={B} G={G} R={R}: max |kernel - plain| = {err}")
+        for local in (False, True):
+            got = sw_full.sw_full_bp(*full, local_alignment=local, **KW)
+            want, p_ms = _plain_once(lambda: sw_full.sw_full_bp_ref(
+                *full, local_alignment=local, **KW))
+            plain.setdefault("sw_full_bp", p_ms)
+            err = _err(got, want)
+            del got
+            err_of["sw_full_bp"] = max(err_of["sw_full_bp"], err)
+            tb = (t["genome"], t["read"], *want)
+            got = sw_full.traceback_pack(*tb)
+            want_tb, p_ms = _plain_once(
+                lambda: sw_full.traceback_pack_ref(*tb))
+            plain.setdefault("ls_traceback", p_ms)
+            err_tb = _err(got, want_tb)
+            err_of["ls_traceback"] = max(err_of["ls_traceback"], err_tb)
+            pk = want_tb[0]
+            if not local:
+                steps = pk[:, 3]
+            print(f"sw_full_bp B={B} G={G} R={R} local={local}: max |kernel "
+                  f"- plain| = {err}; ls_traceback: {err_tb} (rows with "
+                  f"score > 0: {int((pk[:, 0] > 0).sum())}, with a gap over "
+                  f"32: {int(((pk[:, 8] > 32) | (pk[:, 9] > 32)).sum())}, "
+                  f"walk steps {int(pk[:, 3].sum())})")
+            del want, tb, got, want_tb
+        if last:
+            del t, full, v4
+            torch.cuda.empty_cache()
+            continue
+        want = sw_full.sw_full_bp(*full, **KW)
+        tb = (t["genome"], t["read"], *want)
+        times = _wide_times(dict(
+            sw_vector=lambda: sw_vector.sw_vector_batch(*v4, **KW),
+            sw_full_bp=lambda: sw_full.sw_full_bp(*full, **KW),
+            ls_traceback=lambda: sw_full.traceback_pack(*tb)), plain)
+        bounds = dict(
+            sw_vector=_vector_bound(a, B, G, R),
+            sw_full_bp=_bound(
+                _bp_bytes(B, R, G),
+                OPS["sw_full_bp"] * _band_cells(a, np.full(B, R)),
+                OPS["sw_full_bp"] * B * R * G),
+            ls_traceback=_tb_bound(steps, B, R, G))
+        for name, (k_ms, ev_ms, p_ms) in times.items():
+            b = bounds[name]
+            print(f"{name} B={B} G={G} R={R}: kernel {k_ms!r} ms (device; "
+                  f"{ev_ms!r} ms a call by CUDA events), plain {p_ms!r} "
+                  f"ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; all "
+                  f"R x G cells: {b['bound_all_ms']!r} ms)")
+            rec[name + "_wide"].update(ms=k_ms, plain_ms=p_ms, **b)
+        print(f"ls_traceback B={B} G={G} R={R}, the test pairs' global "
+              f"walks: {_walks(steps)}")
+        del t, full, v4, want, tb
+        torch.cuda.empty_cache()
+    for name, e in err_of.items():
+        if e != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version on wide windows (max abs err "
+                                 f"{e})")
+    for name, r in rec.items():
+        r["err"] = err_of[name.rsplit("_wide", 1)[0]]
+    return rec
+
+
+@contextlib.contextmanager
+def _small_cs_buckets():
+    """The CS streams' chunk buckets start at 64 rows inside, so that a
+    CPU run of a few reads pads its launches to 64 rows and not to the
+    smallest bucket (the pad rows cost the plain 4-layer DP as much as
+    windows do). A row's bytes do not depend on its chunk."""
+    from shrimp_tpu_torch import fastpath_cs
+    saved = fastpath_cs.CS_CHUNK_BUCKETS
+    fastpath_cs.CS_CHUNK_BUCKETS = (64,) + saved
+    try:
+        yield
+    finally:
+        fastpath_cs.CS_CHUNK_BUCKETS = saved
+
+
+def _wide_slice(title, dev, smi, mapper, reads, stream, counters, n_cpu,
+                widths):
+    """One slice of phase 24 (b): `reads` through `stream` on the card
+    (launch counts set to 0 just before, read just after), the G of every
+    launch of each wrapper in `widths` ({name: (module, fn)}) wider than
+    the old limit, at least 95 % of reads mapped, and the SAM of the first
+    `n_cpu` reads equal to the CPU run's. Returns the launches."""
+    _map(mapper(dev), reads[:max(n_cpu, 64)], stream)      # warm-up
+    m = mapper(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    gs = {k: set() for k in widths}
+    orig = {k: getattr(mod, fn) for k, (mod, fn) in widths.items()}
+    for k, (mod, fn) in widths.items():
+        def spy(genome, *a, _k=k, **kw):
+            gs[_k].add(int(genome.shape[1]))
+            return orig[_k](genome, *a, **kw)
+        setattr(mod, fn, spy)
+    try:
+        sam, secs = _map(m, reads, stream)
+    finally:
+        for k, (mod, fn) in widths.items():
+            setattr(mod, fn, orig[k])
+    launches = {k: c.n for k, c in counters.items()}
+    _run_line(title, dev, len(reads), secs, smi,
+              f"; launches {launches}; launch widths G "
+              f"{ {k: sorted(v) for k, v in gs.items()} }; windows "
+              f"{m.stats.vec_invocs}")
+    print(f"{title} stage seconds (summed over lanes): " + ", ".join(
+        f"{k} {v!r}" for k, v in m.stats.stage_secs.items()))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{title}: {k} not launched")
+    if not all(v and min(v) > 256 for v in gs.values()):
+        raise AssertionError(f"{title}: a launch of windows G <= 256")
+    lines = sam.split(b"\n")[:-1]
+    if not lines or any(len(ln.split(b"\t")) < 11 for ln in lines):
+        raise AssertionError(f"{title}: malformed SAM")
+    names = {f[0] for f in (ln.split(b"\t", 2) for ln in lines)
+             if not int(f[1]) & 4}
+    mapped = len(names) / len(reads)
+    indel = sum(1 for ln in lines if b"I" in ln.split(b"\t", 6)[5]
+                or b"D" in ln.split(b"\t", 6)[5])
+    print(f"{title} SAM: {len(lines)} records, {mapped!r} of reads mapped, "
+          f"{indel} records with an indel")
+    if mapped < 0.95 or indel == 0:
+        raise AssertionError(f"{title}: mostly unmapped or no indel")
+    first = reads[:n_cpu]
+    with _small_cs_buckets():
+        sam_cpu, secs_cpu = _map(mapper("cpu"), first, stream)
+    same = _prefix_of(sam_cpu, sam, first)
+    print(f"{title} on cpu (plain versions), first {n_cpu} reads: "
+          f"{secs_cpu!r} s; the CUDA run's records of those reads: {same}")
+    if not same:
+        raise AssertionError(f"{title}: CUDA and CPU SAM bytes differ")
+    return launches
+
+
+def run_wide_slices(dev, smi):
+    """Phase 24 (b): CS reads of 250 colours through the CS stream, of
+    1000 colours through the generic mapper, LS reads of 3000 bp through
+    the LS stream. Returns the launches of each slice's kernels."""
+    from shrimp_tpu_torch import dataset
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import sw_cs_full, sw_full, sw_vector
+    from shrimp_tpu_torch.mapper import Mapper
+    launches = {}
+    cs_counters = {"sw_vector_cs": sw_vector.CS_LAUNCHES,
+                   "sw_cs_full": sw_cs_full.DP_LAUNCHES,
+                   "cs_traceback": sw_cs_full.TB_LAUNCHES}
+    # the wrappers' launch functions: every launch of the path passes one
+    cs_widths = {"sw_vector_cs": (sw_vector, "_launch"),
+                 "sw_cs_full": (sw_cs_full, "_launch_dp")}
+    for n, n_cpu, read_len, stream, suffix in (
+            (WIDE_CS_READS, WIDE_CS_CPU_READS, 250, _cs_stream, "_wide"),
+            (WIDE_CS1000_READS, WIDE_CS1000_CPU_READS, 1000,
+             _generic_stream(), "_wide1000")):
+        t0 = time.perf_counter()
+        idx, reads = dataset.ecoli_unpaired_cs_long(n, read_len=read_len)
+        print(f"CS {read_len}-colour dataset + index: "
+              f"{time.perf_counter() - t0!r} s")
+
+        def mapper(device, idx=idx):
+            return Mapper(idx, dataset.ecoli_cs_config(),
+                          device).upload_planes()
+        ln = _wide_slice(
+            f"24 CS {read_len} colours "
+            + ("(stream)" if stream is _cs_stream else "(generic mapper)"),
+            dev, smi, mapper, reads, stream, cs_counters, n_cpu, cs_widths)
+        launches.update({k + suffix: v for k, v in ln.items()})
+        del idx, reads
+    t0 = time.perf_counter()
+    idx, reads = dataset.ecoli_unpaired_ls_long(WIDE_LS_READS,
+                                                read_len=3000)
+    print(f"LS 3000 bp dataset + index: {time.perf_counter() - t0!r} s")
+
+    def ls_mapper(device):
+        return Mapper(idx, MapperConfig(**WIDE_LS_CONFIG),
+                      device).upload_planes()
+    ln = _wide_slice(
+        "24 LS 3000 bp (stream)", dev, smi, ls_mapper, reads, _ls_stream,
+        {"sw_vector": sw_vector.LAUNCHES, "sw_full_bp": sw_full.BP_LAUNCHES,
+         "ls_traceback": sw_full.TB_LAUNCHES}, WIDE_LS_CPU_READS,
+        {"sw_vector": (sw_vector, "_launch"),
+         "sw_full_bp": (sw_full, "_launch_bp")})
+    launches.update({k + "_wide": v for k, v in ln.items()})
+    return launches
+
+
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 24))
+        return set(range(1, 25))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -3971,8 +4392,13 @@ def main() -> None:
         launches.update(ln)
         rec.update(r)
         print(f"phase 23: {time.perf_counter() - t23!r} s")
+    if 24 in phases:
+        t24 = time.perf_counter()
+        rec.update(check_wide_kernels(dev))
+        launches.update(run_wide_slices(dev, smi))
+        print(f"phase 24: {time.perf_counter() - t24!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 24)):
+    if phases != set(range(1, 25)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -4079,7 +4505,25 @@ def main() -> None:
             ("sw_cs_full_pretty_cli", "sw_cs_full.cu",
              "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
             ("cs_traceback_pretty_cli", "cs_traceback.cu",
-             "shrimp_tpu/core/sw_cs_jax.py:261"))]
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_cs_wide", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_wide", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_wide", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_cs_wide1000", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_cs_full_wide1000", "sw_cs_full.cu",
+             "shrimp_tpu/core/sw_cs_full_pallas.py:357"),
+            ("cs_traceback_wide1000", "cs_traceback.cu",
+             "shrimp_tpu/core/sw_cs_jax.py:261"),
+            ("sw_vector_wide", "sw_vector.cu",
+             "shrimp_tpu/core/sw_pallas.py:155"),
+            ("sw_full_bp_wide", "sw_full_bp.cu",
+             "shrimp_tpu/core/sw_full_pallas.py:298"),
+            ("ls_traceback_wide", "ls_traceback.cu",
+             "shrimp_tpu/core/sw_jax.py:785"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

@@ -63,6 +63,10 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+# The launches below pass no device-memory scratch (the last argument,
+# None): the shapes this script times fit shared memory.
+
+
 def _stats_call(lib, full, out, local, kw):
     B, G = full[0].shape
     R = full[2].shape[1]
@@ -81,7 +85,7 @@ def _bp_call(lib, full, st, bp, local, kw):
         *(x.data_ptr() for x in full), st.data_ptr(), bp.data_ptr(), B, G,
         R, kw["match"], kw["mismatch"], -kw["a_gap_open"],
         -kw["a_gap_ext"], -kw["b_gap_open"], -kw["b_gap_ext"], int(local),
-        _stream())
+        _stream(), None)
     if rc != 0:
         raise RuntimeError(f"sw_full_bp_launch: cudaError {rc}")
 
@@ -90,7 +94,7 @@ def _tb_call(lib, tb, packed, ops):
     B, R, G = tb[-1].shape
     rc = lib.ls_traceback_launch(*(x.data_ptr() for x in tb),
                                  packed.data_ptr(), ops.data_ptr(), B, G, R,
-                                 _stream())
+                                 _stream(), None)
     if rc != 0:
         raise RuntimeError(f"ls_traceback_launch: cudaError {rc}")
 
@@ -103,7 +107,8 @@ def _vec_call(lib, v, out, kw):
         v[1].data_ptr(), v[2].data_ptr(), v[3].data_ptr(), out.data_ptr(),
         B, G, R, kw["match"], kw["mismatch"],
         -kw["a_gap_open"] - kw["a_gap_ext"], -kw["a_gap_ext"],
-        -kw["b_gap_open"] - kw["b_gap_ext"], -kw["b_gap_ext"], _stream())
+        -kw["b_gap_open"] - kw["b_gap_ext"], -kw["b_gap_ext"], _stream(),
+        None)
     if rc != 0:
         raise RuntimeError(f"sw_vector_launch: cudaError {rc}")
 

@@ -304,9 +304,11 @@ def cs_traceback_ref(genome_ls: torch.Tensor, qr: torch.Tensor,
                      best: torch.Tensor, bi: torch.Tensor, bj: torch.Tensor,
                      bk: torch.Tensor, bfrm: torch.Tensor, bp: torch.Tensor,
                      thresh: torch.Tensor):
-    """Plain version, on any device: R + G lock-step walk steps over all
-    pairs, as _cs_traceback scans them. bp is [B, R, 4, G] int16. Returns
-    (packed [B, 12] int16, steps_rev [B, R + G] int8)."""
+    """Plain version, on any device: up to R + G lock-step walk steps
+    over all pairs, as _cs_traceback scans them (the steps after every
+    walk has stopped change nothing, so they are not run). bp is
+    [B, R, 4, G] int16. Returns (packed [B, 12] int16, steps_rev
+    [B, R + G] int8)."""
     B, G = genome_ls.shape
     R = qr.shape[2]
     dev = genome_ls.device
@@ -324,7 +326,9 @@ def cs_traceback_ref(genome_ls: torch.Tensor, qr: torch.Tensor,
     rs = gs = m_ = mm_ = ins = dele = xo = nops = zero
     act = (bfrm != 0) & (score > 0)
     steps = []
-    for _ in range(R + G):
+    for t in range(R + G):
+        if t % 64 == 0 and not bool(act.any()):
+            break
         code = frm >> 2
         lyr = frm & 3
         is_n = act & ((code == _NN) | (code == _NNW))
@@ -356,7 +360,9 @@ def cs_traceback_ref(genome_ls: torch.Tensor, qr: torch.Tensor,
         frm = torch.where(inb, frm2, 0)
         act = inb & (frm != 0)
         i, j, k = i2, j2, k2
-    steps_rev = torch.stack(steps, 1)
+    steps_rev = torch.zeros((B, R + G), dtype=i32, device=dev)
+    if steps:
+        steps_rev[:, :len(steps)] = torch.stack(steps, 1)
     # leading crossover when the alignment starts in a layer other than 0
     lead = (score > 0) & (k != 0) & (nops > 0)
     last = (nops - 1).clamp(0, R + G - 1).long()[:, None]

@@ -283,6 +283,17 @@ __device__ __forceinline__ int dp(Planes& P, int sl, unsigned mask,
   return best;
 }
 
+// The current device's opt-in limit of a block's dynamic shared memory:
+// a kernel whose pair does not fit it keeps its rows in device memory.
+inline cudaError_t smem_optin(int* optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e;
+}
+
 // Threads per block for a launch of B pairs on `lanes` lanes each, at
 // most max_threads: halved (down to one warp) while some SM would get
 // no block or the pairs' shared memory does not fit a block. Sets the

@@ -327,11 +327,8 @@ cs_traceback_kernel(const uint8_t* __restrict__ genome,
 // layers and step codes do not fit a block (the GLOBAL kernel).
 cudaError_t prepare(int B, int G, int R, int* threads, int* smem,
                     bool* global) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = banded::smem_optin(&optin);
   if (e != cudaSuccess) return e;
   *global = pair_bytes(G, R) > optin;
   if (*global) {
@@ -374,7 +371,8 @@ extern "C" int cs_traceback_launch(const void* genome, const void* qr,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int pairs = threads / 32;
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  auto kernel = global ? cs_traceback_kernel<true> : cs_traceback_kernel<false>;
+  auto kernel = global ? cs_traceback_kernel<true>
+                       : cs_traceback_kernel<false>;
   kernel<<<(B + pairs - 1) / pairs, threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(genome), static_cast<const uint8_t*>(qr),

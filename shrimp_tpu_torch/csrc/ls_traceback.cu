@@ -353,7 +353,8 @@ extern "C" int ls_traceback_launch(const void* genome, const void* read,
   if (global && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  auto kernel = global ? ls_traceback_kernel<true> : ls_traceback_kernel<false>;
+  auto kernel = global ? ls_traceback_kernel<true>
+                       : ls_traceback_kernel<false>;
   kernel<<<(B + pairs - 1) / pairs, 32 * pairs, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(genome), static_cast<const uint8_t*>(read),
@@ -391,7 +392,8 @@ extern "C" int ls_traceback_config(int B, int G, int R, void* out) {
   bool global = false;
   cudaError_t e = prepare(B, G, R, &pairs, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto kernel = global ? ls_traceback_kernel<true> : ls_traceback_kernel<false>;
+  auto kernel = global ? ls_traceback_kernel<true>
+                       : ls_traceback_kernel<false>;
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -433,7 +433,7 @@ __host__ __device__ inline long long wide_row_ints(int G) {
 }
 // bytes of one pair's shared memory in the wide kernel: the row buffers
 // and the genome window
-inline long long wide_pair_bytes(int G) {
+__host__ __device__ inline long long wide_pair_bytes(int G) {
   return 4 * wide_row_ints(G) + ((G + 15) & ~15);
 }
 
@@ -699,18 +699,16 @@ sw_cs_full_wide_kernel(const uint8_t* __restrict__ genome,
   }
 }
 
-// The wide kernel's launch for B pairs of G columns: threads per block
-// (banded::prepare: PAIRS warps, halved while some SM would get no
-// block or the pairs' shared memory does not fit a block), its dynamic
-// shared memory, and whether the row buffers go to device memory (one
-// pair's do not fit a block); sets the shared memory limit above 48 KB.
+// The wide kernel's launch for B pairs of G columns: threads per block,
+// its dynamic shared memory, and whether the row buffers go to device
+// memory (one pair's do not fit a block); sets the shared memory limit
+// above 48 KB. A block holds one pair while its rows are in shared
+// memory: a pair takes 34 KB at G = 352, and four to a block left one
+// block (4 warps) on an SM where six single-pair blocks fit.
 cudaError_t wide_prepare(int B, int G, int* threads, int* smem,
                          bool* global) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = banded::smem_optin(&optin);
   if (e != cudaSuccess) return e;
   *global = wide_pair_bytes(G) > optin;
   if (*global) {
@@ -720,9 +718,8 @@ cudaError_t wide_prepare(int B, int G, int* threads, int* smem,
   }
   const decltype(&sw_cs_full_wide_kernel<false>) ks[] = {
       sw_cs_full_wide_kernel<false>};
-  return banded::prepare(ks, B, 32, 32 * PAIRS,
-                         static_cast<int>(wide_pair_bytes(G)), threads,
-                         smem);
+  return banded::prepare(ks, B, 32, 32, static_cast<int>(wide_pair_bytes(G)),
+                         threads, smem);
 }
 
 cudaError_t launch_wide(const void* const* in, void* bp, void* stats,

@@ -175,11 +175,8 @@ sw_full_bp_kernel(const uint8_t* __restrict__ genome,
 // a block (the GLOBAL instances, no dynamic shared memory).
 cudaError_t prepare(int B, int G, int R, int* pairs, int* smem,
                     bool* global) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = banded::smem_optin(&optin);
   if (e != cudaSuccess) return e;
   *global = BpPlanes::bytes(G, R) > optin;
   int threads = 32;

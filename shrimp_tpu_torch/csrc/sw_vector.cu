@@ -272,11 +272,8 @@ int launch(const void* genome, const void* g_row0, const void* glen,
 // whether H and F go to device memory (they do not fit a block); sets the
 // shared memory limit above 48 KB.
 cudaError_t wide_prepare(int G, int* smem, bool* global) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = banded::smem_optin(&optin);
   if (e != cudaSuccess) return e;
   *global = wide_smem(G) > optin;
   *smem = *global ? 0 : static_cast<int>(wide_smem(G));

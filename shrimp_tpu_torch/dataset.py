@@ -13,7 +13,8 @@ SOLiD pairs. All are the
 generators of those scripts without their on-disk caches. Long reads
 (`ecoli_unpaired_ls_long`, no counterpart in the bench scripts): the
 same genome, 250 bp reads with substitutions and, in one read of ten,
-a short indel. The indexes are built with the port's
+a short indel; in colour space (`ecoli_unpaired_cs_long`) the same,
+on the `ecoli-cs` index. The indexes are built with the port's
 `index.build.build_index`.
 
 Human-genome candidate density (`hg_bin`, `hg_reads`, `hg_pairs`):
@@ -141,6 +142,52 @@ def ecoli_unpaired_cs(n_reads: int, seed: int = SEED
         for _ in range(int(rng.integers(0, 3))):
             lets[int(rng.integers(READ_LEN + 1))] = rng.integers(4)
         reads.append(SeqRecord(f"c{k}", _to_cs(lets)))
+    return idx, reads
+
+
+def ecoli_unpaired_cs_long(n_reads: int, read_len: int = 250,
+                           seed: int = SEED
+                           ) -> Tuple[GenomeIndex, List[SeqRecord]]:
+    """(colour-space index, reads) of the long-read colour-space workload:
+    the genome and index of `ecoli_unpaired_cs`, `n_reads` SOLiD reads of
+    a `T` primer and `read_len` colours, from letters with 0-4
+    substitutions; every tenth read (k % 10 == 9) also carries an
+    insertion or a deletion of 1-3 bp, and odd reads come from the
+    reverse strand. Map with `MapperConfig(mode="cs")` and a
+    `longest_read_len` of at least `read_len` (the default, 1000, takes
+    reads up to 1000 colours): windows of G = 352 at 250 colours, 1408
+    at 1000."""
+    codes = np.random.default_rng(seed).integers(0, 4, GENOME_LEN).astype(
+        np.uint8)
+    idx = build_index([("ecoli_synth2", codes)],
+                      default_seeds(mode=C.MODE_COLOUR_SPACE),
+                      mode=C.MODE_COLOUR_SPACE)
+    rng = np.random.default_rng(seed + read_len)
+    span = read_len + 3
+    pos = rng.integers(0, GENOME_LEN - span, n_reads)
+    src = codes[pos[:, None] + np.arange(span)[None, :]]
+    lets = src[:, :read_len].copy()
+    for k in range(9, n_reads, 10):
+        d = int(rng.integers(1, 4))
+        cut = int(rng.integers(20, read_len - 20))
+        if rng.integers(0, 2):      # deletion: skip d genome bases
+            lets[k, cut:] = src[k, cut + d:read_len + d]
+        else:                       # insertion of d random bases
+            lets[k, cut + d:] = src[k, cut:read_len - d]
+            lets[k, cut:cut + d] = rng.integers(0, 4, d)
+    nmut = rng.integers(0, 5, n_reads)
+    for j in range(4):
+        rows = np.nonzero(nmut > j)[0]
+        lets[rows, rng.integers(0, read_len, len(rows))] = \
+            rng.integers(0, 4, len(rows)).astype(np.uint8)
+    odd = np.arange(n_reads) % 2 == 1
+    lets[odd] = 3 - lets[odd, ::-1]
+    cm = C.COLOUR_MAT
+    cols = np.concatenate([cm[3, lets[:, :1]], cm[lets[:, :-1], lets[:, 1:]]],
+                          axis=1)
+    text = np.frombuffer(b"0123", np.uint8)[cols].tobytes().decode()
+    reads = [SeqRecord(f"c{k}", "T" + text[k * read_len:(k + 1) * read_len])
+             for k in range(n_reads)]
     return idx, reads
 
 

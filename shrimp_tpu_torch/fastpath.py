@@ -27,9 +27,9 @@ Port of the flows of `shrimp_tpu/fastpath.py`:
 device. Arguments go up on packed IO where `_packed_io` allows it (16 B a
 window, 4-bit reads), else as [B, 10] int32 rows with a byte read table
 (more than 2^16 read rows); the windows come from the mapper's word plane
-or, where it has none (planes over ~1 Gbp), byte by byte. The windows
-may be of any width (the traceback flow's kernels take any G); an index
-of 2^31 bases or more raises NotImplementedError. The host stages run through the port's own native
+or, where it has none (planes over ~1 Gbp), byte by byte. Windows may
+be of any width; an index of 2^31 bases or more raises
+NotImplementedError. The host stages run through the port's own native
 library (`native/`, a copy of the reference's C++), so the SAM bytes are
 the reference's. The mesh tiers (`parallel/meshmap.py`) plug in through
 the seams the reference has: `FastLS.dispatch_fn` (a `_fused_dispatch`
@@ -315,6 +315,18 @@ def _tb_batch(R: int, G: int) -> int:
     return max(8, min(FULL_BATCH, (1 << 28) // max(R * G, 1)))
 
 
+def _vec_batch(R: int, G: int) -> int:
+    """Windows per vec-only launch of the traceback flow's two-phase
+    dispatch: at least the fused launch's `_tb_batch`, and up to 1,024
+    (at most 2^28 bytes of windows and read rows). That launch keeps no
+    backpointers, so the 2^28-cell rule need not bind it: at G = 4,224 it
+    gives 21 rows, and a 3,000 bp read's hundred-odd windows would take
+    thousands of launches. Under 2,048 rows the launch pads to the next
+    power of two of its windows (`_chunk_bucket`)."""
+    return max(_tb_batch(R, G),
+               min(FULL_BUCKETS[0] // 2, (1 << 28) // max(G + R, 1)))
+
+
 def _packed_io(G: int, R: int, w_max: int, n_rows: int) -> bool:
     """Whether a batch fits the packed-IO flow's bit fields (G and R up
     to 4095, window lengths under 2^14, at most 2^16 read rows), as the
@@ -392,10 +404,10 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
     At LS_TWO_PHASE_WPR or more windows per read of the `n_reads` reads
     (None: never) the dispatch takes two phases, as the reference's
     does: here the vector SW alone, up to LS_VEC_BATCH rows a launch
-    (futures hold (vec,)), and `win["two_phase"]` keeps what
-    `_tp_run_full` needs to run the full SW later on the pass-1
-    survivors only. A row's results do not depend on the launch it is
-    in, so both ways give the same bytes."""
+    (`_vec_batch` rows in the traceback flow; futures hold (vec,)), and
+    `win["two_phase"]` keeps what `_tp_run_full` needs to run the full
+    SW later on the pass-1 survivors only. A row's results do not depend
+    on the launch it is in, so both ways give the same bytes."""
     cfg = m.config
     sc = cfg.scores
     _check_index_len(m.index)
@@ -420,7 +432,7 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
                  and n >= LS_TWO_PHASE_WPR * max(n_reads, 1))
     eff_batch = LS_VEC_BATCH if two_phase else FULL_BATCH
     if not stats_flow:
-        eff_batch = _tb_batch(R, G)
+        eff_batch = _vec_batch(R, G) if two_phase else _tb_batch(R, G)
     futures = []
     off = 0
     while off < n:

@@ -316,16 +316,3 @@ def test_sw_full_cs_dispatch_matches_reference(local, taboo):
               "deletions", "crossovers", "qr"):
         assert (np.asarray(getattr(got, f))
                 == np.asarray(getattr(want, f))).all(), f
-
-
-def test_cuda_window_past_the_width_gap_names_its_reads(tmp_path):
-    """On CUDA, colour-space windows over 256 columns raise naming their
-    reads before any launch; on the CPU the plain versions take them."""
-    idx, pidx, recs = _cs_data(tmp_path, n_reads=6)
-    m = Mapper(pidx, PortConfig(mode=CS), "cpu")
-    m.device = torch.device("cuda")       # the check reads only the type
-    with pytest.raises(NotImplementedError,
-                       match=r"reads \['r1'\].*G <= 256"):
-        m._check_width(288, 256, lambda: [("r0", 200), ("r1", 270)],
-                       "colour-space full SW")
-    m._check_width(256, 256, lambda: [("r1", 256)], "colour-space full SW")

@@ -428,15 +428,3 @@ def test_index_of_2_31_bases_raises(tmp_path, monkeypatch):
                            match=r"reads 0\.\.31: an index of 2147483648 "
                                  r"bases.*2\^31"):
             stream(m, [SeqRecord(n, s) for n, s in rds], batch_size=32)
-
-
-def test_windows_past_max_g_long_raise(tmp_path):
-    """Reads whose windows pass the long-read kernels' G <= 4095 raise
-    on every device (the packed-IO bit fields and the kernels' limit)."""
-    _, _, g, reads = make_dataset(str(tmp_path), n_reads=4, read_len=3000,
-                                  genome_len=20_000)
-    idx = build_index([("chr_test", encode.encode_ls(g))], default_seeds())
-    m = Mapper(idx, MapperConfig(longest_read_len=4000), "cpu")
-    with pytest.raises(NotImplementedError, match=r"G=4224.*G <= 4095"):
-        fastpath.map_unpaired_sam_stream(
-            m, [SeqRecord(n, s) for n, s in reads], batch_size=4)

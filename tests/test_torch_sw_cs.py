@@ -327,6 +327,52 @@ def test_cuda_cs_kernels_match_plain(local, taboo, B, R, G):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,R,G,walks", [
+    pytest.param(1024, 256, 352, (256, 256, 352), id="g352"),
+    pytest.param(64, 1000, 1408, (16, 1000, 1408), id="g1408"),
+    pytest.param(8, 64, 110_592, (4, 16, 115_200),
+                 id="g110592-device-memory")])
+def test_cuda_cs_kernels_match_plain_past_256(B, R, G, walks):
+    """The 4-layer DP and the traceback on the card against their plain
+    versions (tolerance 0) on windows past the strip kernel's 256
+    columns: the launches of 250- and 1000-colour reads, and a width past
+    both kernels' shared-memory fit (the DP's row buffers in device
+    memory, the traceback's window, layers and steps read and written in
+    place); global and local, taboo 0 and 4, a quarter of the pairs at
+    the edge bands; the traceback also on dataset.cs_walk_pairs at
+    `walks`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from shrimp_tpu_torch import _build
+    dev = torch.device("cuda", 0)
+    past = G > 100_000
+    with torch.cuda.device(dev):
+        assert (_build.scratch("sw_cs_full", B, G, R, dev) is not None
+                ) == past
+    a = _dp_inputs(G + R, B, G, R, edge=True)
+    args = [torch.from_numpy(a[k]).to(dev) for k in _DP_ORDER]
+    thresh = torch.from_numpy(a["thresh"]).to(dev)
+    for local, taboo in ((False, 0), (False, 4), (True, 0), (True, 4)):
+        kw = dict(KW, local_alignment=local, indel_taboo_len=taboo)
+        got = sw_cs_full.sw_full_cs_dp(*args, **kw)
+        want = sw_cs_full.sw_full_cs_dp_ref(*args, **kw)
+        for x, w in zip(got[:5], want[:5]):
+            assert torch.equal(x, w)
+        assert torch.equal(got[5].to(torch.int32), want[5])
+        tb = (args[0], args[2], *got, thresh)
+        for x, w in zip(sw_cs_full.cs_traceback(*tb),
+                        sw_cs_full.cs_traceback_ref(*tb)):
+            assert torch.equal(x, w)
+    Bw, Rw, Gw = walks
+    w = cs_walk_pairs(np.random.default_rng(Gw), Bw, Rw, Gw)
+    tb = [torch.from_numpy(w[k]).to(dev) for k in (
+        "genome", "qr", "best", "bi", "bj", "bk", "bfrm", "bp", "thresh")]
+    for x, y in zip(sw_cs_full.cs_traceback(*tb),
+                    sw_cs_full.cs_traceback_ref(*tb)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_cuda_cs_traceback_refuses_unaligned():
     """The traceback kernel copies in 16- and 4-byte pieces: G not a
     multiple of 8, backpointers off a 16-byte boundary and windows off a
