@@ -226,8 +226,13 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    the CS traceback on dataset.cs_walk_pairs; then one shape per kernel
    past its shared-memory fit, where its device-memory path runs
    (asserted from its launch configuration and scratch size): CS at
-   (8, 64, 110,592) (walks at (4, 16, 115,200)), LS at (4, 256, 182,272).
-   Prints launch configurations, times and bounds. (b) Three slices, each
+   (8, 64, 110,592) (walks at (4, 16, 115,200)), the LS full SW and
+   traceback at (4, 256, 182,272), the vector SW, whose edge buffers grow
+   with R, at (2, 4000, 5632); and the tiled vector SW and the wide
+   4-layer DP at the geometries of their launches (1, 47 and 1,024
+   pairs: several warps a pair, or one), with glen on and next to tile,
+   warp and chunk borders and rlen < R. Prints launch configurations,
+   times and bounds. (b) Three slices, each
    with its launch counts set to 0 just before and read just after, every
    launch's G past 256, at least 95 % of reads mapped, alignments with
    indels, reads/s, stage seconds and peak device memory, and the SAM of
@@ -237,7 +242,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fastpath_cs.map_unpaired_cs_sam_stream, WIDE_CS1000_READS of 1,000
    colours through Mapper.map_unpaired, WIDE_LS_READS LS reads of 3,000 bp
    (dataset.ecoli_unpaired_ls_long, longest_read_len 4000) through
-   fastpath.map_unpaired_sam_stream (the unpacked traceback flow).
+   fastpath.map_unpaired_sam_stream (the unpacked traceback flow). Each
+   slice's first launch of the vector SW and the 4-layer DP is held
+   against the plain version, with its device time and bound.
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -3879,6 +3886,16 @@ def run_split_workflow(dev, smi):
 WIDE_CS_SHAPES = ((1024, 256, 352), (64, 1000, 1408), (8, 64, 110_592))
 WIDE_CS_WALKS = ((64, 256, 352), (4, 1000, 1408), (4, 16, 115_200))
 WIDE_LS_SHAPES = ((32, 3000, 4224), (4, 256, 182_272))
+# The two wide kernels' geometries: one pair (8 warps of tiles, 16 column
+# groups), the 1,000-colour generic mapper's 47 rows and the 3,000 bp
+# slice's 1,024 (a warp a pair) for the tiled vector SW, LS or CS; one
+# and 47 pairs for the 4-layer DP. The tiled vector SW's edge buffers grow
+# with R (8 bytes a row a warp), not with G, so its device-memory path
+# runs at WIDE_VEC_PAST_FIT (8 warps x 4,000 rows: 256 KB a pair).
+WIDE_VEC_REGIMES = ((1, 3000, 4224, False), (1024, 3000, 4224, False),
+                    (1, 1000, 1408, True), (47, 1000, 1408, True))
+WIDE_DP_REGIMES = ((1, 1000, 1408), (47, 1000, 1408))
+WIDE_VEC_PAST_FIT = (2, 4000, 5632)
 # (b) the slices, each with the reads its CPU run maps again
 WIDE_CS_READS, WIDE_CS_CPU_READS = 20_000, 64
 WIDE_CS1000_READS, WIDE_CS1000_CPU_READS = 1024, 8
@@ -3898,6 +3915,86 @@ def _with_cs_long_gaps(a, rng, lo, n):
     a["qr"][lo + np.arange(n), k0] = gap.pop("read")
     for k, v in gap.items():
         a[k][lo:lo + n] = v
+
+
+def _tile_edges(a, rng, G, R, lo):
+    """Rows from `lo` of the pairs `a` (numpy glen and rlen): glen on and
+    next to the borders of the tiled vector SW's 352-column tiles (a
+    warp's border is a tile's) and of the 4-layer DP's 32-column chunks,
+    with rlen below R."""
+    vals = [v for t in (352, 704, 1056, 32, 160) for v in (t - 1, t, t + 1)
+            if 1 <= v <= G]
+    n = max(0, min(len(vals), len(a["glen"]) - lo))
+    a["glen"][lo:lo + n] = vals[:n]
+    a["rlen"][lo:lo + n] = rng.integers(max(1, R // 2), R, n)
+
+
+def _one_pair(a):
+    """The second pair of the pairs `a` alone (the first is a pad row or
+    an unaligned read; the second's read follows its window)."""
+    return {k: np.ascontiguousarray(v[1:2]) for k, v in a.items()}
+
+
+def check_wide_regimes(dev, err_of):
+    """Phase 24 (a): the tiled vector SW and the wide 4-layer DP at the
+    geometries of their launches (WIDE_VEC_REGIMES, WIDE_DP_REGIMES:
+    several warps a pair, a warp a pair), with glen on and next to tile,
+    warp and chunk borders, rlen < R, pad rows, edge bands and gaps of
+    33-120 columns, and the vector SW past its shared-memory fit, against
+    the plain versions (tolerance 0); the largest errors go to `err_of`."""
+    from shrimp_tpu_torch.core import sw_cs_full, sw_vector
+    rng = np.random.default_rng(20261024)
+    vkw = dict(CS_KW, mismatch=CS_KW["match"] + XOVER)
+    keys = ("genome", "glen", "read", "rlen")
+    for B, R, G, cs in WIDE_VEC_REGIMES + (WIDE_VEC_PAST_FIT + (False,),
+                                           WIDE_VEC_PAST_FIT + (True,)):
+        n = max(2, B)
+        pads = max(1, n // 16)
+        if cs:
+            a = _cs_vec_pairs(rng, n, G, R, pads=pads)
+        else:
+            a = _long_pairs(rng, n, G, R, pads=pads)
+            _with_long_gaps(a, rng, n // 2, max(1, n // 8))
+        _tile_edges(a, rng, G, R, n - min(n // 4, 15))
+        if B == 1:
+            a = _one_pair(a)
+        name = "sw_vector_cs" if cs else "sw_vector"
+        path = _past_fit("sw_vector", B, G, R)
+        if (path == "device") != ((B, R, G) == WIDE_VEC_PAST_FIT):
+            raise AssertionError(f"sw_vector ({B}, {R}, {G}): {path} path")
+        v = tuple(torch.from_numpy(a[k]).to(dev)
+                  for k in keys + (("g_row0",) if cs else ()))
+        kw = vkw if cs else KW
+        got = sw_vector.sw_vector_batch(*v, cs_mode=cs, **kw)
+        want = sw_vector.sw_vector_batch_ref(*v, cs_mode=cs, **kw)
+        err = _err([got], [want])
+        err_of[name] = max(err_of[name], err)
+        print(f"{name} B={B} G={G} R={R} ({path} path): max |kernel - "
+              f"plain| = {err}; best {int(want.max())}")
+        del v, got, want
+    for B, R, G in WIDE_DP_REGIMES:
+        n = max(2, B)
+        an = _cs_dp_pairs(rng, n, G, R, pads=max(1, n // 16))
+        _with_cs_long_gaps(an, rng, n // 2, max(1, n // 8))
+        _tile_edges(an, rng, G, R, n - min(n // 4, 15))
+        if B == 1:
+            an = _one_pair(an)
+        _past_fit("sw_cs_full", B, G, R)
+        dp = tuple(torch.from_numpy(an[k]).to(dev) for k in _DP_ORDER)
+        # both taboos and modes ran at (1024, 256, 352): two here, as for
+        # every R > 256
+        for local, taboo in ((False, 0), (True, 4)):
+            kw = dict(CS_KW, local_alignment=local, indel_taboo_len=taboo)
+            got = sw_cs_full.sw_full_cs_dp(*dp, **kw)
+            want = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
+            err = _err(got, want)
+            err_of["sw_cs_full"] = max(err_of["sw_cs_full"], err)
+            print(f"sw_cs_full B={B} G={G} R={R} local={local} "
+                  f"taboo={taboo}: max |kernel - plain| = {err}; best "
+                  f"{int(want[0].max())}")
+            del got, want
+        del dp
+        torch.cuda.empty_cache()
 
 
 def _past_fit(name, B, G, R, scratch=True) -> str:
@@ -4060,7 +4157,12 @@ def check_wide_kernels(dev):
     for (B, R, G), last in zip(WIDE_LS_SHAPES, (False, True)):
         where = {k: _past_fit(k, B, G, R)
                  for k in ("sw_vector", "sw_full_bp", "ls_traceback")}
-        if any((p == "device") != last for p in where.values()):
+        # the tiled vector SW's edge buffers grow with R, not G: they fit
+        # shared memory at both shapes (its device-memory path:
+        # check_wide_regimes)
+        path = "device" if last else "shared"
+        if where != dict(sw_vector="shared", sw_full_bp=path,
+                         ls_traceback=path):
             raise AssertionError(f"({B}, {R}, {G}): the LS kernels' path "
                                  f"is {where}")
         a = _long_pairs(rng, B, G, R, pads=max(1, B // 16))
@@ -4128,6 +4230,7 @@ def check_wide_kernels(dev):
               f"walks: {_walks(steps)}")
         del t, full, v4, want, tb
         torch.cuda.empty_cache()
+    check_wide_regimes(dev, err_of)
     for name, e in err_of.items():
         if e != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -4154,22 +4257,29 @@ def _small_cs_buckets():
 
 
 def _wide_slice(title, dev, smi, mapper, reads, stream, counters, n_cpu,
-                widths):
+                widths, checks):
     """One slice of phase 24 (b): `reads` through `stream` on the card
     (launch counts set to 0 just before, read just after), the G of every
     launch of each wrapper in `widths` ({name: (module, fn)}) wider than
     the old limit, at least 95 % of reads mapped, and the SAM of the first
-    `n_cpu` reads equal to the CPU run's. Returns the launches."""
+    `n_cpu` reads equal to the CPU run's. The run's first launch of each
+    wrapper named in `checks` ({name: (plain, bound, cs)}) is held against
+    the plain version, with its device time and bound (_check_captured).
+    Returns the launches."""
     _map(mapper(dev), reads[:max(n_cpu, 64)], stream)      # warm-up
     m = mapper(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.reset()
     gs = {k: set() for k in widths}
+    first = {}
     orig = {k: getattr(mod, fn) for k, (mod, fn) in widths.items()}
     for k, (mod, fn) in widths.items():
         def spy(genome, *a, _k=k, **kw):
             gs[_k].add(int(genome.shape[1]))
+            if _k in checks and _k not in first:
+                first[_k] = (tuple(x.clone() if torch.is_tensor(x) else x
+                                   for x in (genome, *a)), dict(kw))
             return orig[_k](genome, *a, **kw)
         setattr(mod, fn, spy)
     try:
@@ -4184,6 +4294,12 @@ def _wide_slice(title, dev, smi, mapper, reads, stream, counters, n_cpu,
               f"{m.stats.vec_invocs}")
     print(f"{title} stage seconds (summed over lanes): " + ", ".join(
         f"{k} {v!r}" for k, v in m.stats.stage_secs.items()))
+    # after the run's peak memory is read: the plain versions take more
+    for k, (plain, bound, cs) in checks.items():
+        args, kw = first.pop(k)
+        _check_captured(f"{k} ({title}, {launches[k]} launches)", args, kw,
+                        orig[k], plain, bound, cs, plain_reps=1,
+                        what="the slice's first launch")
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{title}: {k} not launched")
@@ -4212,6 +4328,14 @@ def _wide_slice(title, dev, smi, mapper, reads, stream, counters, n_cpu,
     return launches
 
 
+def _vec_plain(genome, glen, read, rlen, g_row0, **kw):
+    """The vector SW's plain version on the arguments of its wrapper's
+    launch function (sw_vector._launch: g_row0 None in letter space)."""
+    from shrimp_tpu_torch.core import sw_vector
+    return sw_vector.sw_vector_batch_ref(genome, glen, read, rlen, g_row0,
+                                         cs_mode=g_row0 is not None, **kw)
+
+
 def run_wide_slices(dev, smi):
     """Phase 24 (b): CS reads of 250 colours through the CS stream, of
     1000 colours through the generic mapper, LS reads of 3000 bp through
@@ -4227,6 +4351,8 @@ def run_wide_slices(dev, smi):
     # the wrappers' launch functions: every launch of the path passes one
     cs_widths = {"sw_vector_cs": (sw_vector, "_launch"),
                  "sw_cs_full": (sw_cs_full, "_launch_dp")}
+    vec_check = (_vec_plain, _vec_launch_bound, True)
+    dp_check = (sw_cs_full.sw_full_cs_dp_ref, _cs_dp_launch_bound, True)
     for n, n_cpu, read_len, stream, suffix in (
             (WIDE_CS_READS, WIDE_CS_CPU_READS, 250, _cs_stream, "_wide"),
             (WIDE_CS1000_READS, WIDE_CS1000_CPU_READS, 1000,
@@ -4242,7 +4368,9 @@ def run_wide_slices(dev, smi):
         ln = _wide_slice(
             f"24 CS {read_len} colours "
             + ("(stream)" if stream is _cs_stream else "(generic mapper)"),
-            dev, smi, mapper, reads, stream, cs_counters, n_cpu, cs_widths)
+            dev, smi, mapper, reads, stream, cs_counters, n_cpu, cs_widths,
+            (dict(sw_vector_cs=vec_check, sw_cs_full=dp_check)
+             if stream is _cs_stream else dict(sw_cs_full=dp_check)))
         launches.update({k + suffix: v for k, v in ln.items()})
         del idx, reads
     t0 = time.perf_counter()
@@ -4258,7 +4386,8 @@ def run_wide_slices(dev, smi):
         {"sw_vector": sw_vector.LAUNCHES, "sw_full_bp": sw_full.BP_LAUNCHES,
          "ls_traceback": sw_full.TB_LAUNCHES}, WIDE_LS_CPU_READS,
         {"sw_vector": (sw_vector, "_launch"),
-         "sw_full_bp": (sw_full, "_launch_bp")})
+         "sw_full_bp": (sw_full, "_launch_bp")},
+        dict(sw_vector=(_vec_plain, _vec_launch_bound, False)))
     launches.update({k + "_wide": v for k, v in ln.items()})
     return launches
 

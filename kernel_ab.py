@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""A/B timing of five of shrimp_tpu_torch's CUDA kernels against other
+"""A/B timing of six of shrimp_tpu_torch's CUDA kernels against other
 builds of the same entry points, on one NVIDIA GPU: the vector SW
-(csrc/sw_vector.cu, its narrow kernel in letter and colour space), the
-full-SW stats kernel (csrc/sw_full.cu), the full SW with backpointers
-(csrc/sw_full_bp.cu), the long-read traceback (csrc/ls_traceback.cu) and
-the colour-space traceback (csrc/cs_traceback.cu).
+(csrc/sw_vector.cu, its narrow kernel in letter and colour space and its
+tiled kernel for windows over 256 columns), the full-SW stats kernel
+(csrc/sw_full.cu), the full SW with backpointers (csrc/sw_full_bp.cu),
+the long-read traceback (csrc/ls_traceback.cu), the colour-space
+traceback (csrc/cs_traceback.cu) and the 4-layer colour-space DP's wide
+kernel (csrc/sw_cs_full.cu, windows over 256 columns).
 
 Run from the repository root:
 
     python3 kernel_ab.py [--src NAME=DIR ...] [--scaling] [--kernels K ...]
 
 It builds, with nvcc for sm_90a (shrimp_tpu_torch._build.build: one
-process per library, all started together), the package's five
+process per library, all started together), the package's six
 sources ("new") and those of each --src DIR (a directory holding the
-five sources and the headers they include: a parent commit's
+six sources and the headers they include: a parent commit's
 `shrimp_tpu_torch/csrc` unpacked with `git archive`, or an edited copy
 of the package's, under a gitignored directory such as `build/`). On
 seeded inputs from chip_smoke.py's generators (edge bands, pad rows,
@@ -28,9 +30,16 @@ back to back: the vector SW in letter space at (B, R, G) = (8192, 40,
 traceback at (2048, 36, 64) and (8192, 36, 128). The
 long-read traceback is also timed on the long-read flow's own first
 launch (8192 reads of dataset.ecoli_unpaired_ls_long, recorded where the
-flow calls the wrapper). --scaling adds the time of 1, 132 and 1056
-pairs (one pair is the latency floor). --kernels picks the groups to
-run (vector, stats, long, flow, cs_traceback; all by default). Prints
+flow calls the wrapper). The `wide` group times the two wide kernels at
+the long-read launches: the vector SW in letter space at (B, R, G) =
+(1024, 3000, 4224) (the 3,000 bp slice's vec-only launch), (32, 3000,
+4224) and (4096, 256, 352), in colour space at (1024, 256, 352), (47,
+1000, 1408) (the 1,000-colour generic mapper's launch) and (64, 1000,
+1408), and the 4-layer DP at those three colour-space shapes, global and
+local. --scaling adds the time of 1, 132 and 1056 pairs (one pair is the
+latency floor; the wide group at (R, G) = (3000, 4224) for the vector SW
+and (256, 352) for the DP). --kernels picks the groups to run (vector,
+stats, long, flow, cs_traceback, wide; all by default). Prints
 one line per kernel, shape and build, each build's launch
 configurations, the card's name and power limit, and a JSON line of
 every time.
@@ -48,13 +57,17 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("sw_vector.cu", "sw_full.cu", "sw_full_bp.cu",
-           "ls_traceback.cu", "cs_traceback.cu")
+           "ls_traceback.cu", "cs_traceback.cu", "sw_cs_full.cu")
 # (B, R, G, colour space) of the vector SW
 VEC_SHAPES = ((8192, 40, 64, False), (8192, 40, 128, False),
               (8192, 40, 256, False), (2048, 36, 64, True))
 CS_TB_SHAPES = ((2048, 36, 64), (8192, 36, 128))
 STATS_SHAPES = ((8192, 40, 64), (8192, 40, 128), (8192, 40, 256))
 LONG_SHAPES = ((4096, 256, 352), (256, 1000, 1408))
+# (B, R, G) of the wide group: the vector SW in letter space; the vector
+# SW in colour space and the 4-layer DP
+WIDE_LS_SHAPES = ((1024, 3000, 4224), (32, 3000, 4224), (4096, 256, 352))
+WIDE_CS_SHAPES = ((1024, 256, 352), (47, 1000, 1408), (64, 1000, 1408))
 # pairs per launch of --scaling, below the main shapes' B
 SCALING_N = (1, 132, 1056)
 
@@ -64,7 +77,18 @@ def _stream():
 
 
 # The launches below pass no device-memory scratch (the last argument,
-# None): the shapes this script times fit shared memory.
+# None) but the wide group's, which asks each build for its size: the
+# other shapes this script times fit shared memory.
+
+
+def _scratch(lib, kernel, B, G, R, dev):
+    """A build's device-memory scratch for a launch, or None."""
+    out = ctypes.c_longlong(0)
+    rc = getattr(lib, f"{kernel}_scratch")(B, G, R, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel}_scratch: cudaError {rc}")
+    return (None if out.value == 0
+            else torch.empty(out.value, dtype=torch.uint8, device=dev))
 
 
 def _stats_call(lib, full, out, local, kw):
@@ -99,7 +123,7 @@ def _tb_call(lib, tb, packed, ops):
         raise RuntimeError(f"ls_traceback_launch: cudaError {rc}")
 
 
-def _vec_call(lib, v, out, kw):
+def _vec_call(lib, v, out, kw, scratch=None):
     B, G = v[0].shape
     R = v[2].shape[1]
     rc = lib.sw_vector_launch(
@@ -108,9 +132,27 @@ def _vec_call(lib, v, out, kw):
         B, G, R, kw["match"], kw["mismatch"],
         -kw["a_gap_open"] - kw["a_gap_ext"], -kw["a_gap_ext"],
         -kw["b_gap_open"] - kw["b_gap_ext"], -kw["b_gap_ext"], _stream(),
-        None)
+        None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"sw_vector_launch: cudaError {rc}")
+
+
+def _dp_call(lib, dp, st, bp, kw, scratch):
+    """The 4-layer DP on the inputs of chip_smoke._DP_ORDER."""
+    g, glen, qr, rlen, ax, ay, alen, awid, rev, xover, gx = dp
+    B, G = g.shape
+    R = qr.shape[2]
+    rc = lib.sw_cs_full_launch(
+        g.data_ptr(), qr.data_ptr(), xover.data_ptr(), gx.data_ptr(),
+        glen.data_ptr(), rlen.data_ptr(), ax.data_ptr(), ay.data_ptr(),
+        alen.data_ptr(), awid.data_ptr(), rev.data_ptr(), bp.data_ptr(),
+        st.data_ptr(), B, G, R, kw["match"], kw["mismatch"],
+        -kw["a_gap_open"], -kw["a_gap_ext"], -kw["b_gap_open"],
+        -kw["b_gap_ext"], int(kw["local_alignment"]),
+        int(kw["indel_taboo_len"]), _stream(),
+        None if scratch is None else scratch.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"sw_cs_full_launch: cudaError {rc}")
 
 
 def _cs_tb_call(lib, tb, packed, steps):
@@ -358,19 +400,103 @@ def ab_flow_traceback(dev, libs, rec):
         libs, lambda lib: _tb_call(lib, tb, packed, ops), 10), rec)
 
 
-GROUPS = ["vector", "cs_traceback", "stats", "long", "flow"]
+def _wide_vec(dev, libs, rec, name, v, kw, cmode, shape):
+    """Checks every build's tiled vector SW on `v` against the plain
+    version, then times them."""
+    from shrimp_tpu_torch.core import sw_vector
+    B, R, G = shape
+    want = sw_vector.sw_vector_batch_ref(*v, cs_mode=cmode, **kw)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    # each build's scratch, by the identity of its library
+    scr = {id(lib): _scratch(lib, "sw_vector", B, G, R, dev)
+           for lib in libs.values()}
+    for n, lib in libs.items():
+        out.fill_(-7)
+        _vec_call(lib, v, out, kw, scr[id(lib)])
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name} {n} {shape}: "
+                                 f"{int((out != want).sum())} differ")
+    print(f"{name} {shape}: every build equals the plain version")
+    _report(name, shape, _turns(
+        libs, lambda lib: _vec_call(lib, v, out, kw, scr[id(lib)]), 5), rec)
+
+
+def ab_wide(dev, libs, rec, scaling):
+    """The tiled vector SW (letter and colour space) and the 4-layer DP's
+    wide kernel at the long-read launches, global and local."""
+    import chip_smoke as cs
+    from shrimp_tpu_torch.core import sw_cs_full
+    rng = np.random.default_rng(20261023)
+    keys = ("genome", "glen", "read", "rlen")
+    ls_shapes = list(WIDE_LS_SHAPES)
+    if scaling:
+        ls_shapes += [(n, 3000, 4224) for n in SCALING_N]
+    for B, R, G in ls_shapes:
+        a = cs._long_pairs(rng, B, G, R, pads=max(1, B // 16))
+        cs._with_long_gaps(a, rng, B // 2, max(1, B // 8))
+        v = tuple(torch.from_numpy(a[k]).to(dev) for k in keys)
+        _wide_vec(dev, libs, rec, "sw_vector_wide", v, cs.KW, False,
+                  (B, R, G))
+        del v, a
+    vkw = dict(cs.CS_KW, mismatch=cs.CS_KW["match"] + cs.XOVER)
+    dp_shapes = list(WIDE_CS_SHAPES)
+    if scaling:
+        dp_shapes += [(n, 256, 352) for n in SCALING_N]
+    for B, R, G in dp_shapes:
+        pads = max(1, B // 16)
+        if (B, R, G) in WIDE_CS_SHAPES:
+            vn = cs._cs_vec_pairs(rng, B, G, R, pads=pads)
+            v = tuple(torch.from_numpy(vn[k]).to(dev)
+                      for k in keys + ("g_row0",))
+            _wide_vec(dev, libs, rec, "sw_vector_cs_wide", v, vkw, True,
+                      (B, R, G))
+            del v, vn
+        an = cs._cs_dp_pairs(rng, B, G, R, pads=pads)
+        cs._with_cs_long_gaps(an, rng, B // 2, max(1, B // 8))
+        dp = tuple(torch.from_numpy(an[k]).to(dev) for k in cs._DP_ORDER)
+        st = torch.empty((5, B), dtype=torch.int32, device=dev)
+        bp = torch.empty((B, R, 4, G), dtype=torch.int16, device=dev)
+        scr = {id(lib): _scratch(lib, "sw_cs_full", B, G, R, dev)
+               for lib in libs.values()}
+        for local, taboo in ((True, 4), (False, 0)):   # global last
+            kw = dict(cs.CS_KW, local_alignment=local,
+                      indel_taboo_len=taboo)
+            want = sw_cs_full.sw_full_cs_dp_ref(*dp, **kw)
+            for n, lib in libs.items():
+                st.fill_(-7)
+                bp.fill_(0x3EE)
+                _dp_call(lib, dp, st, bp, kw, scr[id(lib)])
+                torch.cuda.synchronize()
+                if not (torch.equal(st, torch.stack(want[:5]))
+                        and torch.equal(bp, want[5])):
+                    raise AssertionError(f"sw_cs_full_wide {n} {(B, R, G)} "
+                                         f"local={local}: differs")
+            del want
+            print(f"sw_cs_full_wide {(B, R, G)} local={local} taboo={taboo}:"
+                  f" every build equals the plain version")
+            _report(f"sw_cs_full_wide[{'local' if local else 'global'}]",
+                    (B, R, G), _turns(libs, lambda lib: _dp_call(
+                        lib, dp, st, bp, kw, scr[id(lib)]), 3),
+                    rec)
+        del dp, st, bp, scr, an
+        torch.cuda.empty_cache()
+
+
+GROUPS = ["vector", "cs_traceback", "stats", "long", "flow", "wide"]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", action="append", default=[],
-                    help="NAME=DIR: the five sources in DIR as one more "
+                    help="NAME=DIR: the six sources in DIR as one more "
                          "build")
     ap.add_argument("--scaling", action="store_true",
                     help="also time every build on the first pairs of the "
-                         "main shapes (sw_vector, sw_full_stats) and on the "
+                         "main shapes (sw_vector, sw_full_stats), on the "
                          "pairs with the longest walks (ls_traceback, "
-                         "cs_traceback): 1, 132, 1056")
+                         "cs_traceback) and on launches of that many "
+                         "wide pairs: 1, 132, 1056")
     ap.add_argument("--kernels", nargs="+", choices=GROUPS, default=GROUPS,
                     help="the groups to run (all by default)")
     args = ap.parse_args()
@@ -399,7 +525,9 @@ def main() -> None:
                 ("cs_traceback", "cs_traceback_config", CS_TB_SHAPES),
                 ("stats", "sw_full_stats_config", STATS_SHAPES),
                 ("long", "sw_full_bp_config", LONG_SHAPES),
-                ("long", "ls_traceback_config", LONG_SHAPES)):
+                ("long", "ls_traceback_config", LONG_SHAPES),
+                ("wide", "sw_vector_config", WIDE_LS_SHAPES + WIDE_CS_SHAPES),
+                ("wide", "sw_cs_full_config", WIDE_CS_SHAPES)):
             if group not in args.kernels or not hasattr(lib, entry):
                 continue
             for B, R, G in shapes:

@@ -46,14 +46,18 @@
 // out-of-band cells take their init values as in the reference.
 //
 // Windows wider than 256 (CS reads over about 180 colours: G = 352 at
-// 250 colours, 1408 at 1000) take a second kernel, one warp per pair,
-// whose strip length is not a compile-time constant: its lanes run over
-// 32 consecutive columns of one layer at a time, and the W chain is a
-// 5-step max scan over each such chunk on top of the running max the
-// chunk before carries in (sw_cs_full_wide_kernel, below). Its row
-// buffers, 96 bytes a column, sit in shared memory up to about 2,400
-// columns (the 227 KB a block can opt into), in a device-memory scratch
-// that the caller allocates past that.
+// 250 colours, 1408 at 1000) take a second kernel, a block of up to 16
+// warps per pair, a lane per column in all four layers
+// (sw_cs_full_wide_kernel, below). A row computes only the 32-column
+// chunks that meet its band and the columns the next row reads, split
+// among the warps; the rest of its backpointers are zeros. Each source
+// layer's NW trio and N pair of candidates is scanned once per column
+// and merged for the four layers, the N candidates' column j comes
+// from the right-hand lane by shuffle, and the W chain crosses warps as
+// each warp's maximum of its terms, combined after a block barrier.
+// Its row buffers and pass 1's from-codes, about 105 bytes a column, sit
+// in shared memory up to about 2,200 columns (the 227 KB a block can opt
+// into), in a device-memory scratch that the caller allocates past that.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -431,30 +435,97 @@ sw_cs_full_kernel(const uint8_t* __restrict__ genome,
 __host__ __device__ inline long long wide_row_ints(int G) {
   return 2LL * 12 * (G + 1);
 }
-// bytes of one pair's shared memory in the wide kernel: the row buffers
-// and the genome window
+// bytes of one pair's working set in device memory: the row buffers and
+// pass 1's from-codes (int16, 4 layers x G)
+__host__ __device__ inline long long wide_scratch_bytes(int G) {
+  return 4 * wide_row_ints(G) + 16LL * ((G + 1) / 2);
+}
+// bytes of one pair's shared memory: that working set and the window
 __host__ __device__ inline long long wide_pair_bytes(int G) {
-  return 4 * wide_row_ints(G) + ((G + 15) & ~15);
+  return wide_scratch_bytes(G) + ((G + 15) & ~15);
 }
 
-// The 4-layer DP of one pair on one warp, for any G: the recurrence and
-// the candidate order of sw_cs_full_kernel, with the lanes over columns
-// instead of strips. A row runs layer by layer; a layer runs in chunks
-// of 32 consecutive columns, lane l on column j0 + l: NW and N from the
-// previous row of all four layers (cells out of band take their init
-// values without a scan), then the W chain a_j + j*gea as an inclusive
-// __shfl_up_sync max scan over the chunk, on top of the running max
-// that the chunk before carries in (FILL at column 0); the left
-// neighbour's nw and raw w come by shuffle, column -1's are the pad
-// column's. Each lane keeps its best cell (value larger, then j smaller,
-// then k smaller), reduced over the warp once a row. The backpointers
-// leave in 64-byte warp stores of a layer's row, which runs contiguous
-// in [B, R, 4, G]. ROWS: the two row buffers; they and the window sit
-// in shared memory while one pair fits a block (GLOBAL false), past that
-// in a device-memory scratch of wide_row_ints(G) int32 a pair, the
-// window read from device memory.
-template <bool GLOBAL>
-__global__ void __launch_bounds__(32 * PAIRS)
+// the band of row i (anchor_get_x_range), clipped to [0, glen - 1]
+__device__ __forceinline__ void row_band(int i, int ax, int ay, int alen,
+                                         int awid, int gl, int* x_min,
+                                         int* x_max) {
+  int lo = i < ay ? 0 : (i <= ay + alen - 1 ? ax + (i - ay) : ax + alen);
+  *x_min = min(max(lo, 0), gl - 1);
+  const int ay2 = ay - (awid - 1);
+  int hi = i < ay2 ? ax + awid - 2
+                   : (i <= ay2 + alen - 1 ? ax + (awid - 1) + (i - ay2)
+                                          : gl - 1);
+  *x_max = min(max(hi, 0), gl - 1);
+}
+
+// Zeros the int16 columns [from, to) of one backpointer row, thread t of
+// n: 16-byte stores where the row is 16-byte aligned.
+__device__ __forceinline__ void zero_cols(int16_t* row, int from, int to,
+                                          int t, int n) {
+  int a = from, e = from;
+  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+    a = min((from + 7) & ~7, to);
+    e = max(to & ~7, a);
+    for (int p = a / 8 + t; p < e / 8; p += n)
+      reinterpret_cast<int4*>(row)[p] = make_int4(0, 0, 0, 0);
+  }
+  for (int j = from + t; j < a; j += n) row[j] = 0;
+  for (int j = e + t; j < to; j += n) row[j] = 0;
+}
+
+// The row-0-first order of the best cell: value larger, then row, column
+// and layer smaller (row -1: the start, value 0 at (0, 0, 0))
+struct Pick {
+  int v, i, j, k, frm;
+  __device__ __forceinline__ bool beats(const Pick& o) const {
+    return v > o.v || (v == o.v && (i < o.i || (i == o.i && (j < o.j
+           || (j == o.j && k < o.k)))));
+  }
+};
+
+// The strict-> merge of the four per-layer group results for layer k, in
+// the order [k, the others ascending], the others paying the crossover x:
+// each group's candidates share its offset, so its own first maximum
+// stands for all of them (its taboo candidate, 2 * NEG without the
+// offset, lies far below every reachable value and never is one).
+__device__ __forceinline__ Best merge(const Best (&grp)[4], int k, int x) {
+  Best r = grp[0];
+#pragma unroll
+  for (int l = 1; l < 4; ++l)
+    if (l == k) r = grp[l];
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+    if (l != k && grp[l].val + x > r.val) {
+      r.val = grp[l].val + x;
+      r.bk = grp[l].bk;
+    }
+  return r;
+}
+
+// The 4-layer DP of one pair on NG warps, for any G: the recurrence and
+// the candidate order of sw_cs_full_kernel. A row covers only the chunks
+// of 32 columns that meet [lo, hi]: its band and the columns the next
+// row reads (its band and one column left of it, whose out-of-band
+// values depend on the row's crossover in local mode); they are split
+// among the warps (column groups), lane l of a chunk on column 32c + l
+// in all four layers, and the rest of the row's backpointers are zeros.
+// Pass 1: NW and N from the previous row (column j - 1 loaded, column j
+// from the lane to the right by shuffle): each source layer's trio (NW)
+// and pair (N) of candidates scanned once, then merged for each of the
+// four layers; the from-codes kept in shared memory, and each group's
+// maximum of the W chain terms a_j + j*gea of each layer. A block
+// barrier; a layer's W chain enters a group with the maximum over the
+// groups to its left (and each such group's first column, whose left nw
+// only then is known). Pass 2: each layer's W plane by a max scan over
+// the chunk on that carry, the backpointers out in 64-byte warp stores,
+// and each lane's best cell, which it keeps across rows (it meets its
+// cells in row, column and layer order) and which the block reduces
+// once at the end. A block barrier ends the row. The row buffers and
+// the codes sit in shared memory while one pair fits a block (GLOBAL
+// false), past that in a device-memory scratch of wide_scratch_bytes(G)
+// a pair, the window read from device memory.
+template <int NG, bool GLOBAL>
+__global__ void __launch_bounds__(32 * NG)
 sw_cs_full_wide_kernel(const uint8_t* __restrict__ genome,
                        const uint8_t* __restrict__ qr,
                        const int32_t* __restrict__ xover,
@@ -467,27 +538,29 @@ sw_cs_full_wide_kernel(const uint8_t* __restrict__ genome,
                        const int32_t* __restrict__ awid_,
                        const int32_t* __restrict__ rev_,
                        int16_t* __restrict__ bp, int32_t* __restrict__ stats,
-                       int* __restrict__ scratch, int B, int G, int R, int m,
-                       int mm, int goa, int gea, int gob, int geb, int local,
-                       int taboo) {
+                       uint8_t* __restrict__ scratch, int B, int G, int R,
+                       int m, int mm, int goa, int gea, int gob, int geb,
+                       int local, int taboo) {
   extern __shared__ int4 smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;
+  __shared__ int aggs[4][NG];
+  __shared__ Pick picks[NG];
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;   // group
+  const int b = blockIdx.x;
   const int L = G + 1, PLANE = 4 * L, BUF = 3 * PLANE;
-  int* prev;
+  uint8_t* base = GLOBAL ? scratch + (size_t)b * wide_scratch_bytes(G)
+                         : reinterpret_cast<uint8_t*>(smem);
+  int* prev = reinterpret_cast<int*>(base);
+  int* cur = prev + BUF;
+  int16_t* code = reinterpret_cast<int16_t*>(prev + 2 * BUF);  // [4, G]
   const uint8_t* gsh;
   if (GLOBAL) {
-    prev = scratch + (size_t)b * wide_row_ints(G);
     gsh = genome + (size_t)b * G;
   } else {
-    prev = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(smem)
-                                  + (size_t)warp * wide_pair_bytes(G));
-    uint8_t* g = reinterpret_cast<uint8_t*>(prev + 2 * BUF);
-    for (int j = lane; j < G; j += 32) g[j] = genome[(size_t)b * G + j];
-    gsh = g;
+    uint8_t* gs = base + wide_scratch_bytes(G);
+    for (int j = threadIdx.x; j < G; j += blockDim.x)
+      gs[j] = genome[(size_t)b * G + j];
+    gsh = gs;
   }
-  int* cur = prev + BUF;
   const uint8_t* q = qr + (size_t)b * 4 * R;
   const int32_t* xr = xover + (size_t)b * R;
   const int gl = glen_[b], rl = rlen_[b];
@@ -497,229 +570,310 @@ sw_cs_full_wide_kernel(const uint8_t* __restrict__ genome,
 
   // row -1 starts layer 0 at 0 and layers 1..3 at the global crossover,
   // with the N and W planes offset by the gap opens, in every slot
-  for (int x = lane; x < PLANE; x += 32) {
+  for (int x = threadIdx.x; x < PLANE; x += blockDim.x) {
     const int off = x < L ? 0 : gx;
     prev[x] = off;
     prev[PLANE + x] = off - gob;
     prev[2 * PLANE + x] = off - goa;
   }
-  __syncwarp();
+  __syncthreads();
 
-  int best = 0, bi = 0, bj = 0, bk = 0, bfrm = 0;
+  Pick best{0, -1, 0, 0, 0};   // the lane's best cell over the rows so far
   for (int i = 0; i < R; ++i) {
-    // band for this row (anchor_get_x_range), clipped to [0, glen-1]
-    int x_min = i < ay ? 0 : (i <= ay + alen - 1 ? ax + (i - ay)
-                                                  : ax + alen);
-    x_min = min(max(x_min, 0), gl - 1);
-    const int ay2 = ay - (awid - 1);
-    int x_max = i < ay2 ? ax + awid - 2
-                        : (i <= ay2 + alen - 1 ? ax + (awid - 1) + (i - ay2)
-                                               : gl - 1);
-    x_max = min(max(x_max, 0), gl - 1);
-    // keep the band opaque to the optimizer (the ptxas min/max fold of
+    int x_min, x_max, n_min, n_max;
+    row_band(i, ax, ay, alen, awid, gl, &x_min, &x_max);
+    row_band(i + 1, ax, ay, alen, awid, gl, &n_min, &n_max);
+    // the columns this row writes: its band and the next row's reads
+    int lo = max(min(x_min, n_min - 1), 0), hi = min(max(x_max, n_max), G - 1);
+    // keep the bounds opaque to the optimizer (the ptxas min/max fold of
     // banded_sw.cuh)
-    asm volatile("" : "+r"(x_min), "+r"(x_max));
+    asm volatile("" : "+r"(x_min), "+r"(x_max), "+r"(lo), "+r"(hi));
+    const int c_lo = lo >> 5;
+    const int nc = hi >= lo ? (hi >> 5) - c_lo + 1 : 0;
+    // this group's chunks [c0, c1); the first group with chunks starts
+    // the row's W chains from the out-of-band values at its left
+    const int c0 = c_lo + g * nc / NG, c1 = c_lo + (g + 1) * nc / NG;
+    const bool first = c0 == c_lo;
     const int xc = xr[i];
     // taboo: no N-plane entry (or exit to NW) near the read end
     const bool no_taboo = taboo == 0 || i < rl - taboo;
     const bool rec = local ? i < rl : i == rl - 1;
-    if (lane < 4) {   // this row's pad column j = -1 of layer `lane`
-      const int init_nw = local ? (lane == 0 ? 0 : xc) : NEG;
-      cur[lane * L] = init_nw;
-      cur[PLANE + lane * L] = local ? init_nw - gob : NEG;
-      cur[2 * PLANE + lane * L] = local ? init_nw - goa : NEG;
-    }
-    // the lane's best cell of the row: value, then j, then k
-    int rb = NEG, rj = G, rk = 0, rfrm = 0;
-    for (int k = 0; k < 4; ++k) {
-      const int init_nw = local ? (k == 0 ? 0 : xc) : NEG;
-      const int init_n = local ? init_nw - gob : NEG;
-      const int init_w = local ? init_nw - goa : NEG;
-      const int qk = q[k * R + i];
-      int16_t* bprow = bp + (((size_t)b * R + i) * 4 + k) * G;
-      // carried from column j0 - 1: the W chain's running max, nw and the
-      // raw w (the pad column's at j0 = 0)
-      int carry_c = FILL, carry_nw = init_nw, carry_w = init_w;
-      for (int j0 = 0; j0 < G; j0 += 32) {
-        const int j = j0 + lane;
-        const bool inb = j < G && j >= x_min && j <= x_max;
-        int nw_val = init_nw, n_val = init_n, nw_bk = 0, n_bk = 0;
-        if (inb) {
-          // NW: 12 candidates, groups in layer order [k, others
-          // ascending], groups after the first pay the crossover, from
-          // the previous row's column j - 1 (slot j)
-          Best grp[4];
+    int init_nw[4], qk[4];
 #pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const int x = l == k ? 0 : xc;
-            const int d_nw = prev[l * L + j];
-            const int d_n = prev[PLANE + l * L + j];
-            const int d_w = prev[2 * PLANE + l * L + j];
-            const int c_n = no_taboo ? d_n + x : 2 * NEG;
-            if (rv) {
-              grp[l].take(d_w + x, NWW, l);
-              grp[l].take(c_n, NWN, l);
-              grp[l].take(d_nw + x, NWNW, l);
-            } else {
-              grp[l].take(d_nw + x, NWNW, l);
-              grp[l].take(c_n, NWN, l);
-              grp[l].take(d_w + x, NWW, l);
-            }
-          }
-          const Best nw = in_order(grp, k);
-          const int gch = gsh[j];
-          const int sc = (gch == BASE_N || qk == BASE_N) ? 0
-                                                         : (gch == qk ? m
-                                                                      : mm);
+    for (int k = 0; k < 4; ++k) {
+      init_nw[k] = local ? (k == 0 ? 0 : xc) : NEG;
+      qk[k] = q[k * R + i];
+    }
+    if (g == 0 && lane < 4) {   // this row's pad column j = -1
+      const int v = local ? (lane == 0 ? 0 : xc) : NEG;
+      cur[lane * L] = v;
+      cur[PLANE + lane * L] = local ? v - gob : NEG;
+      cur[2 * PLANE + lane * L] = local ? v - goa : NEG;
+    }
+    // the W chain term of layer k's column j in band from its left nw
+    auto term = [&](int k, int left_nw, int j) {
+      const int init_w = local ? init_nw[k] - goa : NEG;
+      int a = no_taboo ? left_nw - goa - gea : 2 * NEG;
+      if (local) a = max(a, init_nw[k]);
+      if (j == x_min) a = max(a, init_w - gea);
+      return a + j * gea;
+    };
+
+    // ---- pass 1: NW and N of the four layers, the codes, the terms
+    int agg[4], carry_nw[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      agg[k] = FILL;
+      carry_nw[k] = init_nw[k];
+    }
+    for (int c = c0; c < c1; ++c) {
+      const int j = 32 * c + lane;
+      const bool inb = j < G && j >= x_min && j <= x_max;
+      // each source layer's candidates from the previous row's column
+      // j - 1 (slot j) and column j (slot j + 1: the right-hand lane's
+      // column j - 1), scanned once
+      Best tri[4], duo[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const bool in = j <= G;
+        const int d_nw = in ? prev[l * L + j] : 0;
+        const int d_n = in ? prev[PLANE + l * L + j] : 0;
+        const int d_w = in ? prev[2 * PLANE + l * L + j] : 0;
+        int u_nw = __shfl_down_sync(FULL_MASK, d_nw, 1);
+        int u_n = __shfl_down_sync(FULL_MASK, d_n, 1);
+        if (lane == 31 && j < G) {
+          u_nw = prev[l * L + j + 1];
+          u_n = prev[PLANE + l * L + j + 1];
+        }
+        const int c_n = no_taboo ? d_n : 2 * NEG;
+        if (rv) {
+          tri[l].take(d_w, NWW, l);
+          tri[l].take(c_n, NWN, l);
+          tri[l].take(d_nw, NWNW, l);
+        } else {
+          tri[l].take(d_nw, NWNW, l);
+          tri[l].take(c_n, NWN, l);
+          tri[l].take(d_w, NWW, l);
+        }
+        const int c_open = no_taboo ? u_nw - gob - geb : 2 * NEG;
+        const int c_ext = u_n - geb;
+        if (rv) {
+          duo[l].take(c_ext, NN, l);
+          duo[l].take(c_open, NNW, l);
+        } else {
+          duo[l].take(c_open, NNW, l);
+          duo[l].take(c_ext, NN, l);
+        }
+      }
+      const int gch = j < G ? gsh[j] : 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int nw_val = init_nw[k], n_val = local ? init_nw[k] - gob : NEG;
+        int codes = 0;
+        if (inb) {
+          const Best nw = merge(tri, k, xc);
+          const int sc = (gch == BASE_N || qk[k] == BASE_N)
+                             ? 0 : (gch == qk[k] ? m : mm);
           nw_val = nw.val + sc;
-          nw_bk = nw.bk;
-          if (local && nw_val <= init_nw) {
-            nw_val = init_nw;
+          int nw_bk = nw.bk;
+          if (local && nw_val <= init_nw[k]) {
+            nw_val = init_nw[k];
             nw_bk = 0;
           }
-          // N: 8 candidates (open, extend) per layer group, in the same
-          // group order, from the previous row's column j (slot j + 1)
-#pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const int x = l == k ? 0 : xc;
-            const int u_nw = prev[l * L + j + 1];
-            const int u_n = prev[PLANE + l * L + j + 1];
-            const int c_open = no_taboo ? u_nw - gob - geb + x : 2 * NEG;
-            const int c_ext = u_n - geb + x;
-            grp[l] = Best();
-            if (rv) {
-              grp[l].take(c_ext, NN, l);
-              grp[l].take(c_open, NNW, l);
-            } else {
-              grp[l].take(c_open, NNW, l);
-              grp[l].take(c_ext, NN, l);
-            }
-          }
-          const Best n = in_order(grp, k);
+          const Best n = merge(duo, k, xc);
           n_val = n.val;
-          n_bk = n.bk;
-          if (local && n_val <= init_nw) {
-            n_val = init_nw;
+          int n_bk = n.bk;
+          if (local && n_val <= init_nw[k]) {
+            n_val = init_nw[k];
             n_bk = 0;
           }
+          codes = nw_bk | n_bk << 5;
         }
-
-        // W: the chain's term of column j from its left nw, an
-        // inclusive max scan over the chunk on top of the carry
-        int left_nw = __shfl_up_sync(FULL_MASK, nw_val, 1);
-        if (lane == 0) left_nw = carry_nw;
-        const int c_open_w = no_taboo ? left_nw - goa - gea : 2 * NEG;
-        int a = c_open_w;
-        if (local) a = max(a, init_nw);
-        if (j == x_min) a = max(a, init_w - gea);
-        int c = inb ? a + j * gea : FILL;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int u = __shfl_up_sync(FULL_MASK, c, d);
-          if (lane >= d) c = max(c, u);
-        }
-        c = max(c, carry_c);
-        const int w_raw = inb ? c - j * gea : init_w;
-        int w_left = __shfl_up_sync(FULL_MASK, w_raw, 1);
-        if (lane == 0) w_left = carry_w;
-        const int c_ext_w = w_left - gea;
-        const bool take_ext = rv ? !(c_open_w > c_ext_w) : c_ext_w > c_open_w;
-        int w_val = w_raw;
-        int w_bk = (take_ext ? WW : WNW) << 2 | k;
-        if (local && w_raw <= init_nw) {
-          w_val = init_nw;
-          w_bk = 0;
-        }
-        if (!inb) w_bk = 0;
-        carry_c = __shfl_sync(FULL_MASK, c, 31);
-        carry_nw = __shfl_sync(FULL_MASK, nw_val, 31);
-        carry_w = __shfl_sync(FULL_MASK, w_raw, 31);
-
         if (j < G) {
           cur[k * L + j + 1] = nw_val;
           cur[PLANE + k * L + j + 1] = n_val;
+          code[k * G + j] = static_cast<int16_t>(codes);
+        }
+        // the term of column j; a later group's first column waits for
+        // its left nw
+        int left_nw = __shfl_up_sync(FULL_MASK, nw_val, 1);
+        if (lane == 0) left_nw = carry_nw[k];
+        if (inb && (first || c > c0 || lane > 0))
+          agg[k] = max(agg[k], term(k, left_nw, j));
+        carry_nw[k] = __shfl_sync(FULL_MASK, nw_val, 31);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      agg[k] = __reduce_max_sync(FULL_MASK, agg[k]);
+      if (lane == 0) aggs[k][g] = agg[k];
+    }
+    // the groups' nw and terms, then the outside of [lo, hi]: zeros
+    if (NG > 1)
+      __syncthreads();
+    else
+      __syncwarp();
+    int16_t* bprow = bp + ((size_t)b * R + i) * 4 * G;
+    const int z0 = nc == 0 ? G : 32 * c_lo;
+    const int z1 = nc == 0 ? G : min(32 * (c_lo + nc), G);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      zero_cols(bprow + k * G, 0, z0, threadIdx.x, 32 * NG);
+      zero_cols(bprow + k * G, z1, G, threadIdx.x, 32 * NG);
+    }
+
+    // ---- each layer's carry into the group: the W chain's running max
+    // over the columns left of it, and that column's nw and raw w
+    int carry_c[4], carry_w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      carry_c[k] = FILL;
+      carry_w[k] = local ? init_nw[k] - goa : NEG;
+      carry_nw[k] = init_nw[k];
+    }
+    if (!first && c0 < c1) {
+      const int js = 32 * c0;   // column js - 1 is the left group's last
+      // group `lane`'s first column, when it is not the row's first
+      const int l0 = c_lo + lane * nc / NG, l1 = c_lo + (lane + 1) * nc / NG;
+      const int jf = 32 * l0;
+      const bool own = lane < g && l0 > c_lo && l0 < l1 && jf >= x_min
+                       && jf <= x_max;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int v = lane < g ? aggs[k][lane] : FILL;
+        if (own) v = max(v, term(k, cur[k * L + jf], jf));
+        carry_c[k] = __reduce_max_sync(FULL_MASK, v);
+        carry_nw[k] = cur[k * L + js];
+        if (js - 1 >= x_min && js - 1 <= x_max)
+          carry_w[k] = carry_c[k] - (js - 1) * gea;
+      }
+    }
+
+    // ---- pass 2: the W planes, the backpointers, the lane's best cell
+    for (int c = c0; c < c1; ++c) {
+      const int j = 32 * c + lane;
+      const bool inb = j < G && j >= x_min && j <= x_max;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int init_w = local ? init_nw[k] - goa : NEG;
+        const int nw_val = j < G ? cur[k * L + j + 1] : init_nw[k];
+        int left_nw = __shfl_up_sync(FULL_MASK, nw_val, 1);
+        if (lane == 0) left_nw = carry_nw[k];
+        const int c_open_w = no_taboo ? left_nw - goa - gea : 2 * NEG;
+        int cc = inb ? term(k, left_nw, j) : FILL;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int u = __shfl_up_sync(FULL_MASK, cc, d);
+          if (lane >= d) cc = max(cc, u);
+        }
+        cc = max(cc, carry_c[k]);
+        const int w_raw = inb ? cc - j * gea : init_w;
+        int w_left = __shfl_up_sync(FULL_MASK, w_raw, 1);
+        if (lane == 0) w_left = carry_w[k];
+        const int c_ext_w = w_left - gea;
+        const bool take_ext = rv ? !(c_open_w > c_ext_w)
+                                 : c_ext_w > c_open_w;
+        int w_val = w_raw;
+        int w_bk = (take_ext ? WW : WNW) << 2 | k;
+        if (local && w_raw <= init_nw[k]) {
+          w_val = init_nw[k];
+          w_bk = 0;
+        }
+        if (!inb) w_bk = 0;
+        carry_c[k] = __shfl_sync(FULL_MASK, cc, 31);
+        carry_nw[k] = __shfl_sync(FULL_MASK, nw_val, 31);
+        carry_w[k] = __shfl_sync(FULL_MASK, w_raw, 31);
+        if (j < G) {
           cur[2 * PLANE + k * L + j + 1] = w_val;
-          bprow[j] = static_cast<int16_t>(nw_bk | n_bk << 5 | w_bk << 10);
+          const int codes = code[k * G + j];
+          bprow[k * G + j] = static_cast<int16_t>(codes | w_bk << 10);
           if (rec && inb) {
+            const int n_val = cur[PLANE + k * L + j + 1];
             const int cm = max(max(nw_val, n_val), w_val);
-            if (cm > rb || (cm == rb && (j < rj || (j == rj && k < rk)))) {
-              rb = cm;
-              rj = j;
-              rk = k;
+            if (cm > best.v) {
               // the reference picks max(value, NEG) at the selected
               // cell, then prefers nw, w if strictly greater, then n
               const int nw_c = max(nw_val, NEG), n_c = max(n_val, NEG),
                         w_c = max(w_val, NEG);
-              int frm = nw_bk, fs = nw_c;
+              int frm = codes & 31, fs = nw_c;
               if (w_c > fs) frm = w_bk;
               fs = max(fs, w_c);
-              if (n_c > fs) frm = n_bk;
-              rfrm = frm;
+              if (n_c > fs) frm = codes >> 5;
+              best = Pick{cm, i, j, k, frm};
             }
           }
         }
       }
     }
-
-    // the row's best cell: largest value, then smallest j, then smallest
-    // k; across rows the strict > keeps the earliest row
-    if (rec) {
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const int v2 = __shfl_xor_sync(FULL_MASK, rb, d);
-        const int j2 = __shfl_xor_sync(FULL_MASK, rj, d);
-        const int k2 = __shfl_xor_sync(FULL_MASK, rk, d);
-        const int f2 = __shfl_xor_sync(FULL_MASK, rfrm, d);
-        if (v2 > rb || (v2 == rb && (j2 < rj || (j2 == rj && k2 < rk)))) {
-          rb = v2;
-          rj = j2;
-          rk = k2;
-          rfrm = f2;
-        }
-      }
-      if (rb > best) {
-        best = rb;
-        bi = i;
-        bj = rj;
-        bk = rk;
-        bfrm = rfrm;
-      }
-    }
-    __syncwarp();
+    __syncthreads();
     int* tmp = prev;
     prev = cur;
     cur = tmp;
   }
-  if (lane == 0) {
-    stats[b] = best;
-    stats[B + b] = bi;
-    stats[2 * B + b] = bj;
-    stats[3 * B + b] = bk;
-    stats[4 * B + b] = bfrm;
+
+  // the best cell: largest value, then the first row, column and layer
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const Pick o{__shfl_xor_sync(FULL_MASK, best.v, d),
+                 __shfl_xor_sync(FULL_MASK, best.i, d),
+                 __shfl_xor_sync(FULL_MASK, best.j, d),
+                 __shfl_xor_sync(FULL_MASK, best.k, d),
+                 __shfl_xor_sync(FULL_MASK, best.frm, d)};
+    if (o.beats(best)) best = o;
+  }
+  if (lane == 0) picks[g] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < NG; ++w)
+      if (picks[w].beats(best)) best = picks[w];
+    const bool any = best.i >= 0;
+    stats[b] = any ? best.v : 0;
+    stats[B + b] = any ? best.i : 0;
+    stats[2 * B + b] = any ? best.j : 0;
+    stats[3 * B + b] = any ? best.k : 0;
+    stats[4 * B + b] = any ? best.frm : 0;
   }
 }
 
-// The wide kernel's launch for B pairs of G columns: threads per block,
-// its dynamic shared memory, and whether the row buffers go to device
-// memory (one pair's do not fit a block); sets the shared memory limit
-// above 48 KB. A block holds one pair while its rows are in shared
-// memory: a pair takes 34 KB at G = 352, and four to a block left one
-// block (4 warps) on an SM where six single-pair blocks fit.
-cudaError_t wide_prepare(int B, int G, int* threads, int* smem,
-                         bool* global) {
+// Warps (column groups) a pair of the wide kernel for windows G wide: 4,
+// 8 or 16, the most with at least two chunks of 32 columns a warp (a
+// window over 256 columns has at least 9). A pair's row buffers (about
+// 105 bytes a column) hold a block to 6 pairs an SM at G = 352 and 1 at
+// G = 1408, so the warps a pair, not the launch's B, decide how many
+// warps an SM runs.
+inline int wide_groups(int G) {
+  const int chunks = (G + 31) / 32;
+  return chunks >= 32 ? 16 : chunks >= 16 ? 8 : 4;
+}
+
+template <bool GLOBAL>
+using WideKernel = decltype(&sw_cs_full_wide_kernel<4, GLOBAL>);
+
+template <bool GLOBAL>
+WideKernel<GLOBAL> wide_kernel(int ng) {
+  return ng == 4 ? sw_cs_full_wide_kernel<4, GLOBAL>
+                 : ng == 8 ? sw_cs_full_wide_kernel<8, GLOBAL>
+                           : sw_cs_full_wide_kernel<16, GLOBAL>;
+}
+
+// The wide kernel's launch for windows G wide: threads per block (one
+// pair, a warp a column group), its dynamic shared memory, and whether
+// the row buffers go to device memory (one pair's do not fit a block);
+// sets the shared memory limit above 48 KB.
+cudaError_t wide_prepare(int G, int* threads, int* smem, bool* global) {
   int optin = 0;
   cudaError_t e = banded::smem_optin(&optin);
   if (e != cudaSuccess) return e;
-  *global = wide_pair_bytes(G) > optin;
-  if (*global) {
-    const decltype(&sw_cs_full_wide_kernel<true>) ks[] = {
-        sw_cs_full_wide_kernel<true>};
-    return banded::prepare(ks, B, 32, 32 * PAIRS, 0, threads, smem);
-  }
-  const decltype(&sw_cs_full_wide_kernel<false>) ks[] = {
-      sw_cs_full_wide_kernel<false>};
-  return banded::prepare(ks, B, 32, 32, static_cast<int>(wide_pair_bytes(G)),
-                         threads, smem);
+  const int ng = wide_groups(G);
+  *threads = 32 * ng;
+  // the static shared memory: aggs and picks
+  const long long fixed = 16LL * ng + ng * sizeof(Pick);
+  *global = wide_pair_bytes(G) + fixed > optin;
+  *smem = *global ? 0 : static_cast<int>(wide_pair_bytes(G));
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(wide_kernel<false>(ng),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
 }
 
 cudaError_t launch_wide(const void* const* in, void* bp, void* stats,
@@ -728,20 +882,19 @@ cudaError_t launch_wide(const void* const* in, void* bp, void* stats,
                         int taboo, cudaStream_t stream) {
   int threads = 32, smem = 0;
   bool global = false;
-  cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
+  cudaError_t e = wide_prepare(G, &threads, &smem, &global);
   if (e != cudaSuccess) return e;
   if (global && scratch == nullptr) return cudaErrorInvalidValue;
   auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
   auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  const int pairs = threads / 32;
-  auto kernel = global ? sw_cs_full_wide_kernel<true>
-                       : sw_cs_full_wide_kernel<false>;
-  kernel<<<(B + pairs - 1) / pairs, threads, smem, stream>>>(
+  auto kernel = global ? wide_kernel<true>(threads / 32)
+                       : wide_kernel<false>(threads / 32);
+  kernel<<<B, threads, smem, stream>>>(
       u8(in[0]), u8(in[1]), i32(in[2]), i32(in[3]), i32(in[4]), i32(in[5]),
       i32(in[6]), i32(in[7]), i32(in[8]), i32(in[9]), i32(in[10]),
       static_cast<int16_t*>(bp), static_cast<int32_t*>(stats),
-      static_cast<int*>(scratch), B, G, R, m, mm, goa, gea, gob, geb, local,
-      taboo);
+      static_cast<uint8_t*>(scratch), B, G, R, m, mm, goa, gea, gob, geb,
+      local, taboo);
   return cudaGetLastError();
 }
 
@@ -835,9 +988,9 @@ extern "C" int sw_cs_full_launch(const void* genome, const void* qr,
 
 // The device memory, in bytes, that a launch of B pairs of G columns
 // needs beside its outputs, into *(long long*)out: the wide kernel's row
-// buffers where one pair's do not fit a block's shared memory, else 0.
-// (R is not read; the signature is every <kernel>_scratch's.) Returns a
-// cudaError_t.
+// buffers and codes where one pair's do not fit a block's shared memory,
+// else 0. (R is not read; the signature is every <kernel>_scratch's.)
+// Returns a cudaError_t.
 extern "C" int sw_cs_full_scratch(int B, int G, int R, void* out) {
   (void)R;
   long long* o = static_cast<long long*>(out);
@@ -845,8 +998,8 @@ extern "C" int sw_cs_full_scratch(int B, int G, int R, void* out) {
   if (G <= 256 || B <= 0) return 0;
   int threads = 32, smem = 0;
   bool global = false;
-  const cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
-  if (global) *o = 4 * wide_row_ints(G) * B;
+  const cudaError_t e = wide_prepare(G, &threads, &smem, &global);
+  if (global) *o = wide_scratch_bytes(G) * B;
   return static_cast<int>(e);
 }
 
@@ -864,9 +1017,10 @@ extern "C" int sw_cs_full_config(int B, int G, int R, void* out) {
   if (G <= 256) return static_cast<int>(config<256>(o));
   int threads = 32, smem = 0;
   bool global = false;
-  const cudaError_t e = wide_prepare(B, G, &threads, &smem, &global);
+  const cudaError_t e = wide_prepare(G, &threads, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return banded::config(global ? sw_cs_full_wide_kernel<true>
-                               : sw_cs_full_wide_kernel<false>,
-                        32, threads, smem, o);
+  const int ng = threads / 32;
+  return banded::config(global ? wide_kernel<true>(ng)
+                               : wide_kernel<false>(ng),
+                        threads, threads, smem, o);
 }

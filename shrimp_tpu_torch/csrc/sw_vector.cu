@@ -39,19 +39,26 @@
 // to 128 threads, halved while some SM would get no block.
 //
 // Windows wider than 256 (long reads: G = 352 at 250 bp, 4224 at
-// 3000 bp; any G) take a second kernel, one warp per pair, because
-// their rows do not fit a segment's registers and a launch of a few
-// hundred long pairs needs all the lanes it can get. Lane l owns a
-// strip of S consecutive columns (S odd: distinct shared-memory banks);
-// the previous row's H and F and the genome window sit in shared memory,
-// 9 bytes a column, up to about 25,800 columns (the 227 KB a block can
-// opt into); past that H and F sit in a device-memory scratch that the
-// caller allocates and the window is read where it lies.
-// A row runs in two passes over each strip: (1) h0 = max(0, H diagonal
-// + s, F) and the strip's maximum of the E chain terms h0[k] + k*gea
-// (each lane reads its left neighbour's diagonal H before any lane
-// writes), combined across lanes by a 5-step __shfl_up_sync max scan;
-// (2) E and H from the scanned carry.
+// 3000 bp; any G) take a second kernel that runs the same wavefront over
+// column tiles. A tile is 32 lanes x WIDE_S columns, its H, F, window
+// bytes (and row-0 colours) and column masks in registers; all rows of
+// the pair stream through the tile's wavefront, with the narrow kernel's
+// cell arithmetic in the same order. The row loop carries exactly two
+// values across a tile border, c and the H of the tile's last column:
+// lane 31 writes them for each row into an edge buffer of R x (c, H),
+// and lane 0 of the next tile reads them. A pair has W warps (a power of
+// two up to WIDE_WARPS, from B and G: more while the launch leaves SMs
+// without warps); warp w takes tiles w, w + W, ... and runs behind the
+// warp to its left, each warp writing its own edge buffer and publishing
+// the rows it has written every ROWS_STEP steps (a counter in shared
+// memory that the next warp's lane 0 waits on). With one warp, one buffer
+// serves every tile: lane 0 reads row t at step t, one step before lane
+// 31 writes row t - 31 of the same tile. The buffers, 8 W R bytes a
+// pair, sit in shared memory while they fit a block and in a
+// device-memory scratch past that. Tiles wholly past glen and rows past
+// rlen are skipped; the pad column's 0 and FILL enter at tile 0, lane 0.
+// A cell costs registers and DPX only; the working set does not grow
+// with G.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -154,90 +161,178 @@ sw_vector_kernel(const uint8_t* __restrict__ genome,
   if (live && l == 0) out[b] = best;
 }
 
-// max over the values of the lanes below this one (FILL for lane 0)
-__device__ __forceinline__ int warp_exclusive_max(int v, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(FULL_MASK, v, d);
-    if (lane >= d) v = max(v, u);
+// ---- windows wider than 256: the tiled kernel
+
+// columns a lane of a tile: 352 columns a tile, which divides the G
+// buckets of 250, 1000 and 3000 bp reads (352, 1408, 4224)
+constexpr int WIDE_S = 11;
+constexpr int TILE = 32 * WIDE_S;       // columns a tile
+constexpr int WIDE_WARPS = 8;           // most warps a pair
+constexpr int ROWS_STEP = 32;           // steps between edge publications
+constexpr int WIDE_STATIC = 2 * WIDE_WARPS * 4;   // static shared bytes
+
+// Spins until *flag >= target, then orders the loads after it (the
+// counter's writer fences before its store).
+__device__ __forceinline__ void wait_flag(const int* flag, int target) {
+  while (*reinterpret_cast<const volatile int*>(flag) < target) {
   }
-  const int ex = __shfl_up_sync(FULL_MASK, v, 1);
-  return lane == 0 ? FILL : ex;
+  __threadfence_block();
 }
 
-// bytes of dynamic shared memory of the wide kernel: H, F, the window
-inline long long wide_smem(int G) {
-  return 8LL * G + ((G + 15) & ~15);
+__device__ __forceinline__ void store_flag(int* flag, int v) {
+  __threadfence_block();
+  *reinterpret_cast<volatile int*>(flag) = v;
 }
 
-// GLOBAL: H and F in scratch (2G int32 a pair), the window read in place
+// GLOBAL: the edge buffers in scratch (W * R int2 a pair), else in
+// dynamic shared memory. A block is one pair, blockDim.x / 32 = W warps.
 template <bool GLOBAL>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
 sw_vector_wide_kernel(const uint8_t* __restrict__ genome,
                       const uint8_t* __restrict__ g_row0,
                       const int32_t* __restrict__ glen,
                       const uint8_t* __restrict__ read,
                       const int32_t* __restrict__ rlen,
-                      int32_t* __restrict__ out, int* __restrict__ scratch,
-                      int G, int R, int m, int mm, int goa, int gea, int gob,
+                      int32_t* __restrict__ out, int2* scratch, int G,
+                      int R, int m, int mm, int goa, int gea, int gob,
                       int geb) {
+  constexpr int S = WIDE_S;
   extern __shared__ int4 smem[];
+  // rows of (c, H) each warp has published, counted over its tiles; the
+  // warps' best scores
+  __shared__ int done[WIDE_WARPS];
+  __shared__ int wbest[WIDE_WARPS];
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
-  // H and F of the previous row, and the window
-  int* h = GLOBAL ? scratch + (size_t)b * 2 * G : reinterpret_cast<int*>(smem);
-  int* f = h + G;
-  uint8_t* gst = reinterpret_cast<uint8_t*>(f + G);
-  const uint8_t* gsh = GLOBAL ? genome + (size_t)b * G : gst;
+  int2* edges = GLOBAL ? scratch + (size_t)b * W * R
+                       : reinterpret_cast<int2*>(smem);
+  int2* mine = edges + (size_t)warp * R;   // lane 31 writes this warp's
+  const int pw = warp == 0 ? W - 1 : warp - 1;   // the tile to the left's
+  const int2* left = edges + (size_t)pw * R;
   const int nj = min(glen[b], G);
   const int ni = min(rlen[b], R);
-  for (int j = lane; j < nj; j += 32) {
-    h[j] = 0;
-    f[j] = NEG;
-    if (!GLOBAL) gst[j] = genome[(size_t)b * G + j];
-  }
-  __syncwarp();
-  const int S = ((nj + 31) / 32) | 1;
-  int j0 = min(lane * S, nj), j1 = min(j0 + S, nj);
-  // keep the strip bounds opaque to the optimizer (the ptxas min/max
-  // fold of banded_sw.cuh)
-  asm volatile("" : "+r"(j0), "+r"(j1));
+  // tiles below glen; the bounds pass through the empty asm statement
+  // (the ptxas min/max fold of banded_sw.cuh)
+  int ntiles = ni > 0 ? (nj + TILE - 1) / TILE : 0;
+  asm volatile("" : "+r"(ntiles));
+  if (lane == 0) done[warp] = 0;
+  __syncthreads();
+
+  const uint8_t* gp = genome + (size_t)b * G;
+  const uint8_t* g0p = g_row0 != nullptr ? g_row0 + (size_t)b * G : nullptr;
   const uint8_t* rd = read + (size_t)b * R;
+  const int T = ni + 31;   // steps of a tile's wavefront
   int best = 0;
-  for (int i = 0; i < ni; ++i) {
-    const int rch = rd[i];
-    // colour space: row 0 compares against g_row0
-    const uint8_t* row0 = (i == 0 && g_row0 != nullptr)
-                              ? g_row0 + (size_t)b * G : nullptr;
-    // H[i-1][j0-1], read before the lane to the left overwrites it; the
-    // j = -1 pad column is always 0
-    int hdiag = (j0 > 0 && j0 < j1) ? h[j0 - 1] : 0;
-    __syncwarp();
-    int agg = FILL;
-    for (int j = j0; j < j1; ++j) {
-      const int hp = h[j];
-      const int fj = max(hp - gob, f[j] - geb);
-      const int gch = row0 != nullptr ? row0[j] : gsh[j];
-      const int s = gch == rch ? m : mm;
-      const int h0 = max(max(0, hdiag + s), fj);
-      agg = max(agg, h0 + j * gea);
-      hdiag = hp;
-      h[j] = h0;
-      f[j] = fj;
+  for (int tile = warp, ord = 0; tile < ntiles; tile += W, ++ord) {
+    const int j0 = tile * TILE + lane * S;
+    int nv = min(max(nj - j0, 0), S);
+    asm volatile("" : "+r"(nv));
+    int h[S], f[S], gw[S], gc[S], mk[S], jg[S], ej[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int j = j0 + k;
+      h[k] = 0;
+      f[k] = NEG;
+      gw[k] = j < G ? gp[j] : 0;
+      // colour space: row 0 compares against g_row0
+      gc[k] = j < G && g0p != nullptr ? g0p[j] : gw[k];
+      mk[k] = k < nv ? 0 : NEG;       // best takes H + mk: columns past
+                                      // glen stay below 0
+      jg[k] = j * gea;                // h0 + j*gea enters the E chain
+      ej[k] = -(goa - gea) - j * gea; // E of column j is c + ej
     }
-    // running max of h0[k] + k*gea over the columns left of the strip
-    int c = warp_exclusive_max(agg, lane);
-    for (int j = j0; j < j1; ++j) {
-      const int h0 = h[j];
-      const int e = c - (goa - gea) - j * gea;
-      const int hj = max(h0, e);
-      c = max(c, h0 + j * gea);
-      best = max(best, hj);
-      h[j] = hj;
+    // the left tile's warp has published `base` rows before this tile's
+    // (it is that warp's ord-th tile, warp 0's (ord-1)-th)
+    const int base = (warp == 0 ? ord - 1 : ord) * ni;
+    int rch = rd[0];
+    int cout = FILL, hout = 0;   // c and H at the strip's end, last row
+    int hup = 0;                 // H[i-1][j0-1]
+    for (int t = 0; t < T; ++t) {
+      if (tile > 0 && t < ni && t % ROWS_STEP == 0) {
+        // lane 0 reads rows t .. t + ROWS_STEP - 1 of the left tile next
+        if (lane == 0) wait_flag(done + pw, base + min(t + ROWS_STEP, ni));
+        __syncwarp();
+      }
+      int cin = __shfl_up_sync(FULL_MASK, cout, 1);
+      int hin = __shfl_up_sync(FULL_MASK, hout, 1);
+      if (lane == 0) {
+        if (tile == 0) {   // the row starts here: no E chain, the pad column
+          cin = FILL;
+          hin = 0;
+        } else if (t < ni) {
+          const int2 e = left[t];
+          cin = e.x;
+          hin = e.y;
+        }
+      }
+      const int i = t - lane;
+      if (i >= 0 && i < ni && nv > 0) {
+        int hdiag = hup, c = cin;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int hp = h[k];
+          const int fj = __viaddmax_s32(hp, -gob, f[k] - geb);
+          const int s = gc[k] == rch ? m : mm;
+          const int h0 = __viaddmax_s32_relu(hdiag, s, fj);
+          const int hj = __viaddmax_s32(c, ej[k], h0);
+          c = __viaddmax_s32(h0, jg[k], c);
+          best = __viaddmax_s32(hj, mk[k], best);
+          hdiag = hp;
+          h[k] = hj;
+          f[k] = fj;
+        }
+        cout = c;
+        hout = h[S - 1];
+        if (i == 0) {
+#pragma unroll
+          for (int k = 0; k < S; ++k) gc[k] = gw[k];
+        }
+        if (i + 1 < ni) rch = rd[i + 1];
+        if (lane == 31) mine[i] = make_int2(cout, hout);
+      }
+      hup = hin;
+      // lane 31 has written rows 0 .. t - 31 of this tile
+      if (lane == 31 && ((t + 1) % ROWS_STEP == 0 || t + 1 == T))
+        store_flag(done + warp, ord * ni + min(max(t - 30, 0), ni));
     }
-    __syncwarp();
   }
   best = __reduce_max_sync(FULL_MASK, best);
-  if (lane == 0) out[b] = best;
+  if (lane == 0) wbest[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < W; ++w) best = max(best, wbest[w]);
+    out[b] = best;
+  }
+}
+
+// The tiled kernel's launch for B pairs of G columns and R rows: its
+// warps a pair W (the largest power of two up to WIDE_WARPS and the tile
+// count with B * W <= 8 warps an SM: small launches spread a pair over
+// warps, a launch that fills the card keeps one), its dynamic shared
+// memory, and whether the edge buffers go to device memory (they do not
+// fit a block); sets the shared memory limit above 48 KB.
+cudaError_t wide_prepare(int B, int G, int R, int* warps, int* smem,
+                         bool* global) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = banded::smem_optin(&optin);
+  if (e != cudaSuccess) return e;
+  const int ntiles = (G + TILE - 1) / TILE;
+  int w = 1;
+  while (2 * w <= WIDE_WARPS && 2 * w <= ntiles
+         && 2LL * w * B <= 8LL * sms)
+    w *= 2;
+  *warps = w;
+  const long long bytes = 8LL * w * R;
+  *global = bytes + WIDE_STATIC > optin;
+  *smem = *global ? 0 : static_cast<int>(bytes);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sw_vector_wide_kernel<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
 }
 
 // Threads per block of the narrow kernel for B pairs of L lanes: THREADS,
@@ -268,21 +363,6 @@ int launch(const void* genome, const void* g_row0, const void* glen,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide kernel's dynamic shared memory for windows G wide, and
-// whether H and F go to device memory (they do not fit a block); sets the
-// shared memory limit above 48 KB.
-cudaError_t wide_prepare(int G, int* smem, bool* global) {
-  int optin = 0;
-  cudaError_t e = banded::smem_optin(&optin);
-  if (e != cudaSuccess) return e;
-  *global = wide_smem(G) > optin;
-  *smem = *global ? 0 : static_cast<int>(wide_smem(G));
-  if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(sw_vector_wide_kernel<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              *smem);
-}
-
 template <int GMAX, int L>
 int narrow_config(int B, int* o) {
   int threads = THREADS;
@@ -297,10 +377,10 @@ int narrow_config(int B, int* o) {
 // i32, read [B, R] u8, rlen [B] i32 -> out [B] i32. goa/gob are open +
 // extend costs and gea/geb extend costs, all as positive penalties.
 // G <= 256 takes the narrow kernel (a segment of lanes per pair), wider
-// windows the warp-per-pair kernel; `scratch` is the device memory of
+// windows the tiled kernel; `scratch` is the device memory of
 // sw_vector_scratch's size (null when that is 0). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for G < 1,
-// or a null scratch where the wide kernel needs one).
+// or a null scratch where the tiled kernel needs one).
 extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
                                 const void* glen, const void* read,
                                 const void* rlen, void* out, int B, int G,
@@ -319,56 +399,55 @@ extern "C" int sw_vector_launch(const void* genome, const void* g_row0,
   if (G <= 256)
     return launch<256, LANES_256>(genome, g_row0, glen, read, rlen, out, B,
                                   G, R, m, mm, goa, gea, gob, geb, st);
-  int smem = 0;
+  int warps = 1, smem = 0;
   bool global = false;
-  const cudaError_t e = wide_prepare(G, &smem, &global);
+  const cudaError_t e = wide_prepare(B, G, R, &warps, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (global && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = global ? sw_vector_wide_kernel<true>
                        : sw_vector_wide_kernel<false>;
-  kernel<<<B, 32, smem, st>>>(
+  kernel<<<B, 32 * warps, smem, st>>>(
       static_cast<const uint8_t*>(genome),
       static_cast<const uint8_t*>(g_row0),
       static_cast<const int32_t*>(glen), static_cast<const uint8_t*>(read),
       static_cast<const int32_t*>(rlen), static_cast<int32_t*>(out),
-      static_cast<int*>(scratch), G, R, m, mm, goa, gea, gob, geb);
+      static_cast<int2*>(scratch), G, R, m, mm, goa, gea, gob, geb);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The device memory, in bytes, that a launch of B pairs of G columns
-// needs beside its output, into *(long long*)out: the wide kernel's H
-// and F where they do not fit a block's shared memory, else 0. (R is
-// not read.) Returns a cudaError_t.
+// and R rows needs beside its output, into *(long long*)out: the tiled
+// kernel's edge buffers (8 bytes a row, a buffer a warp) where they do
+// not fit a block's shared memory, else 0. Returns a cudaError_t.
 extern "C" int sw_vector_scratch(int B, int G, int R, void* out) {
-  (void)R;
   long long* o = static_cast<long long*>(out);
   *o = 0;
   if (G <= 256 || B <= 0) return 0;
-  int smem = 0;
+  int warps = 1, smem = 0;
   bool global = false;
-  const cudaError_t e = wide_prepare(G, &smem, &global);
-  if (global) *o = 8LL * G * B;
+  const cudaError_t e = wide_prepare(B, G, R, &warps, &smem, &global);
+  if (global) *o = 8LL * warps * R * B;
   return static_cast<int>(e);
 }
 
-// The launch configuration of B pairs of G columns (R is not read; the
+// The launch configuration of B pairs of G columns and R rows (the
 // signature is every <kernel>_config's): out[0..5] = pairs per block,
 // threads per pair, dynamic shared memory bytes per block, resident
 // blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// registers per thread and local (spill) bytes per thread, of the
-// kernel that sw_vector_launch takes for G. Returns a cudaError_t.
+// registers per thread and local (spill) bytes per thread, of the kernel
+// that sw_vector_launch takes for G. Returns a cudaError_t.
 extern "C" int sw_vector_config(int B, int G, int R, void* out) {
   if (G < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(out);
   if (G <= 64) return narrow_config<64, LANES_64>(B, o);
   if (G <= 128) return narrow_config<128, LANES_128>(B, o);
   if (G <= 256) return narrow_config<256, LANES_256>(B, o);
-  int smem = 0;
+  int warps = 1, smem = 0;
   bool global = false;
-  const cudaError_t e = wide_prepare(G, &smem, &global);
+  const cudaError_t e = wide_prepare(B, G, R, &warps, &smem, &global);
   if (e != cudaSuccess) return static_cast<int>(e);
   return banded::config(global ? sw_vector_wide_kernel<true>
                                : sw_vector_wide_kernel<false>,
-                        32, 32, smem, o);
+                        32 * warps, 32 * warps, smem, o);
 }

@@ -331,16 +331,19 @@ def test_cuda_cs_kernels_match_plain(local, taboo, B, R, G):
     pytest.param(1024, 256, 352, (256, 256, 352), id="g352"),
     pytest.param(64, 1000, 1408, (16, 1000, 1408), id="g1408"),
     pytest.param(8, 64, 110_592, (4, 16, 115_200),
-                 id="g110592-device-memory")])
+                 id="g110592-device-memory"),
+    pytest.param(1, 1000, 1408, (1, 1000, 1408), id="g1408-1-pair"),
+    pytest.param(47, 1000, 1408, (4, 1000, 1408), id="g1408-47-pairs")])
 def test_cuda_cs_kernels_match_plain_past_256(B, R, G, walks):
     """The 4-layer DP and the traceback on the card against their plain
     versions (tolerance 0) on windows past the strip kernel's 256
-    columns: the launches of 250- and 1000-colour reads, and a width past
-    both kernels' shared-memory fit (the DP's row buffers in device
-    memory, the traceback's window, layers and steps read and written in
-    place); global and local, taboo 0 and 4, a quarter of the pairs at
-    the edge bands; the traceback also on dataset.cs_walk_pairs at
-    `walks`."""
+    columns: the launches of 250- and 1000-colour reads (one pair and 47,
+    the generic mapper's launch, as well: the wide DP's column groups),
+    and a width past both kernels' shared-memory fit (the DP's row
+    buffers in device memory, the traceback's window, layers and steps
+    read and written in place); global and local, taboo 0 and 4, a
+    quarter of the pairs at the edge bands; the traceback also on
+    dataset.cs_walk_pairs at `walks`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from shrimp_tpu_torch import _build

@@ -243,22 +243,28 @@ def test_long_wrappers_raise_off_cpu_without_kernel():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,R,G", [(4096, 256, 352), (256, 1000, 1408),
-                                   (32, 3000, 4224), (4, 256, 182_272)])
+                                   (32, 3000, 4224), (4, 256, 182_272),
+                                   (1, 3000, 4224), (47, 1000, 1408),
+                                   (2, 4000, 5632)])
 def test_cuda_long_kernels_match_plain(B, R, G):
     """sw_vector, sw_full_bp and the traceback on the card against their
     plain versions (tolerance 0) at the long-read launch shapes (250,
-    1000 and 3000 bp: past the packed flow's 4,095 columns), and at a
-    width past the three kernels' shared-memory fit, where their
-    device-memory path runs; with edge bands and, in the last eighth of
-    the pairs, gaps longer than 32 columns."""
+    1000 and 3000 bp: past the packed flow's 4,095 columns), at one and
+    47 pairs (the tiled vector SW spreads a pair over several warps), at a
+    width past the full SW's and the traceback's shared-memory fit, and
+    at a length past the vector SW's (its edge buffers grow with R: 8
+    warps x 4,000 rows), where their device-memory paths run; with edge
+    bands and, in the last eighth of the pairs, gaps longer than 32
+    columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from shrimp_tpu_torch import _build
     dev = torch.device("cuda", 0)
     with torch.cuda.device(dev):
         for k in ("sw_vector", "sw_full_bp", "ls_traceback"):
-            assert ((_build.scratch(k, B, G, R, dev) is not None)
-                    == (G > 100_000)), k
+            past = ((B, R, G) == (2, 4000, 5632) if k == "sw_vector"
+                    else G > 100_000)
+            assert (_build.scratch(k, B, G, R, dev) is not None) == past, k
     a = _with_long_gaps(_mk(G + R, B, G, R, edge=True),
                         B - max(1, B // 8), G)
     t = [x.to(dev) for x in _t(a)]
