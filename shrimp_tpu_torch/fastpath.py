@@ -50,13 +50,11 @@ later rejected batch goes through the generic mapper inside the stream
 from __future__ import annotations
 
 import ctypes
-import time as _time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from . import constants as C
 from .config import MapperConfig, abs_or_pct
@@ -68,6 +66,7 @@ from .core._args import MAX_G
 from .core.sw import (sw_vec_full_stats_from_index, sw_vec_full_stats_packed,
                       sw_vec_full_tb_from_index, sw_vec_full_tb_packed)
 from .mapper import FULL_BATCH, FULL_BUCKETS, _round_up
+from .utils import spans
 
 # windows per read at or above which a batch takes the two-phase
 # dispatch (the vector SW on every window, then the full SW on the
@@ -419,15 +418,14 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
               b_gap_open=sc.b_gap_open, b_gap_ext=sc.b_gap_extend,
               local_alignment=False)
     stats_flow = _stats_flow_enabled(G)
-    dev = m.device
     if packed_io:
         fn = sw_vec_full_stats_packed if stats_flow else sw_vec_full_tb_packed
         kw.update(L=L, cat_words=m._dev_cat_words())
-        rtab_dev = torch.from_numpy(_pack_rtab(read_tab)).to(dev)
+        rtab_dev = m._upload(_pack_rtab(read_tab))
     else:
         fn = (sw_vec_full_stats_from_index if stats_flow
               else sw_vec_full_tb_from_index)
-        rtab_dev = torch.from_numpy(read_tab).to(dev)
+        rtab_dev = m._upload(read_tab)
     two_phase = (n_reads is not None
                  and n >= LS_TWO_PHASE_WPR * max(n_reads, 1))
     eff_batch = LS_VEC_BATCH if two_phase else FULL_BATCH
@@ -439,9 +437,8 @@ def _fused_dispatch(m, fh, read_tab: np.ndarray, L: int, R: int,
         k = min(n - off, eff_batch)
         args = _launch_args(win, slice(off, off + k), k,
                             _chunk_bucket(k, eff_batch), L, packed_io)
-        res = fn(m._dev_codes(), m._dev_codes_rc(),
-                 torch.from_numpy(args).to(dev), rtab_dev, **kw,
-                 **(dict(phase="vec") if two_phase else {}))
+        res = fn(m._dev_codes(), m._dev_codes_rc(), m._upload(args),
+                 rtab_dev, **kw, **(dict(phase="vec") if two_phase else {}))
         futures.append((off, k, res))
         off += k
     win["packed_io"] = packed_io
@@ -463,33 +460,30 @@ def _tp_run_full(m, tp, win, G: int, rows: np.ndarray, stats_flow: bool,
     launch. Shared by the unpaired pass-1 survivor flow
     (FastLS.stage_finish) and the paired select-then-full flow
     (FastPaired.stage_finish)."""
-    t0 = _time.perf_counter()
     n_jobs = len(rows)
     eff_batch = FULL_BUCKETS[-1] if stats_flow else _tb_batch(R, G)
-    dev = m.device
-    futures = []
-    for off in range(0, n_jobs, eff_batch):
-        k = min(n_jobs - off, eff_batch)
-        args = _launch_args(win, rows[off:off + k], k,
-                            _chunk_bucket(k, eff_batch), L,
-                            win["packed_io"])
-        futures.append((off, k, tp["fn"](
-            m._dev_codes(), m._dev_codes_rc(),
-            torch.from_numpy(args).to(dev), tp["rtab_dev"], **tp["kw"],
-            phase="full")))
-    if stats_flow:
-        out = np.empty((n_jobs, 7), np.int32)
-        for off, k, res in futures:
-            out[off:off + k] = _stats_rows(res, k, win["packed_io"])[1]
-    else:
-        W = (R + G + 3) // 4
-        out = (np.empty((n_jobs, 10), np.int32),
-               np.empty((n_jobs, W), np.uint8))
-        for off, k, (pk, opk) in futures:
-            out[0][off:off + k] = pk[:k].cpu().numpy()
-            out[1][off:off + k] = opk[:k].cpu().numpy()
-    m.tally("device full (2ph)", _time.perf_counter() - t0,
-            full_invocs=n_jobs,
+    with m.span("device full (2ph)"):
+        futures = []
+        for off in range(0, n_jobs, eff_batch):
+            k = min(n_jobs - off, eff_batch)
+            args = _launch_args(win, rows[off:off + k], k,
+                                _chunk_bucket(k, eff_batch), L,
+                                win["packed_io"])
+            futures.append((off, k, tp["fn"](
+                m._dev_codes(), m._dev_codes_rc(), m._upload(args),
+                tp["rtab_dev"], **tp["kw"], phase="full")))
+        if stats_flow:
+            out = np.empty((n_jobs, 7), np.int32)
+            for off, k, res in futures:
+                out[off:off + k] = _stats_rows(res, k, win["packed_io"])[1]
+        else:
+            W = (R + G + 3) // 4
+            out = (np.empty((n_jobs, 10), np.int32),
+                   np.empty((n_jobs, W), np.uint8))
+            for off, k, (pk, opk) in futures:
+                out[0][off:off + k] = pk[:k].cpu().numpy()
+                out[1][off:off + k] = opk[:k].cpu().numpy()
+    m.tally(full_invocs=n_jobs,
             full_cells=int(fh.w_len[rows].astype(np.int64).sum()) * L)
     return out
 
@@ -595,7 +589,8 @@ class FastLS:
             region_bits=cfg.region_bits,
             region_overlap=cfg.region_overlap,
             collapse=opts.anchor_list.collapse, gapless=False,
-            search_strands=(True, True), threads=self.f1_threads)
+            search_strands=(True, True), threads=self.f1_threads,
+            tally=m.tally)
 
     # ---------------------------------------------------------- stage A
     def stage_prepare(self, records: Sequence[SeqRecord],
@@ -606,115 +601,111 @@ class FastLS:
         table to a fixed row count."""
         m = self.m
         cfg = m.config
-        t0 = _time.perf_counter()
-        if not records:
-            return None
-        has_qual = any(r.qual is not None for r in records)
-        L = len(records[0].seq)
-        if L == 0 or L > cfg.longest_read_len:
-            return None
-        try:
-            buf = "".join(r.seq for r in records).encode("ascii")
-        except UnicodeEncodeError:
-            return None
-        B = len(records)
-        if len(buf) != B * L:
-            return None
-        raw = np.frombuffer(buf, np.uint8).reshape(B, L)
-        qual_fwd = qual_rc = qual_raw = None
-        if has_qual:
-            try:
-                qbuf = "".join(r.qual for r in records).encode("ascii")
-            except (UnicodeEncodeError, TypeError):
+        with m.span("read prep"):
+            if not records:
                 return None
-            if len(qbuf) != B * L:
-                return None   # mixed/missing quals: generic path
-            qarr = np.frombuffer(qbuf, np.uint8).reshape(B, L)
-            qv = qarr.astype(np.int32) - cfg.qual_delta
-            if not cfg.ignore_qvs and not cfg.no_qv_check:
-                # PHRED offset sanity check (gmapper.c:464-473)
-                bad = (qv < -10) | (qv > 50)
-                if bad.any():
-                    q0 = int(qv[bad][0])
-                    raise ValueError(
-                        "The qv-offset might be set incorrectly! "
-                        "Currently qvs are interpreted as PHRED+"
-                        f"{cfg.qual_delta} and a qv of {q0} was "
-                        "observed.")
-            if not cfg.ignore_qvs and cfg.min_avg_qv >= 0:
-                # average-qv read drop (gmapper.c:455-462; C int division)
-                s = qv.sum(axis=1, dtype=np.int64)
-                avg = np.where(s < 0, -((-s) // L), s // L)
-                keep = avg >= cfg.min_avg_qv
-                if not keep.all():
-                    records = [r for r, k in zip(records, keep) if k]
-                    if not records:
-                        return dict(B=0)
-                    raw = np.ascontiguousarray(raw[keep])
-                    qarr = np.ascontiguousarray(qarr[keep])
-                    B = len(records)
-            qual_raw = np.ascontiguousarray(qarr)  # unrescaled (for
-            # the sam-unaligned records, output.c:419-421)
-            if cfg.qual_delta != 33:
-                # rescale to PHRED+33 (output.c:562-568)
-                qarr = (qarr.astype(np.int32) - cfg.qual_delta + 33
-                        ).astype(np.uint8)
-            qual_fwd = np.ascontiguousarray(qarr)
-            qual_rc = np.ascontiguousarray(qarr[:, ::-1])
-        codes16 = C.CHAR_TO_INT[raw]
-        if (codes16 < 0).any():
-            return None
-        codes = codes16.astype(np.uint8)
-        rc = C.COMPLEMENT[codes[:, ::-1]]
-        # SAM SEQ blobs
-        seq_fwd = np.ascontiguousarray(_CLEAN_LUT[raw])
-        seq_rc = np.ascontiguousarray(_COMP_LUT[seq_fwd[:, ::-1]])
-        offs = np.empty(B + 1, np.int64)
-        offs[0] = 0
-        parts = []
-        for i, r in enumerate(records):
-            parts.append(r.name.encode())
-            offs[i + 1] = offs[i] + len(parts[-1])
-        nm_blob = np.frombuffer(b"".join(parts), np.uint8).copy() \
-            if parts else np.zeros(1, np.uint8)
-        wlen = int(abs_or_pct(cfg.window_len, L))
-        m.tally("read prep", _time.perf_counter() - t0)
-        t1 = _time.perf_counter()
-        # interleave strand rows for filter1's owner convention
-        codes2 = np.empty((B, 2, L), np.uint8)
-        codes2[:, 0] = codes
-        codes2[:, 1] = rc
-        fh = self._filter1(codes2, L, wlen)
-        if fh is None:
-            return None
-        m.tally("filter1", _time.perf_counter() - t1)
-        t2 = _time.perf_counter()
-        # Fused filter 2 + SPECULATIVE filter 3: the full-SW DP runs on
-        # every candidate window in the same step as the vector SW, so a
-        # batch pays one host->device->host round trip. The per-batch
-        # read table holds forward rows only: strand-1 windows carry
-        # reverse_hit coordinates and gather from the revcomp plane.
-        Bcap = max(batch_cap or B, B)
-        R = _round_up(L, 8)
-        read_tab = np.full((Bcap, R), 254, np.uint8)
-        read_tab[:B, :L] = codes
-        win = None
-        futures = []
-        G = 16
-        stats_flow = True
-        if fh.n:
-            futures, win, G, stats_flow = (
-                self.dispatch_fn or _fused_dispatch)(
-                m, fh, read_tab, L, R, (fh.owner & 1) == 1, n_reads=B)
-        m.tally("device dispatch", _time.perf_counter() - t2)
+            has_qual = any(r.qual is not None for r in records)
+            L = len(records[0].seq)
+            if L == 0 or L > cfg.longest_read_len:
+                return None
+            try:
+                buf = "".join(r.seq for r in records).encode("ascii")
+            except UnicodeEncodeError:
+                return None
+            B = len(records)
+            if len(buf) != B * L:
+                return None
+            raw = np.frombuffer(buf, np.uint8).reshape(B, L)
+            qual_fwd = qual_rc = qual_raw = None
+            if has_qual:
+                try:
+                    qbuf = "".join(r.qual for r in records).encode("ascii")
+                except (UnicodeEncodeError, TypeError):
+                    return None
+                if len(qbuf) != B * L:
+                    return None   # mixed/missing quals: generic path
+                qarr = np.frombuffer(qbuf, np.uint8).reshape(B, L)
+                qv = qarr.astype(np.int32) - cfg.qual_delta
+                if not cfg.ignore_qvs and not cfg.no_qv_check:
+                    # PHRED offset sanity check (gmapper.c:464-473)
+                    bad = (qv < -10) | (qv > 50)
+                    if bad.any():
+                        q0 = int(qv[bad][0])
+                        raise ValueError(
+                            "The qv-offset might be set incorrectly! "
+                            "Currently qvs are interpreted as PHRED+"
+                            f"{cfg.qual_delta} and a qv of {q0} was "
+                            "observed.")
+                if not cfg.ignore_qvs and cfg.min_avg_qv >= 0:
+                    # average-qv read drop (gmapper.c:455-462; C int division)
+                    s = qv.sum(axis=1, dtype=np.int64)
+                    avg = np.where(s < 0, -((-s) // L), s // L)
+                    keep = avg >= cfg.min_avg_qv
+                    if not keep.all():
+                        records = [r for r, k in zip(records, keep) if k]
+                        if not records:
+                            return dict(B=0)
+                        raw = np.ascontiguousarray(raw[keep])
+                        qarr = np.ascontiguousarray(qarr[keep])
+                        B = len(records)
+                qual_raw = np.ascontiguousarray(qarr)  # unrescaled (for
+                # the sam-unaligned records, output.c:419-421)
+                if cfg.qual_delta != 33:
+                    # rescale to PHRED+33 (output.c:562-568)
+                    qarr = (qarr.astype(np.int32) - cfg.qual_delta + 33
+                            ).astype(np.uint8)
+                qual_fwd = np.ascontiguousarray(qarr)
+                qual_rc = np.ascontiguousarray(qarr[:, ::-1])
+            codes16 = C.CHAR_TO_INT[raw]
+            if (codes16 < 0).any():
+                return None
+            codes = codes16.astype(np.uint8)
+            rc = C.COMPLEMENT[codes[:, ::-1]]
+            # SAM SEQ blobs
+            seq_fwd = np.ascontiguousarray(_CLEAN_LUT[raw])
+            seq_rc = np.ascontiguousarray(_COMP_LUT[seq_fwd[:, ::-1]])
+            offs = np.empty(B + 1, np.int64)
+            offs[0] = 0
+            parts = []
+            for i, r in enumerate(records):
+                parts.append(r.name.encode())
+                offs[i + 1] = offs[i] + len(parts[-1])
+            nm_blob = np.frombuffer(b"".join(parts), np.uint8).copy() \
+                if parts else np.zeros(1, np.uint8)
+            wlen = int(abs_or_pct(cfg.window_len, L))
+        with m.span("filter1"):
+            # interleave strand rows for filter1's owner convention
+            codes2 = np.empty((B, 2, L), np.uint8)
+            codes2[:, 0] = codes
+            codes2[:, 1] = rc
+            fh = self._filter1(codes2, L, wlen)
+            if fh is None:
+                return None
+        with m.span("device dispatch"):
+            # Fused filter 2 + SPECULATIVE filter 3: the full-SW DP runs on
+            # every candidate window in the same step as the vector SW, so a
+            # batch pays one host->device->host round trip. The per-batch
+            # read table holds forward rows only: strand-1 windows carry
+            # reverse_hit coordinates and gather from the revcomp plane.
+            Bcap = max(batch_cap or B, B)
+            R = _round_up(L, 8)
+            read_tab = np.full((Bcap, R), 254, np.uint8)
+            read_tab[:B, :L] = codes
+            win = None
+            futures = []
+            G = 16
+            stats_flow = True
+            if fh.n:
+                futures, win, G, stats_flow = (
+                    self.dispatch_fn or _fused_dispatch)(
+                    m, fh, read_tab, L, R, (fh.owner & 1) == 1, n_reads=B)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
                     G=G, R=R, stats_flow=stats_flow, codes=codes,
                     names=nm_blob, name_off=offs,
                     seq_fwd=seq_fwd, seq_rc=seq_rc,
                     qual_fwd=qual_fwd, qual_rc=qual_rc,
                     qual_raw=qual_raw,
-                    Bcap=Bcap, read_tab=read_tab,
-                    t_dispatch=_time.perf_counter() - t2)
+                    Bcap=Bcap, read_tab=read_tab)
 
     def _unaligned_block(self, ctx, nhits) -> bytes:
         """--sam-unaligned records for the reads in `ctx` with no
@@ -850,87 +841,83 @@ class FastLS:
             m.tally(reads=B)
             return self._unaligned_block(ctx, nhits), nhits
         n = int(fh.n)
-        t0 = _time.perf_counter()
         stats_flow = ctx["stats_flow"]
         tp = ctx["win"].get("two_phase")
-        scores, stats_all, tb_all = _fetch(ctx, n)
-        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
-        m.tally("device fetch", _time.perf_counter() - t0,
-                vec_secs=dev_secs, full_secs=dev_secs)
+        with m.span("device fetch"):
+            scores, stats_all, tb_all = _fetch(ctx, n)
 
         # ---- native pass1 selection over vector scores
-        t0 = _time.perf_counter()
-        sliced = self.read_slice is not None and self.slice_select
-        sel_sl = slice(0, n)
-        if sliced:
-            # read sharding at full depth: pass-1 selection, the vector
-            # gate, the expansion and the render run on this rank's read
-            # slice only. Window rows are owner-major, so the slice's rows
-            # are one span (seg_start bounds); each sliced read's windows
-            # span every shard (the allgather ran before this), so its
-            # MQV denominator is whole without a merge
-            lo_s, hi_s = self.read_slice
-            sel_sl = slice(int(fh.seg_start[min(2 * lo_s, 2 * B)]),
-                           int(fh.seg_start[min(2 * hi_s, 2 * B)]))
-            n = sel_sl.stop - sel_sl.start
-            if n == 0:
-                return self._no_jobs(ctx, nhits)
-        opts = m._unpaired_opts[0].pass1
-        cap = max(n, 1)
-        sel = {k: np.empty(cap, dt) for k, dt in
-               (("ri", np.int32), ("gen_st", np.int8), ("cn", np.int32),
-                ("g_off", np.int64), ("w_len", np.int32),
-                ("score_max", np.int64), ("ax", np.int64),
-                ("ay", np.int64), ("alen", np.int64), ("awid", np.int64),
-                ("score_vector", np.int64), ("src", np.int64),
-                ("matches", np.int32), ("swg", np.int64))}
-        seg = np.zeros(B + 1, np.int64)
-        p1 = _P1Params(
-            n, 2 * B, L, wlen,
-            int(abs_or_pct(opts.window_overlap, wlen)),
-            float(opts.threshold), opts.min_matches, opts.num_outputs,
-            1, self.contig_lengths32.ctypes.data)
-        arrs = dict(owner=np.ascontiguousarray(fh.owner[sel_sl], np.int64),
-                    cn=np.ascontiguousarray(fh.cn[sel_sl], np.int32),
-                    g_off=np.ascontiguousarray(fh.g_off[sel_sl], np.int64),
-                    w_len=np.ascontiguousarray(fh.w_len[sel_sl], np.int32),
-                    matches=np.ascontiguousarray(fh.matches[sel_sl],
-                                                 np.int32),
-                    score_max=np.ascontiguousarray(fh.score_max[sel_sl],
-                                                   np.int64),
-                    ax=np.ascontiguousarray(fh.ax[sel_sl], np.int64),
-                    ay=np.ascontiguousarray(fh.ay[sel_sl], np.int64),
-                    alen=np.ascontiguousarray(fh.alen[sel_sl], np.int64),
-                    awid=np.ascontiguousarray(fh.awid[sel_sl], np.int64),
-                    scores=np.ascontiguousarray(scores[sel_sl]),
-                    swg=np.ascontiguousarray(fh.score_window_gen[sel_sl],
-                                             np.int64))
-        p1in = _P1In(**{k: _vp(v) for k, v in arrs.items()})
-        p1out = _P1Out(cap, *[_vp(sel[k]) for k in
-                              ("ri", "gen_st", "cn", "g_off", "w_len",
-                               "score_max", "ax", "ay", "alen",
-                               "awid", "score_vector")],
-                       _vp(seg), _vp(sel["src"]),
-                       _vp(sel["matches"]), _vp(sel["swg"]))
-        n_sel = int(self.lib.pass1_select(ctypes.byref(p1),
-                                          ctypes.byref(p1in),
-                                          ctypes.byref(p1out)))
-        if n_sel < 0:
-            raise RuntimeError(f"pass1_select failed ({n_sel})")
+        with m.span("pass1 select"):
+            sliced = self.read_slice is not None and self.slice_select
+            sel_sl = slice(0, n)
+            if sliced:
+                # read sharding at full depth: pass-1 selection, the vector
+                # gate, the expansion and the render run on this rank's read
+                # slice only. Window rows are owner-major, so the slice's rows
+                # are one span (seg_start bounds); each sliced read's windows
+                # span every shard (the allgather ran before this), so its
+                # MQV denominator is whole without a merge
+                lo_s, hi_s = self.read_slice
+                sel_sl = slice(int(fh.seg_start[min(2 * lo_s, 2 * B)]),
+                               int(fh.seg_start[min(2 * hi_s, 2 * B)]))
+                n = sel_sl.stop - sel_sl.start
+                if n == 0:
+                    return self._no_jobs(ctx, nhits)
+            opts = m._unpaired_opts[0].pass1
+            cap = max(n, 1)
+            sel = {k: np.empty(cap, dt) for k, dt in
+                   (("ri", np.int32), ("gen_st", np.int8), ("cn", np.int32),
+                    ("g_off", np.int64), ("w_len", np.int32),
+                    ("score_max", np.int64), ("ax", np.int64),
+                    ("ay", np.int64), ("alen", np.int64), ("awid", np.int64),
+                    ("score_vector", np.int64), ("src", np.int64),
+                    ("matches", np.int32), ("swg", np.int64))}
+            seg = np.zeros(B + 1, np.int64)
+            p1 = _P1Params(
+                n, 2 * B, L, wlen,
+                int(abs_or_pct(opts.window_overlap, wlen)),
+                float(opts.threshold), opts.min_matches, opts.num_outputs,
+                1, self.contig_lengths32.ctypes.data)
+            arrs = dict(owner=np.ascontiguousarray(fh.owner[sel_sl], np.int64),
+                        cn=np.ascontiguousarray(fh.cn[sel_sl], np.int32),
+                        g_off=np.ascontiguousarray(fh.g_off[sel_sl], np.int64),
+                        w_len=np.ascontiguousarray(fh.w_len[sel_sl], np.int32),
+                        matches=np.ascontiguousarray(fh.matches[sel_sl],
+                                                     np.int32),
+                        score_max=np.ascontiguousarray(fh.score_max[sel_sl],
+                                                       np.int64),
+                        ax=np.ascontiguousarray(fh.ax[sel_sl], np.int64),
+                        ay=np.ascontiguousarray(fh.ay[sel_sl], np.int64),
+                        alen=np.ascontiguousarray(fh.alen[sel_sl], np.int64),
+                        awid=np.ascontiguousarray(fh.awid[sel_sl], np.int64),
+                        scores=np.ascontiguousarray(scores[sel_sl]),
+                        swg=np.ascontiguousarray(fh.score_window_gen[sel_sl],
+                                                 np.int64))
+            p1in = _P1In(**{k: _vp(v) for k, v in arrs.items()})
+            p1out = _P1Out(cap, *[_vp(sel[k]) for k in
+                                  ("ri", "gen_st", "cn", "g_off", "w_len",
+                                   "score_max", "ax", "ay", "alen",
+                                   "awid", "score_vector")],
+                           _vp(seg), _vp(sel["src"]),
+                           _vp(sel["matches"]), _vp(sel["swg"]))
+            n_sel = int(self.lib.pass1_select(ctypes.byref(p1),
+                                              ctypes.byref(p1in),
+                                              ctypes.byref(p1out)))
+            if n_sel < 0:
+                raise RuntimeError(f"pass1_select failed ({n_sel})")
 
-        # pass2 vector-score gate (read_pass2 threshold pre-check)
-        thr = cfg.sw_full_threshold
-        if n_sel:
-            smax = sel["score_max"][:n_sel]
-            if thr < 0:
-                thresh = np.full(n_sel, int(-thr), np.int64)
+            # pass2 vector-score gate (read_pass2 threshold pre-check)
+            thr = cfg.sw_full_threshold
+            if n_sel:
+                smax = sel["score_max"][:n_sel]
+                if thr < 0:
+                    thresh = np.full(n_sel, int(-thr), np.int64)
+                else:
+                    thresh = (smax * (thr / 100.0)).astype(np.int64)
+                jsel = np.nonzero(sel["score_vector"][:n_sel] >= thresh)[0]
             else:
-                thresh = (smax * (thr / 100.0)).astype(np.int64)
-            jsel = np.nonzero(sel["score_vector"][:n_sel] >= thresh)[0]
-        else:
-            jsel = np.zeros(0, np.int64)
-        n_jobs = len(jsel)
-        m.tally("pass1 select", _time.perf_counter() - t0)
+                jsel = np.zeros(0, np.int64)
+            n_jobs = len(jsel)
         if n_jobs == 0:
             return self._no_jobs(ctx, nhits)
         jobs = {k: np.ascontiguousarray(sel[k][:n_sel][jsel]) for k in
@@ -943,19 +930,18 @@ class FastLS:
             # survivors only
             out2 = _tp_run_full(m, tp, ctx["win"], ctx["G"], rows,
                                 stats_flow, fh, L, ctx["R"])
-        t0 = _time.perf_counter()
-        if stats_flow:
-            packed, ops_pk, W = self._stats_to_packed(
-                out2 if tp is not None else stats_all[rows],
-                _expand_ctx(ctx, rows, jobs, sliced))
-        elif tp is not None:
-            packed, ops_pk = out2
-            W = ops_pk.shape[1]
-        else:
-            packed = np.ascontiguousarray(tb_all[0][rows])
-            ops_pk = np.ascontiguousarray(tb_all[1][rows])
-            W = ops_pk.shape[1]
-        m.tally("alignment expand", _time.perf_counter() - t0)
+        with m.span("alignment expand"):
+            if stats_flow:
+                packed, ops_pk, W = self._stats_to_packed(
+                    out2 if tp is not None else stats_all[rows],
+                    _expand_ctx(ctx, rows, jobs, sliced))
+            elif tp is not None:
+                packed, ops_pk = out2
+                W = ops_pk.shape[1]
+            else:
+                packed = np.ascontiguousarray(tb_all[0][rows])
+                ops_pk = np.ascontiguousarray(tb_all[1][rows])
+                W = ops_pk.shape[1]
         if sliced:
             self.last_slice_jobs += n_jobs
         elif self.read_slice is not None:
@@ -973,76 +959,76 @@ class FastLS:
             self.last_slice_jobs += n_jobs
             if n_jobs == 0:
                 return self._no_jobs(ctx, nhits)
-        t1 = _time.perf_counter()
-        cal = m.cal
-        fr = _FRParams(
-            n_jobs, B, L, W, float(cfg.sw_full_threshold),
-            cfg.num_outputs, int(cfg.strata), cfg.max_alignments,
-            int(cfg.single_best_mapping),
-            int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
-            self.contig_lengths32.ctypes.data,
-            self.contig_name_off.ctypes.data,
-            self.contig_names_blob.ctypes.data,
-            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
-            ctx["seq_fwd"].ctypes.data, ctx["seq_rc"].ctypes.data,
-            ctx["qual_fwd"].ctypes.data
-            if ctx.get("qual_fwd") is not None else None,
-            ctx["qual_rc"].ctypes.data
-            if ctx.get("qual_rc") is not None else None,
-            None)
-        # renderer-level flags (output.c:227-774, native renderer)
-        rg_bytes = None
-        if cfg.read_group_name:
-            rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
-            fr.rg = ctypes.cast(ctypes.c_char_p(rg_bytes),
-                                ctypes.c_void_p)
-            fr.rg_len = len(rg_bytes)
-        fr.all_contigs = int(cfg.all_contigs)
-        fr.sam_unaligned = int(cfg.sam_unaligned)
-        fr.extra_sam = int(cfg.extra_sam_fields)
-        if cfg.extra_sam_fields:
-            idx0 = m.index
-            if idx0.codes is None:
-                # the multi-process tier: no rank holds the whole genome
-                # the ZE field is built from
-                raise ValueError("--extra-sam-fields needs the whole "
-                                 "genome on the host")
-            fr.genome = idx0.codes.ctypes.data
-            fr.genome_rc = idx0.codes_rc.ctypes.data
-            fr.contig_offsets = self.contig_offsets32.ctypes.data
-        if cfg.sam_unaligned:
-            if ctx.get("qual_raw") is not None:
-                fr.qual_raw = ctx["qual_raw"].ctypes.data
-            fr.una_lo, fr.una_hi = self.read_slice or (0, B)
-        if self.surv_post is not None:
-            # each emitted alignment's posterior at its job index
-            self.surv_post = np.zeros(n_jobs, np.float64)
-            self.last_rows = rows
-            self.last_ri = jobs["ri"]
-            fr.surv_post = self.surv_post.ctypes.data
-        frj = _FRJobs(_vp(jobs["ri"]), _vp(jobs["cn"]),
-                      _vp(jobs["gen_st"]), _vp(jobs["g_off"]),
-                      _vp(jobs["score_max"]), _vp(packed), _vp(ops_pk),
-                      _vp(jobs["matches"]), _vp(jobs["swg"]),
-                      _vp(jobs["score_vector"]))
-        cap = n_jobs * (2 * L + 224) + 4096
-        if self.z1_merge_hook is not None:
-            # a first pass writes the posteriors of the alignments that
-            # enter z1 (the per-shard partials), the hook merges them
-            # across shards, and the render below divides by the merged
-            # z1 (MAPPING_QUALITIES Part 1c)
-            sp = np.zeros(n_jobs, np.float64)
-            fr.surv_post = sp.ctypes.data
-            _finalize_render(self.lib, fr, frj, cap, nhits)
-            fr.surv_post = None
-            z1m = np.ascontiguousarray(
-                self.z1_merge_hook(sp, jobs["ri"], rows, B), np.float64)
-            if z1m.shape != (B,):
-                raise ValueError(f"z1_merge_hook returned {z1m.shape}, "
-                                 f"not ({B},)")
-            fr.ext_z1 = z1m.ctypes.data
-        buf, nb = _finalize_render(self.lib, fr, frj, cap, nhits)
-        m.tally("finalize + render", _time.perf_counter() - t1, reads=B,
+        with m.span("finalize + render"):
+            cal = m.cal
+            fr = _FRParams(
+                n_jobs, B, L, W, float(cfg.sw_full_threshold),
+                cfg.num_outputs, int(cfg.strata), cfg.max_alignments,
+                int(cfg.single_best_mapping),
+                int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
+                self.contig_lengths32.ctypes.data,
+                self.contig_name_off.ctypes.data,
+                self.contig_names_blob.ctypes.data,
+                ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+                ctx["seq_fwd"].ctypes.data, ctx["seq_rc"].ctypes.data,
+                ctx["qual_fwd"].ctypes.data
+                if ctx.get("qual_fwd") is not None else None,
+                ctx["qual_rc"].ctypes.data
+                if ctx.get("qual_rc") is not None else None,
+                None)
+            # renderer-level flags (output.c:227-774, native renderer)
+            rg_bytes = None
+            if cfg.read_group_name:
+                rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
+                fr.rg = ctypes.cast(ctypes.c_char_p(rg_bytes),
+                                    ctypes.c_void_p)
+                fr.rg_len = len(rg_bytes)
+            fr.all_contigs = int(cfg.all_contigs)
+            fr.sam_unaligned = int(cfg.sam_unaligned)
+            fr.extra_sam = int(cfg.extra_sam_fields)
+            if cfg.extra_sam_fields:
+                idx0 = m.index
+                if idx0.codes is None:
+                    # the multi-process tier: no rank holds the whole genome
+                    # the ZE field is built from
+                    raise ValueError("--extra-sam-fields needs the whole "
+                                     "genome on the host")
+                fr.genome = idx0.codes.ctypes.data
+                fr.genome_rc = idx0.codes_rc.ctypes.data
+                fr.contig_offsets = self.contig_offsets32.ctypes.data
+            if cfg.sam_unaligned:
+                if ctx.get("qual_raw") is not None:
+                    fr.qual_raw = ctx["qual_raw"].ctypes.data
+                fr.una_lo, fr.una_hi = self.read_slice or (0, B)
+            if self.surv_post is not None:
+                # each emitted alignment's posterior at its job index
+                self.surv_post = np.zeros(n_jobs, np.float64)
+                self.last_rows = rows
+                self.last_ri = jobs["ri"]
+                fr.surv_post = self.surv_post.ctypes.data
+            frj = _FRJobs(_vp(jobs["ri"]), _vp(jobs["cn"]),
+                          _vp(jobs["gen_st"]), _vp(jobs["g_off"]),
+                          _vp(jobs["score_max"]), _vp(packed), _vp(ops_pk),
+                          _vp(jobs["matches"]), _vp(jobs["swg"]),
+                          _vp(jobs["score_vector"]))
+            cap = n_jobs * (2 * L + 224) + 4096
+            if self.z1_merge_hook is not None:
+                # a first pass writes the posteriors of the alignments that
+                # enter z1 (the per-shard partials), the hook merges them
+                # across shards, and the render below divides by the merged
+                # z1 (MAPPING_QUALITIES Part 1c)
+                sp = np.zeros(n_jobs, np.float64)
+                fr.surv_post = sp.ctypes.data
+                _finalize_render(self.lib, fr, frj, cap, nhits)
+                fr.surv_post = None
+                z1m = np.ascontiguousarray(
+                    self.z1_merge_hook(sp, jobs["ri"], rows, B), np.float64)
+                if z1m.shape != (B,):
+                    raise ValueError(f"z1_merge_hook returned {z1m.shape}, "
+                                     f"not ({B},)")
+                fr.ext_z1 = z1m.ctypes.data
+            buf, nb = _finalize_render(self.lib, fr, frj, cap, nhits)
+        m.tally(reads=B,
                 reads_mapped=int((nhits > 0).sum()),
                 alignments=int(nhits.sum()))
         return buf[:nb].tobytes(), nhits
@@ -1173,14 +1159,26 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
     raises NotImplementedError naming its reads. `lanes` > 1 (default
     16) runs that many whole-batch pipelines on worker threads, output
     re-ordered to input order; results are byte-identical to
-    lanes=1."""
+    lanes=1.
+
+    A batch's work on a lane runs under a `lane` span holding its CLI
+    window and batch ids (`utils/spans.py`); batch 0's prepare, which
+    runs here on the caller's thread (as does every prepare with one
+    lane), carries the same ids, and the caller's wait for the next
+    batch in input order is a `result wait` span."""
+    win_id = spans.window()
+
     def prepare(off: int):
         try:
-            return stage_prepare(records[off:off + batch_size],
-                                 batch_cap=batch_size)
+            with spans.ids(win_id, off // batch_size):
+                return stage_prepare(records[off:off + batch_size],
+                                     batch_cap=batch_size)
         except NotImplementedError as e:
             end = min(off + batch_size, len(records)) - 1
             raise NotImplementedError(f"reads {off}..{end}: {e}") from e
+
+    def lane(off: int):
+        return spans.span("lane", window=win_id, batch=off // batch_size)
 
     if not len(records):
         return iter(())
@@ -1196,8 +1194,9 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
         fls.f1_threads = 1
 
         def work(off: int, pre) -> bytes:
-            a = pre if pre is not None else prepare(off)
-            return slow_tail(off) if a is None else stage_finish(a)[0]
+            with lane(off):
+                a = pre if pre is not None else prepare(off)
+                return slow_tail(off) if a is None else stage_finish(a)[0]
 
         def gen_mt():
             offs = list(range(0, len(records), batch_size))
@@ -1210,8 +1209,14 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
                         futs[sub] = ex.submit(work, offs[sub],
                                               first if sub == 0 else None)
                         sub += 1
-                    yield futs.pop(i).result()
+                    with spans.span("result wait", window=win_id, batch=i):
+                        out = futs.pop(i).result()
+                    yield out
         return gen_mt()
+
+    def finish(off: int, a) -> bytes:
+        with lane(off):
+            return slow_tail(off) if a is None else stage_finish(a)[0]
 
     def gen():
         pend, off = first, batch_size
@@ -1220,14 +1225,14 @@ def batch_pipeline(fls: FastLS, stage_prepare, stage_finish,
             if nxt is None and off < len(records):
                 # drain in input order, then the slow batch
                 if pend is not None:
-                    yield stage_finish(pend)[0]
+                    yield finish(off - batch_size, pend)
                     pend = None
-                yield slow_tail(off)
+                yield finish(off, None)
                 off += batch_size
                 continue
             off += batch_size
             if pend is not None:
-                yield stage_finish(pend)[0]
+                yield finish(off - 2 * batch_size, pend)
             pend = nxt
     return gen()
 
@@ -1453,7 +1458,7 @@ def _filter1_paired(m, f1_threads, codes2, L: int, wlen: int, ro,
         region_bits=cfg.region_bits,
         region_overlap=cfg.region_overlap,
         collapse=ro.anchor_list.collapse, gapless=False,
-        search_strands=(True, True), threads=f1_threads,
+        search_strands=(True, True), threads=f1_threads, tally=m.tally,
         **_mp_kw(m, ro, wlen, L, codes2.shape[0]))
 
 
@@ -1515,23 +1520,22 @@ def _select_then_full(m, lib, p, wstruct, pairing, hp, n: int,
     density), which rescue rounds add, at most four, with every row as
     the last net. `stage` names the select pass's stage. Returns
     (buffer, bytes written)."""
-    t0 = _time.perf_counter()
-    cap_sel = int(n_pairs) * 2 * (
-        pairing.pass1_num_outputs + hp.pass1.num_outputs
-        + pairing.pass2_num_outputs) + 8
-    sel_out = np.zeros(cap_sel, np.int32)
-    p.select_only = 1
-    p.sel_out = sel_out.ctypes.data
-    dummy = np.zeros(8, np.uint8)
-    nsel = int(lib.paired_finalize_render(
-        ctypes.byref(p), ctypes.byref(wstruct),
-        dummy.ctypes.data_as(ctypes.c_char_p), 0,
-        _vp(pair_nhits), _vp(read_nhits)))
-    if not 0 <= nsel <= cap_sel:
-        raise RuntimeError(f"paired select pass failed ({nsel})")
-    p.select_only = 0
-    p.sel_out = None
-    m.tally(stage, _time.perf_counter() - t0)
+    with m.span(stage):
+        cap_sel = int(n_pairs) * 2 * (
+            pairing.pass1_num_outputs + hp.pass1.num_outputs
+            + pairing.pass2_num_outputs) + 8
+        sel_out = np.zeros(cap_sel, np.int32)
+        p.select_only = 1
+        p.sel_out = sel_out.ctypes.data
+        dummy = np.zeros(8, np.uint8)
+        nsel = int(lib.paired_finalize_render(
+            ctypes.byref(p), ctypes.byref(wstruct),
+            dummy.ctypes.data_as(ctypes.c_char_p), 0,
+            _vp(pair_nhits), _vp(read_nhits)))
+        if not 0 <= nsel <= cap_sel:
+            raise RuntimeError(f"paired select pass failed ({nsel})")
+        p.select_only = 0
+        p.sel_out = None
     # the full-size arrays the render reads: valid where fv is 1
     full = {}
 
@@ -1632,117 +1636,113 @@ class FastPaired:
         was screened by map_paired_sam_stream)."""
         m = self.m
         cfg = m.config
-        t0 = _time.perf_counter()
-        if not records or len(records) % 2:
-            return None
-        qual_raw = None
-        has_qual = any(r.qual is not None for r in records)
-        L = len(records[0].seq)
-        if L == 0 or L > cfg.longest_read_len:
-            return None
-        try:
-            buf = "".join(r.seq for r in records).encode("ascii")
-        except UnicodeEncodeError:
-            return None
-        B = len(records)
-        if len(buf) != B * L:
-            return None
-        raw = np.frombuffer(buf, np.uint8).reshape(B, L)
-        qual_fwd = qual_rc = None
-        if has_qual:
+        with m.span("read prep"):
+            if not records or len(records) % 2:
+                return None
+            qual_raw = None
+            has_qual = any(r.qual is not None for r in records)
+            L = len(records[0].seq)
+            if L == 0 or L > cfg.longest_read_len:
+                return None
             try:
-                qbuf = "".join(r.qual for r in records).encode("ascii")
-            except (UnicodeEncodeError, TypeError):
+                buf = "".join(r.seq for r in records).encode("ascii")
+            except UnicodeEncodeError:
                 return None
-            if len(qbuf) != B * L:
+            B = len(records)
+            if len(buf) != B * L:
                 return None
-            qarr = np.frombuffer(qbuf, np.uint8).reshape(B, L)
-            qv = qarr.astype(np.int32) - cfg.qual_delta
-            if not cfg.ignore_qvs and not cfg.no_qv_check:
-                bad = (qv < -10) | (qv > 50)
-                if bad.any():
-                    q0 = int(qv[bad][0])
-                    raise ValueError(
-                        "The qv-offset might be set incorrectly! "
-                        "Currently qvs are interpreted as PHRED+"
-                        f"{cfg.qual_delta} and a qv of {q0} was "
-                        "observed.")
-            if not cfg.ignore_qvs and cfg.min_avg_qv >= 0:
-                s = qv.sum(axis=1, dtype=np.int64)
-                avg = np.where(s < 0, -((-s) // L), s // L)
-                if (avg < cfg.min_avg_qv).any():
-                    return None   # pair drops: the generic path's
-            qual_raw = np.ascontiguousarray(qarr)
-            if cfg.qual_delta != 33:
-                qarr = (qarr.astype(np.int32) - cfg.qual_delta + 33
-                        ).astype(np.uint8)
-            qual_fwd = np.ascontiguousarray(qarr)
-            qual_rc = np.ascontiguousarray(qarr[:, ::-1])
-        codes16 = C.CHAR_TO_INT[raw]
-        if (codes16 < 0).any():
-            return None
-        codes = codes16.astype(np.uint8)
-        rc = C.COMPLEMENT[codes[:, ::-1]]
-        seq_fwd = np.ascontiguousarray(_CLEAN_LUT[raw])
-        seq_rc = np.ascontiguousarray(_COMP_LUT[seq_fwd[:, ::-1]])
-        offs = np.empty(B + 1, np.int64)
-        offs[0] = 0
-        parts = []
-        for i, r in enumerate(records):
-            parts.append(r.name.encode())
-            offs[i + 1] = offs[i] + len(parts[-1])
-        nm_blob = np.frombuffer(b"".join(parts), np.uint8).copy() \
-            if parts else np.zeros(1, np.uint8)
-        wlen = int(abs_or_pct(cfg.window_len, L))
-        # per-leg strand flips (read_reverse, gmapper.c:175-186)
-        flip1, flip2 = C.PAIR_REVERSE[cfg.pair_mode]
-        input_strand = np.zeros(B, np.int8)
-        input_strand[0::2] = int(flip1)
-        input_strand[1::2] = int(flip2)
-        codes2 = np.empty((B, 2, L), np.uint8)
-        flipm = input_strand == 1
-        codes2[~flipm, 0] = codes[~flipm]
-        codes2[~flipm, 1] = rc[~flipm]
-        codes2[flipm, 0] = rc[flipm]
-        codes2[flipm, 1] = codes[flipm]
-        m.tally("read prep", _time.perf_counter() - t0)
-        t1 = _time.perf_counter()
-        ro = m._paired_opts[0].read[0]
-        fh = self._filter1_paired(codes2, L, wlen, ro)
-        if fh is None:
-            return None
-        m.tally("filter1", _time.perf_counter() - t1)
-        t2 = _time.perf_counter()
-        R = _round_up(L, 8)
-        Bcap = max(batch_cap or B, B)
-        read_tab = np.full((Bcap, R), 254, np.uint8)
-        read_tab[:B, :L] = codes        # raw forward rows for all legs
-        win = None
-        futures = []
-        G = 16
-        stats_flow = True
-        if fh.n:
-            rcf = (fh.owner & 1).astype(np.int8) != \
-                input_strand[(fh.owner >> 1).astype(np.int64)]
-            # n_reads gates the two-phase dispatch by density (vec-only
-            # now; the full SW later on the rows the native select pass
-            # picks: the reference's lazy full SW); the mesh tiers keep
-            # the fused launch
-            tp_ok = (self.fls.dispatch_fn is None
-                     and self.zpair_merge_hook is None
-                     and self.read_slice is None)
-            futures, win, G, stats_flow = (
-                self.fls.dispatch_fn or _fused_dispatch)(
-                m, fh, read_tab, L, R, rcf, n_reads=B if tp_ok else None)
-        m.tally("device dispatch", _time.perf_counter() - t2)
+            raw = np.frombuffer(buf, np.uint8).reshape(B, L)
+            qual_fwd = qual_rc = None
+            if has_qual:
+                try:
+                    qbuf = "".join(r.qual for r in records).encode("ascii")
+                except (UnicodeEncodeError, TypeError):
+                    return None
+                if len(qbuf) != B * L:
+                    return None
+                qarr = np.frombuffer(qbuf, np.uint8).reshape(B, L)
+                qv = qarr.astype(np.int32) - cfg.qual_delta
+                if not cfg.ignore_qvs and not cfg.no_qv_check:
+                    bad = (qv < -10) | (qv > 50)
+                    if bad.any():
+                        q0 = int(qv[bad][0])
+                        raise ValueError(
+                            "The qv-offset might be set incorrectly! "
+                            "Currently qvs are interpreted as PHRED+"
+                            f"{cfg.qual_delta} and a qv of {q0} was "
+                            "observed.")
+                if not cfg.ignore_qvs and cfg.min_avg_qv >= 0:
+                    s = qv.sum(axis=1, dtype=np.int64)
+                    avg = np.where(s < 0, -((-s) // L), s // L)
+                    if (avg < cfg.min_avg_qv).any():
+                        return None   # pair drops: the generic path's
+                qual_raw = np.ascontiguousarray(qarr)
+                if cfg.qual_delta != 33:
+                    qarr = (qarr.astype(np.int32) - cfg.qual_delta + 33
+                            ).astype(np.uint8)
+                qual_fwd = np.ascontiguousarray(qarr)
+                qual_rc = np.ascontiguousarray(qarr[:, ::-1])
+            codes16 = C.CHAR_TO_INT[raw]
+            if (codes16 < 0).any():
+                return None
+            codes = codes16.astype(np.uint8)
+            rc = C.COMPLEMENT[codes[:, ::-1]]
+            seq_fwd = np.ascontiguousarray(_CLEAN_LUT[raw])
+            seq_rc = np.ascontiguousarray(_COMP_LUT[seq_fwd[:, ::-1]])
+            offs = np.empty(B + 1, np.int64)
+            offs[0] = 0
+            parts = []
+            for i, r in enumerate(records):
+                parts.append(r.name.encode())
+                offs[i + 1] = offs[i] + len(parts[-1])
+            nm_blob = np.frombuffer(b"".join(parts), np.uint8).copy() \
+                if parts else np.zeros(1, np.uint8)
+            wlen = int(abs_or_pct(cfg.window_len, L))
+            # per-leg strand flips (read_reverse, gmapper.c:175-186)
+            flip1, flip2 = C.PAIR_REVERSE[cfg.pair_mode]
+            input_strand = np.zeros(B, np.int8)
+            input_strand[0::2] = int(flip1)
+            input_strand[1::2] = int(flip2)
+            codes2 = np.empty((B, 2, L), np.uint8)
+            flipm = input_strand == 1
+            codes2[~flipm, 0] = codes[~flipm]
+            codes2[~flipm, 1] = rc[~flipm]
+            codes2[flipm, 0] = rc[flipm]
+            codes2[flipm, 1] = codes[flipm]
+        with m.span("filter1"):
+            ro = m._paired_opts[0].read[0]
+            fh = self._filter1_paired(codes2, L, wlen, ro)
+            if fh is None:
+                return None
+        with m.span("device dispatch"):
+            R = _round_up(L, 8)
+            Bcap = max(batch_cap or B, B)
+            read_tab = np.full((Bcap, R), 254, np.uint8)
+            read_tab[:B, :L] = codes        # raw forward rows for all legs
+            win = None
+            futures = []
+            G = 16
+            stats_flow = True
+            if fh.n:
+                rcf = (fh.owner & 1).astype(np.int8) != \
+                    input_strand[(fh.owner >> 1).astype(np.int64)]
+                # n_reads gates the two-phase dispatch by density (vec-only
+                # now; the full SW later on the rows the native select pass
+                # picks: the reference's lazy full SW); the mesh tiers keep
+                # the fused launch
+                tp_ok = (self.fls.dispatch_fn is None
+                         and self.zpair_merge_hook is None
+                         and self.read_slice is None)
+                futures, win, G, stats_flow = (
+                    self.fls.dispatch_fn or _fused_dispatch)(
+                    m, fh, read_tab, L, R, rcf, n_reads=B if tp_ok else None)
         return dict(B=B, L=L, wlen=wlen, fh=fh, win=win, futures=futures,
                     G=G, R=R, stats_flow=stats_flow, codes=codes,
                     names=nm_blob, name_off=offs, seq_fwd=seq_fwd,
                     seq_rc=seq_rc, Bcap=Bcap, read_tab=read_tab,
                     input_strand=input_strand,
                     qual_fwd=qual_fwd, qual_rc=qual_rc,
-                    qual_raw=qual_raw, raw=np.ascontiguousarray(raw),
-                    t_dispatch=_time.perf_counter() - t2)
+                    qual_raw=qual_raw, raw=np.ascontiguousarray(raw))
 
     def _run_rows(self, ctx, tp, rows):
         """Select-then-full's row runner: the full SW on the window rows
@@ -1751,10 +1751,9 @@ class FastPaired:
         out2 = _tp_run_full(self.m, tp, ctx["win"], ctx["G"], rows,
                             ctx["stats_flow"], ctx["fh"], ctx["L"],
                             ctx["R"])
-        t0 = _time.perf_counter()
-        if ctx["stats_flow"]:
-            out2 = self._expand(ctx, rows, out2)[:2]
-        self.m.tally("alignment expand", _time.perf_counter() - t0)
+        with self.m.span("alignment expand"):
+            if ctx["stats_flow"]:
+                out2 = self._expand(ctx, rows, out2)[:2]
         return out2
 
     def _expand(self, ctx, rows, stats, rank_local: bool = False):
@@ -1796,11 +1795,8 @@ class FastPaired:
         n = int(fh.n)
         win = ctx["win"]
         tp = win.get("two_phase")
-        t0 = _time.perf_counter()
-        scores, stats_all, tb_all = _fetch(ctx, n)
-        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
-        m.tally("device fetch", _time.perf_counter() - t0,
-                vec_secs=dev_secs, full_secs=dev_secs)
+        with m.span("device fetch"):
+            scores, stats_all, tb_all = _fetch(ctx, n)
 
         owner = np.ascontiguousarray(fh.owner, np.int64)
         seg = np.ascontiguousarray(
@@ -1825,104 +1821,104 @@ class FastPaired:
                     none = np.zeros(0, np.int64)
                     self._expand(ctx, none, stats_all[none], True)
                 return unaligned()
-        t0 = _time.perf_counter()
-        W = (ctx["R"] + ctx["G"] + 3) // 4
-        if stats_all is not None:
-            # sliced: the expansion of this rank's pair span only
-            ex = np.arange(rsl.start, rsl.stop) if sliced else np.arange(
-                int(fh.n))
-            packed, ops_pk, W = self._expand(ctx, ex, stats_all[ex], sliced)
-            if not sliced:
-                packed, ops_pk = packed[rsl], ops_pk[rsl]
-        elif tb_all is not None:
-            packed, ops_pk = tb_all[0][rsl], tb_all[1][rsl]
-        m.tally("alignment expand", _time.perf_counter() - t0)
+        with m.span("alignment expand"):
+            W = (ctx["R"] + ctx["G"] + 3) // 4
+            if stats_all is not None:
+                # sliced: the expansion of this rank's pair span only
+                ex = (np.arange(rsl.start, rsl.stop) if sliced
+                      else np.arange(int(fh.n)))
+                packed, ops_pk, W = self._expand(ctx, ex, stats_all[ex],
+                                                 sliced)
+                if not sliced:
+                    packed, ops_pk = packed[rsl], ops_pk[rsl]
+            elif tb_all is not None:
+                packed, ops_pk = tb_all[0][rsl], tb_all[1][rsl]
 
         # ---- one native call: pair-up .. SAM text
-        t0 = _time.perf_counter()
-        popts = m._paired_opts[0]
-        ro = popts.read[0]
-        pairing = popts.pairing
-        hp = cfg.half_paired_unpaired_options(0)[0]
-        re1 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
-        re2 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
-        m._compute_mp_ranges(re1, re2, pairing)
-        cal = m.cal
-        sc = cfg.scores
-        arrs = dict(
-            seg=seg,
-            cn=np.ascontiguousarray(fh.cn[rsl], np.int32),
-            g_off=np.ascontiguousarray(fh.g_off[rsl], np.int64),
-            g_off_norm=np.ascontiguousarray(win["g_off_t"][rsl], np.int64),
-            gen_st=np.ascontiguousarray(win["rcmask"][rsl], np.int8),
-            w_len=np.ascontiguousarray(fh.w_len[rsl], np.int32),
-            matches=np.ascontiguousarray(fh.matches[rsl], np.int32),
-            score_max=np.ascontiguousarray(fh.score_max[rsl], np.int64),
-            vec=np.ascontiguousarray(scores[rsl]))
-        if tp is None:
-            arrs["packed"] = np.ascontiguousarray(packed, np.int32)
-            arrs["ops_pk"] = np.ascontiguousarray(ops_pk, np.uint8)
-        fls = self.fls
-        p = _PPParams(
-            n_pairs, n, L, ctx["wlen"], W,
-            (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
-                                 int(re1.delta_g_off_min[1])),
-            (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
-                                 int(re1.delta_g_off_max[1])),
-            ro.pass1.min_matches,
-            int(abs_or_pct(ro.pass1.window_overlap, ctx["wlen"])),
-            float(ro.pass1.threshold),
-            pairing.pass1_num_outputs, float(pairing.pass1_threshold),
-            float(ro.pass2.threshold),
-            float(pairing.pass2_threshold), pairing.pass2_num_outputs,
-            int(pairing.strata), cfg.max_alignments,
-            int(cfg.half_paired), hp.pass1.min_matches,
-            int(abs_or_pct(hp.pass1.window_overlap, ctx["wlen"])),
-            float(hp.pass1.threshold), hp.pass1.num_outputs,
-            float(hp.pass2.threshold), hp.pass2.num_outputs,
-            int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
-            sc.match, sc.mismatch,
-            float(m.total_genome_size),
-            float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
-            int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
-            fls.contig_lengths32.ctypes.data,
-            fls.contig_name_off.ctypes.data,
-            fls.contig_names_blob.ctypes.data,
-            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
-            ctx["seq_fwd"].ctypes.data, ctx["seq_rc"].ctypes.data,
-            ctx["qual_fwd"].ctypes.data
-            if ctx.get("qual_fwd") is not None else None,
-            ctx["qual_rc"].ctypes.data
-            if ctx.get("qual_rc") is not None else None,
-            ctx["qual_raw"].ctypes.data
-            if ctx.get("qual_raw") is not None else None,
-            0, sc.match - sc.mismatch,
-            0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
-            0, 0, 0, 0, None, None, None, None, None, None, 0,
-            None, None, 0)
-        # the RG bytes stay alive through the native calls
-        rg_bytes = _set_paired_render_flags(p, cfg, ctx["raw"], n_pairs)
-        if self.read_slice is not None:
-            p.una_lo, p.una_hi = self.read_slice
-        wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
-        cap = max(1 << 20, n_pairs * 4 * (L + 320))
-        ext = None        # p.ext_in points into it through the render
-        if self.zpair_merge_hook is not None:
-            ext = _zpair_collect(self.lib, p, wstruct, cap, n_pairs,
-                                 self.zpair_merge_hook, self.zpair_win_shard,
-                                 self.zpair_n_shards, pair_nhits, read_nhits)
-        if tp is None:
-            out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
-                                          pair_nhits, read_nhits)
-        else:
-            out, rv = _select_then_full(
-                m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
-                pair_nhits, read_nhits,
-                lambda rows: self._run_rows(ctx, tp, rows),
-                ("packed", "ops_pk"), "paired select (2ph)")
-        del ext
-        m.tally("paired select + render", _time.perf_counter() - t0,
-                reads_mapped=int((pair_nhits > 0).sum()) * 2,
+        with m.span("paired select + render"):
+            popts = m._paired_opts[0]
+            ro = popts.read[0]
+            pairing = popts.pairing
+            hp = cfg.half_paired_unpaired_options(0)[0]
+            re1 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
+            re2 = SimpleNamespace(window_len=ctx["wlen"], read_len=L)
+            m._compute_mp_ranges(re1, re2, pairing)
+            cal = m.cal
+            sc = cfg.scores
+            arrs = dict(
+                seg=seg,
+                cn=np.ascontiguousarray(fh.cn[rsl], np.int32),
+                g_off=np.ascontiguousarray(fh.g_off[rsl], np.int64),
+                g_off_norm=np.ascontiguousarray(win["g_off_t"][rsl], np.int64),
+                gen_st=np.ascontiguousarray(win["rcmask"][rsl], np.int8),
+                w_len=np.ascontiguousarray(fh.w_len[rsl], np.int32),
+                matches=np.ascontiguousarray(fh.matches[rsl], np.int32),
+                score_max=np.ascontiguousarray(fh.score_max[rsl], np.int64),
+                vec=np.ascontiguousarray(scores[rsl]))
+            if tp is None:
+                arrs["packed"] = np.ascontiguousarray(packed, np.int32)
+                arrs["ops_pk"] = np.ascontiguousarray(ops_pk, np.uint8)
+            fls = self.fls
+            p = _PPParams(
+                n_pairs, n, L, ctx["wlen"], W,
+                (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
+                                     int(re1.delta_g_off_min[1])),
+                (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
+                                     int(re1.delta_g_off_max[1])),
+                ro.pass1.min_matches,
+                int(abs_or_pct(ro.pass1.window_overlap, ctx["wlen"])),
+                float(ro.pass1.threshold),
+                pairing.pass1_num_outputs, float(pairing.pass1_threshold),
+                float(ro.pass2.threshold),
+                float(pairing.pass2_threshold), pairing.pass2_num_outputs,
+                int(pairing.strata), cfg.max_alignments,
+                int(cfg.half_paired), hp.pass1.min_matches,
+                int(abs_or_pct(hp.pass1.window_overlap, ctx["wlen"])),
+                float(hp.pass1.threshold), hp.pass1.num_outputs,
+                float(hp.pass2.threshold), hp.pass2.num_outputs,
+                int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
+                sc.match, sc.mismatch,
+                float(m.total_genome_size),
+                float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
+                int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
+                fls.contig_lengths32.ctypes.data,
+                fls.contig_name_off.ctypes.data,
+                fls.contig_names_blob.ctypes.data,
+                ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+                ctx["seq_fwd"].ctypes.data, ctx["seq_rc"].ctypes.data,
+                ctx["qual_fwd"].ctypes.data
+                if ctx.get("qual_fwd") is not None else None,
+                ctx["qual_rc"].ctypes.data
+                if ctx.get("qual_rc") is not None else None,
+                ctx["qual_raw"].ctypes.data
+                if ctx.get("qual_raw") is not None else None,
+                0, sc.match - sc.mismatch,
+                0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                0, 0, 0, 0, None, None, None, None, None, None, 0,
+                None, None, 0)
+            # the RG bytes stay alive through the native calls
+            rg_bytes = _set_paired_render_flags(p, cfg, ctx["raw"], n_pairs)
+            if self.read_slice is not None:
+                p.una_lo, p.una_hi = self.read_slice
+            wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
+            cap = max(1 << 20, n_pairs * 4 * (L + 320))
+            ext = None        # p.ext_in points into it through the render
+            if self.zpair_merge_hook is not None:
+                ext = _zpair_collect(
+                    self.lib, p, wstruct, cap, n_pairs,
+                    self.zpair_merge_hook, self.zpair_win_shard,
+                    self.zpair_n_shards, pair_nhits, read_nhits)
+            if tp is None:
+                out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
+                                              pair_nhits, read_nhits)
+            else:
+                out, rv = _select_then_full(
+                    m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
+                    pair_nhits, read_nhits,
+                    lambda rows: self._run_rows(ctx, tp, rows),
+                    ("packed", "ops_pk"), "paired select (2ph)")
+            del ext
+        m.tally(reads_mapped=int((pair_nhits > 0).sum()) * 2,
                 alignments=2 * int(pair_nhits.sum())
                 + int(read_nhits.sum()))
         return bytes(out[:rv]), pair_nhits, read_nhits

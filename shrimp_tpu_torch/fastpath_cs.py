@@ -34,12 +34,10 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time as _time
 from types import SimpleNamespace
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from . import constants as C
 from .config import MapperConfig, abs_or_pct
@@ -283,24 +281,24 @@ class FastCS:
                     codes0=codes0, codes1=_revcomp_cs_batch(codes0, initbp),
                     xover_tab=xover_tab, names=nm_blob, name_off=offs)
 
-    def _dispatch(self, enc, fh, batch_cap, t2, **kw):
+    def _dispatch(self, enc, fh, batch_cap, **kw):
         """The device dispatch of an encoded batch's windows (`fh`) and
         the stage-B context: the encoding, the windows, the futures."""
         m = self.m
         B, R = enc["B"], enc["R"]
         Bcap = max(batch_cap or B, B)
-        qr_tab = cs_layers_batch(enc["codes0"], enc["initbp"])  # [B, 4, R]
-        win = None
-        futures = []
-        G = 32
-        if fh.n:
-            futures, win, G = self._fused_dispatch_cs(
-                fh, enc["codes0"], qr_tab, enc["initbp"], R, Bcap,
-                enc["xover_tab"], n_reads=B, **kw)
-        m.tally("device dispatch", _time.perf_counter() - t2)
+        with m.span("device dispatch"):
+            qr_tab = cs_layers_batch(enc["codes0"], enc["initbp"])
+            win = None
+            futures = []
+            G = 32
+            if fh.n:
+                futures, win, G = self._fused_dispatch_cs(
+                    fh, enc["codes0"], qr_tab, enc["initbp"], R, Bcap,
+                    enc["xover_tab"], n_reads=B, **kw)
         ctx = dict(enc, fh=fh, win=win, futures=futures, G=G,
                    qr_tab=qr_tab, initbp=enc["initbp"].astype(np.int32),
-                   Bcap=Bcap, t_dispatch=_time.perf_counter() - t2)
+                   Bcap=Bcap)
         del ctx["codes1"], ctx["xover_tab"]
         return ctx
 
@@ -311,22 +309,20 @@ class FastCS:
         Returns None when the flat encoder rejects the batch (the config
         was screened by map_unpaired_cs_sam_stream)."""
         m = self.m
-        t0 = _time.perf_counter()
-        enc = self._encode(records, drop_low_qv=True)
-        if enc is None or enc["B"] == 0:
-            return enc
-        B, R = enc["B"], enc["R"]
-        m.tally("read prep", _time.perf_counter() - t0)
+        with m.span("read prep"):
+            enc = self._encode(records, drop_low_qv=True)
+            if enc is None or enc["B"] == 0:
+                return enc
+            B, R = enc["B"], enc["R"]
 
-        t1 = _time.perf_counter()
-        codes2 = np.empty((B, 2, R), np.uint8)
-        codes2[:, 0] = enc["codes0"]
-        codes2[:, 1] = enc["codes1"]
-        fh = self._filter1_cs(codes2, R, enc["wlen"])
-        if fh is None:
-            return None
-        m.tally("filter1", _time.perf_counter() - t1)
-        return self._dispatch(enc, fh, batch_cap, _time.perf_counter())
+        with m.span("filter1"):
+            codes2 = np.empty((B, 2, R), np.uint8)
+            codes2[:, 0] = enc["codes0"]
+            codes2[:, 1] = enc["codes1"]
+            fh = self._filter1_cs(codes2, R, enc["wlen"])
+            if fh is None:
+                return None
+        return self._dispatch(enc, fh, batch_cap)
 
     def _cs_args(self, fh, R, rcf, thresh_override, initbp):
         """Normalized CS window geometry (reverse_hit, mapping.c:254-263)
@@ -414,7 +410,7 @@ class FastCS:
         xov_pad = np.full((rows, R), sc.crossover, np.int32)
         if xover_tab is not None:
             xov_pad[:xover_tab.shape[0]] = xover_tab
-        rtab_dev, qr_dev, xov_dev = (torch.from_numpy(a).to(m.device)
+        rtab_dev, qr_dev, xov_dev = (m._upload(a)
                                      for a in (rtab_pad, qr_pad, xov_pad))
         two_phase = (n_reads is not None
                      and n >= CS_TWO_PHASE_WPR * max(n_reads, 1))
@@ -439,7 +435,6 @@ class FastCS:
         stay within 2^28 cells. Without the mapper's word planes (planes
         over ~1 Gbp) the step gathers its windows byte by byte."""
         m = self.m
-        dev = m.device
         cap = cs_wide_rows(rtab_dev.shape[1], kw["G"])
         if cap is not None and kw.get("phase", "fused") != "vec":
             CB = min(CB, cap)
@@ -454,7 +449,7 @@ class FastCS:
             chunk[k:, [1, 4, 7, 8]] = 1   # pad rows: 1-cell windows
             chunk[k:, 10] = 1             # threshold 1 zeroes pad scores
             res = sw_vec_cs_full_from_index(
-                *planes, torch.from_numpy(chunk).to(dev), rtab_dev, qr_dev,
+                *planes, m._upload(chunk), rtab_dev, qr_dev,
                 xov_dev, *cats, **kw)
             futures.append((off, k, res))
         return futures
@@ -466,19 +461,18 @@ class FastCS:
         int8). No rows: no launch. Shared by the unpaired pass-1
         survivor flow and the paired select-then-full flow, whose render
         takes the steps' width as its ops_words."""
-        t0 = _time.perf_counter()
         m = self.m
         n_sel = len(rows)
-        futures = self._cs_chunks(tp["args_all"][rows], _cs_chunk(n_sel),
-                                  tp["rtab_dev"], tp["qr_dev"],
-                                  tp["xov_dev"], dict(tp["kw"], phase="full"))
-        packed = np.empty((n_sel, 12), np.int16)
-        steps = np.empty((n_sel, R + G), np.int8)
-        for off, k, (pk, st) in futures:
-            packed[off:off + k] = pk[:k].cpu().numpy()
-            steps[off:off + k] = st[:k].cpu().numpy()
-        m.tally("device full (2ph)", _time.perf_counter() - t0,
-                full_invocs=n_sel,
+        with m.span("device full (2ph)"):
+            futures = self._cs_chunks(
+                tp["args_all"][rows], _cs_chunk(n_sel), tp["rtab_dev"],
+                tp["qr_dev"], tp["xov_dev"], dict(tp["kw"], phase="full"))
+            packed = np.empty((n_sel, 12), np.int16)
+            steps = np.empty((n_sel, R + G), np.int8)
+            for off, k, (pk, st) in futures:
+                packed[off:off + k] = pk[:k].cpu().numpy()
+                steps[off:off + k] = st[:k].cpu().numpy()
+        m.tally(full_invocs=n_sel,
                 full_cells=int(fh.w_len[rows].astype(np.int64).sum()) * R * 4)
         return packed, steps
 
@@ -521,23 +515,20 @@ class FastCS:
         freed, and the device stages tallied: (vector scores int64 [n],
         packed [n, 12] int16, steps_rev [n, R + G] int8), the last two
         None after a two-phase dispatch."""
-        t0 = _time.perf_counter()
         scores = np.empty(n, np.int64)
         packed = steps = None
-        if ctx["win"].get("two_phase") is not None:
-            for off, k, (vec,) in ctx["futures"]:
-                scores[off:off + k] = vec[:k].cpu().numpy()
-        else:
-            packed = np.empty((n, 12), np.int16)
-            steps = np.empty((n, ctx["R"] + ctx["G"]), np.int8)
-            for off, k, (vec, pk, st) in ctx["futures"]:
-                scores[off:off + k] = vec[:k].cpu().numpy()
-                packed[off:off + k] = pk[:k].cpu().numpy()
-                steps[off:off + k] = st[:k].cpu().numpy()
+        with self.m.span("device fetch"):
+            if ctx["win"].get("two_phase") is not None:
+                for off, k, (vec,) in ctx["futures"]:
+                    scores[off:off + k] = vec[:k].cpu().numpy()
+            else:
+                packed = np.empty((n, 12), np.int16)
+                steps = np.empty((n, ctx["R"] + ctx["G"]), np.int8)
+                for off, k, (vec, pk, st) in ctx["futures"]:
+                    scores[off:off + k] = vec[:k].cpu().numpy()
+                    packed[off:off + k] = pk[:k].cpu().numpy()
+                    steps[off:off + k] = st[:k].cpu().numpy()
         ctx["futures"] = None
-        dev_secs = _time.perf_counter() - t0 + ctx["t_dispatch"]
-        self.m.tally("device fetch", _time.perf_counter() - t0,
-                     vec_secs=dev_secs, full_secs=dev_secs)
         return scores, packed, steps
 
     # ---------------------------------------------------------- stage B
@@ -562,44 +553,43 @@ class FastCS:
         scores, packed_all, steps_all = self._fetch(ctx, n)
 
         # ---- native pass1 selection on the vector scores
-        t0 = _time.perf_counter()
-        opts = m._unpaired_opts[0].pass1
-        cap = max(n, 1)
-        sel = {k: np.empty(cap, dt) for k, dt in
-               (("ri", np.int32), ("gen_st", np.int8), ("cn", np.int32),
-                ("g_off", np.int64), ("w_len", np.int32),
-                ("score_max", np.int64), ("ax", np.int64),
-                ("ay", np.int64), ("alen", np.int64), ("awid", np.int64),
-                ("score_vector", np.int64), ("src", np.int64))}
-        seg = np.zeros(B + 1, np.int64)
-        p1 = _P1Params(
-            n, 2 * B, R, wlen,
-            int(abs_or_pct(opts.window_overlap, wlen)),
-            float(opts.threshold), opts.min_matches, opts.num_outputs,
-            1, fls.contig_lengths32.ctypes.data)
-        arrs = dict(owner=np.ascontiguousarray(fh.owner, np.int64),
-                    cn=np.ascontiguousarray(fh.cn, np.int32),
-                    g_off=np.ascontiguousarray(fh.g_off, np.int64),
-                    w_len=np.ascontiguousarray(fh.w_len, np.int32),
-                    matches=np.ascontiguousarray(fh.matches, np.int32),
-                    score_max=np.ascontiguousarray(fh.score_max, np.int64),
-                    ax=np.ascontiguousarray(fh.ax, np.int64),
-                    ay=np.ascontiguousarray(fh.ay, np.int64),
-                    alen=np.ascontiguousarray(fh.alen, np.int64),
-                    awid=np.ascontiguousarray(fh.awid, np.int64),
-                    scores=scores)
-        p1in = _P1In(**{k: _vp(v) for k, v in arrs.items()})
-        p1out = _P1Out(cap, *[_vp(sel[k]) for k in
-                              ("ri", "gen_st", "cn", "g_off", "w_len",
-                               "score_max", "ax", "ay", "alen",
-                               "awid", "score_vector")],
-                       _vp(seg), _vp(sel["src"]))
-        n_sel = int(self.lib.pass1_select(ctypes.byref(p1),
-                                          ctypes.byref(p1in),
-                                          ctypes.byref(p1out)))
-        if n_sel < 0:
-            raise RuntimeError(f"pass1_select failed ({n_sel})")
-        m.tally("pass1 select", _time.perf_counter() - t0)
+        with m.span("pass1 select"):
+            opts = m._unpaired_opts[0].pass1
+            cap = max(n, 1)
+            sel = {k: np.empty(cap, dt) for k, dt in
+                   (("ri", np.int32), ("gen_st", np.int8), ("cn", np.int32),
+                    ("g_off", np.int64), ("w_len", np.int32),
+                    ("score_max", np.int64), ("ax", np.int64),
+                    ("ay", np.int64), ("alen", np.int64), ("awid", np.int64),
+                    ("score_vector", np.int64), ("src", np.int64))}
+            seg = np.zeros(B + 1, np.int64)
+            p1 = _P1Params(
+                n, 2 * B, R, wlen,
+                int(abs_or_pct(opts.window_overlap, wlen)),
+                float(opts.threshold), opts.min_matches, opts.num_outputs,
+                1, fls.contig_lengths32.ctypes.data)
+            arrs = dict(owner=np.ascontiguousarray(fh.owner, np.int64),
+                        cn=np.ascontiguousarray(fh.cn, np.int32),
+                        g_off=np.ascontiguousarray(fh.g_off, np.int64),
+                        w_len=np.ascontiguousarray(fh.w_len, np.int32),
+                        matches=np.ascontiguousarray(fh.matches, np.int32),
+                        score_max=np.ascontiguousarray(fh.score_max, np.int64),
+                        ax=np.ascontiguousarray(fh.ax, np.int64),
+                        ay=np.ascontiguousarray(fh.ay, np.int64),
+                        alen=np.ascontiguousarray(fh.alen, np.int64),
+                        awid=np.ascontiguousarray(fh.awid, np.int64),
+                        scores=scores)
+            p1in = _P1In(**{k: _vp(v) for k, v in arrs.items()})
+            p1out = _P1Out(cap, *[_vp(sel[k]) for k in
+                                  ("ri", "gen_st", "cn", "g_off", "w_len",
+                                   "score_max", "ax", "ay", "alen",
+                                   "awid", "score_vector")],
+                           _vp(seg), _vp(sel["src"]))
+            n_sel = int(self.lib.pass1_select(ctypes.byref(p1),
+                                              ctypes.byref(p1in),
+                                              ctypes.byref(p1out)))
+            if n_sel < 0:
+                raise RuntimeError(f"pass1_select failed ({n_sel})")
         if n_sel == 0:
             m.tally(reads=B)
             return self._unaligned_block_cs(ctx, nhits), nhits
@@ -614,63 +604,64 @@ class FastCS:
             # two-phase phase B: the full SW on the pass-1 survivors only
             packed_sel, steps_sel = self._cs_run_full_rows(tp, rows, fh, R,
                                                            ctx["G"])
-        t1 = _time.perf_counter()
-        cal = m.cal
-        g_fwd, g_rc, start_abs_sel, g_len = self._cs_genome_view(rows, ctx)
-        job_arrs = dict(
-            ri=np.ascontiguousarray(sel["ri"][:n_sel]),
-            cn=np.ascontiguousarray(sel["cn"][:n_sel]),
-            gen_st=np.ascontiguousarray(sel["gen_st"][:n_sel]),
-            g_off=np.ascontiguousarray(sel["g_off"][:n_sel]),
-            start_abs=start_abs_sel,
-            score_max=np.ascontiguousarray(sel["score_max"][:n_sel]),
-            packed=packed_sel, steps_rev=steps_sel)
-        raw = ctx["raw"]
-        quals, cq = ctx.get("quals"), ctx.get("cq")
-        fr = _CSFRParams(
-            n_sel, B, R, W, raw.shape[1],
-            float(cfg.sw_full_threshold), cfg.num_outputs,
-            int(cfg.strata), cfg.max_alignments,
-            int(cfg.single_best_mapping),
-            int(cfg.compute_mapping_qualities),
-            cal.alpha, cal.beta, cal.pr_xover, cal.pr_mismatch,
-            cal.pr_del_open, cal.pr_del_extend, cal.pr_ins_open,
-            cal.pr_ins_extend,
-            g_len,
-            g_fwd.ctypes.data, g_rc.ctypes.data,
-            fls.contig_lengths32.ctypes.data,
-            fls.contig_name_off.ctypes.data,
-            fls.contig_names_blob.ctypes.data,
-            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
-            ctx["codes0"].ctypes.data, ctx["qr_tab"].ctypes.data,
-            ctx["initbp"].ctypes.data, raw.ctypes.data,
-            int(quals is not None),
-            int(quals is not None and not cfg.ignore_qvs),
-            cfg.qual_delta, 1,
-            quals.ctypes.data if quals is not None else None,
-            cq.ctypes.data if cq is not None else None,
-            cq.shape[1] if cq is not None else 0)
-        # renderer-level flags (kept out of the gate)
-        rg_bytes = None
-        if cfg.read_group_name:
-            rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
-            fr.rg = ctypes.cast(ctypes.c_char_p(rg_bytes), ctypes.c_void_p)
-            fr.rg_len = len(rg_bytes)
-        fr.all_contigs = int(cfg.all_contigs)
-        fr.sam_unaligned = int(cfg.sam_unaligned)
-        frj = _CSFRJobs(**{k: _vp(v) for k, v in job_arrs.items()})
-        cap_b = n_sel * (3 * R + 256) + 4096
-        while True:
-            buf = np.empty(cap_b, np.uint8)
-            nb = self.lib.cs_finalize_render(
-                ctypes.byref(fr), ctypes.byref(frj), _vp(buf),
-                ctypes.c_int64(cap_b), _vp(nhits))
-            if nb >= 0:
-                break
-            if nb == -2:
-                raise RuntimeError("cs fastpath unsupported config")
-            cap_b *= 4
-        m.tally("cs finalize + render", _time.perf_counter() - t1, reads=B,
+        with m.span("cs finalize + render"):
+            cal = m.cal
+            g_fwd, g_rc, start_abs_sel, g_len = self._cs_genome_view(rows,
+                                                                     ctx)
+            job_arrs = dict(
+                ri=np.ascontiguousarray(sel["ri"][:n_sel]),
+                cn=np.ascontiguousarray(sel["cn"][:n_sel]),
+                gen_st=np.ascontiguousarray(sel["gen_st"][:n_sel]),
+                g_off=np.ascontiguousarray(sel["g_off"][:n_sel]),
+                start_abs=start_abs_sel,
+                score_max=np.ascontiguousarray(sel["score_max"][:n_sel]),
+                packed=packed_sel, steps_rev=steps_sel)
+            raw = ctx["raw"]
+            quals, cq = ctx.get("quals"), ctx.get("cq")
+            fr = _CSFRParams(
+                n_sel, B, R, W, raw.shape[1],
+                float(cfg.sw_full_threshold), cfg.num_outputs,
+                int(cfg.strata), cfg.max_alignments,
+                int(cfg.single_best_mapping),
+                int(cfg.compute_mapping_qualities),
+                cal.alpha, cal.beta, cal.pr_xover, cal.pr_mismatch,
+                cal.pr_del_open, cal.pr_del_extend, cal.pr_ins_open,
+                cal.pr_ins_extend,
+                g_len,
+                g_fwd.ctypes.data, g_rc.ctypes.data,
+                fls.contig_lengths32.ctypes.data,
+                fls.contig_name_off.ctypes.data,
+                fls.contig_names_blob.ctypes.data,
+                ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+                ctx["codes0"].ctypes.data, ctx["qr_tab"].ctypes.data,
+                ctx["initbp"].ctypes.data, raw.ctypes.data,
+                int(quals is not None),
+                int(quals is not None and not cfg.ignore_qvs),
+                cfg.qual_delta, 1,
+                quals.ctypes.data if quals is not None else None,
+                cq.ctypes.data if cq is not None else None,
+                cq.shape[1] if cq is not None else 0)
+            # renderer-level flags (kept out of the gate)
+            rg_bytes = None
+            if cfg.read_group_name:
+                rg_bytes = f"\tRG:Z:{cfg.read_group_name}".encode()
+                fr.rg = ctypes.cast(ctypes.c_char_p(rg_bytes), ctypes.c_void_p)
+                fr.rg_len = len(rg_bytes)
+            fr.all_contigs = int(cfg.all_contigs)
+            fr.sam_unaligned = int(cfg.sam_unaligned)
+            frj = _CSFRJobs(**{k: _vp(v) for k, v in job_arrs.items()})
+            cap_b = n_sel * (3 * R + 256) + 4096
+            while True:
+                buf = np.empty(cap_b, np.uint8)
+                nb = self.lib.cs_finalize_render(
+                    ctypes.byref(fr), ctypes.byref(frj), _vp(buf),
+                    ctypes.c_int64(cap_b), _vp(nhits))
+                if nb >= 0:
+                    break
+                if nb == -2:
+                    raise RuntimeError("cs fastpath unsupported config")
+                cap_b *= 4
+        m.tally(reads=B,
                 reads_mapped=int((nhits > 0).sum()),
                 alignments=int(nhits.sum()))
         return buf[:nb].tobytes(), nhits
@@ -775,35 +766,33 @@ class FastPairedCS(FastCS):
         Returns None when the flat encoder rejects the batch (an odd
         record count, or as FastCS's; a pair under --min-avg-qv too)."""
         m = self.m
-        t0 = _time.perf_counter()
-        if len(records) % 2:
-            return None
-        enc = self._encode(records, drop_low_qv=False)
-        if enc is None:
-            return None
-        B, R = enc["B"], enc["R"]
-        # per-leg strand flips (read_reverse, gmapper.c:175-186); a
-        # flipped leg's strand-0 row is the revcomp colours
-        flip1, flip2 = C.PAIR_REVERSE[m.config.pair_mode]
-        input_strand = np.zeros(B, np.int8)
-        input_strand[0::2] = int(flip1)
-        input_strand[1::2] = int(flip2)
-        flipm = input_strand == 1
-        codes2 = np.empty((B, 2, R), np.uint8)
-        codes2[:, 0] = np.where(flipm[:, None], enc["codes1"],
-                                enc["codes0"])
-        codes2[:, 1] = np.where(flipm[:, None], enc["codes0"],
-                                enc["codes1"])
-        m.tally("read prep", _time.perf_counter() - t0)
+        with m.span("read prep"):
+            if len(records) % 2:
+                return None
+            enc = self._encode(records, drop_low_qv=False)
+            if enc is None:
+                return None
+            B, R = enc["B"], enc["R"]
+            # per-leg strand flips (read_reverse, gmapper.c:175-186); a
+            # flipped leg's strand-0 row is the revcomp colours
+            flip1, flip2 = C.PAIR_REVERSE[m.config.pair_mode]
+            input_strand = np.zeros(B, np.int8)
+            input_strand[0::2] = int(flip1)
+            input_strand[1::2] = int(flip2)
+            flipm = input_strand == 1
+            codes2 = np.empty((B, 2, R), np.uint8)
+            codes2[:, 0] = np.where(flipm[:, None], enc["codes1"],
+                                    enc["codes0"])
+            codes2[:, 1] = np.where(flipm[:, None], enc["codes0"],
+                                    enc["codes1"])
 
-        t1 = _time.perf_counter()
-        # colour k-mers from colour 1, the mate-pair region filter
-        # included
-        fh = self._filter1_cs_paired(codes2, R, enc["wlen"],
-                                     m._paired_opts[0].read[0])
-        if fh is None:
-            return None
-        m.tally("filter1", _time.perf_counter() - t1)
+        with m.span("filter1"):
+            # colour k-mers from colour 1, the mate-pair region filter
+            # included
+            fh = self._filter1_cs_paired(codes2, R, enc["wlen"],
+                                         m._paired_opts[0].read[0])
+            if fh is None:
+                return None
         # feet run the full SW in two contexts (paired 0.5x, half-paired
         # 1x): the dispatch zeroes nothing (threshold 1) and the native
         # render applies each context's threshold
@@ -811,7 +800,7 @@ class FastPairedCS(FastCS):
         if fh.n:
             rcf = ((fh.owner & 1).astype(np.int8)
                    != input_strand[(fh.owner >> 1).astype(np.int64)])
-        ctx = self._dispatch(enc, fh, batch_cap, _time.perf_counter(),
+        ctx = self._dispatch(enc, fh, batch_cap,
                              rcf=rcf, thresh_override=1)
         ctx["input_strand"] = input_strand
         return ctx
@@ -842,98 +831,98 @@ class FastPairedCS(FastCS):
         tp = win.get("two_phase")
         scores, packed_all, steps_all = self._fetch(ctx, n)
 
-        t0 = _time.perf_counter()
-        popts = m._paired_opts[0]
-        ro = popts.read[0]
-        pairing = popts.pairing
-        hp = cfg.half_paired_unpaired_options(0)[0]
-        re1 = SimpleNamespace(window_len=wlen, read_len=R)
-        re2 = SimpleNamespace(window_len=wlen, read_len=R)
-        m._compute_mp_ranges(re1, re2, pairing)
-        cal = m.cal
-        sc = cfg.scores
-        owner = np.ascontiguousarray(fh.owner, np.int64)
-        g_fwd, g_rc, start_abs_all = self._cs_genome_view_paired(ctx)
-        arrs = dict(
-            seg=np.ascontiguousarray(
-                np.searchsorted(owner, np.arange(2 * B + 1)), np.int64),
-            cn=np.ascontiguousarray(fh.cn, np.int32),
-            g_off=np.ascontiguousarray(fh.g_off, np.int64),
-            g_off_norm=np.ascontiguousarray(win["g_off_t"], np.int64),
-            gen_st=np.ascontiguousarray(win["rcmask"], np.int8),
-            w_len=np.ascontiguousarray(fh.w_len, np.int32),
-            matches=np.ascontiguousarray(fh.matches, np.int32),
-            score_max=np.ascontiguousarray(fh.score_max, np.int64),
-            vec=scores, start_abs=start_abs_all)
-        W = 1
-        if tp is None:
-            arrs["cs_packed"] = packed_all
-            arrs["cs_steps"] = steps_all
-            W = steps_all.shape[1]
-        raw = ctx["raw"]
-        quals, cq = ctx["quals"], ctx["cq"]
-        p = _PPParams(
-            n_pairs, n, R, wlen, W,
-            (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
-                                 int(re1.delta_g_off_min[1])),
-            (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
-                                 int(re1.delta_g_off_max[1])),
-            ro.pass1.min_matches,
-            int(abs_or_pct(ro.pass1.window_overlap, wlen)),
-            float(ro.pass1.threshold),
-            pairing.pass1_num_outputs, float(pairing.pass1_threshold),
-            float(ro.pass2.threshold),
-            float(pairing.pass2_threshold), pairing.pass2_num_outputs,
-            int(pairing.strata), cfg.max_alignments,
-            int(cfg.half_paired), hp.pass1.min_matches,
-            int(abs_or_pct(hp.pass1.window_overlap, wlen)),
-            float(hp.pass1.threshold), hp.pass1.num_outputs,
-            float(hp.pass2.threshold), hp.pass2.num_outputs,
-            int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
-            sc.match, sc.mismatch,
-            float(m.total_genome_size),
-            float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
-            int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
-            fls.contig_lengths32.ctypes.data,
-            fls.contig_name_off.ctypes.data,
-            fls.contig_names_blob.ctypes.data,
-            ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
-            None, None, None, None, None,
-            1, abs(sc.crossover),
-            cal.pr_xover, cal.pr_mismatch,
-            cal.pr_del_open, cal.pr_del_extend, cal.pr_ins_open,
-            cal.pr_ins_extend,
-            int(quals is not None),
-            int(quals is not None and not cfg.ignore_qvs),
-            cfg.qual_delta, 1,
-            g_fwd.ctypes.data, g_rc.ctypes.data,
-            ctx["codes0"].ctypes.data, ctx["qr_tab"].ctypes.data,
-            ctx["initbp"].ctypes.data, raw.ctypes.data, raw.shape[1],
-            quals.ctypes.data if quals is not None else None,
-            cq.ctypes.data if cq is not None else None,
-            cq.shape[1] if cq is not None else 0)
-        # the RG bytes stay alive through the native calls
-        rg_bytes = _set_paired_render_flags(p, cfg, raw, n_pairs)
-        wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
-        cap = max(1 << 20, n_pairs * 6 * (3 * R + 320))
-        ext = None        # p.ext_in points into it through the render
-        if self.zpair_merge_hook is not None:
-            ext = _zpair_collect(self.lib, p, wstruct, cap, n_pairs,
-                                 self.zpair_merge_hook, self.zpair_win_shard,
-                                 self.zpair_n_shards, pair_nhits, read_nhits)
-        if tp is None:
-            out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
-                                          pair_nhits, read_nhits)
-        else:
-            out, rv = _select_then_full(
-                m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
-                pair_nhits, read_nhits,
-                lambda rows: self._cs_run_full_rows(tp, rows, fh, R,
-                                                    ctx["G"]),
-                ("cs_packed", "cs_steps"), "cs paired select (2ph)")
-        del rg_bytes, ext
-        m.tally("cs paired select + render", _time.perf_counter() - t0,
-                reads_mapped=int((pair_nhits > 0).sum()) * 2,
+        with m.span("cs paired select + render"):
+            popts = m._paired_opts[0]
+            ro = popts.read[0]
+            pairing = popts.pairing
+            hp = cfg.half_paired_unpaired_options(0)[0]
+            re1 = SimpleNamespace(window_len=wlen, read_len=R)
+            re2 = SimpleNamespace(window_len=wlen, read_len=R)
+            m._compute_mp_ranges(re1, re2, pairing)
+            cal = m.cal
+            sc = cfg.scores
+            owner = np.ascontiguousarray(fh.owner, np.int64)
+            g_fwd, g_rc, start_abs_all = self._cs_genome_view_paired(ctx)
+            arrs = dict(
+                seg=np.ascontiguousarray(
+                    np.searchsorted(owner, np.arange(2 * B + 1)), np.int64),
+                cn=np.ascontiguousarray(fh.cn, np.int32),
+                g_off=np.ascontiguousarray(fh.g_off, np.int64),
+                g_off_norm=np.ascontiguousarray(win["g_off_t"], np.int64),
+                gen_st=np.ascontiguousarray(win["rcmask"], np.int8),
+                w_len=np.ascontiguousarray(fh.w_len, np.int32),
+                matches=np.ascontiguousarray(fh.matches, np.int32),
+                score_max=np.ascontiguousarray(fh.score_max, np.int64),
+                vec=scores, start_abs=start_abs_all)
+            W = 1
+            if tp is None:
+                arrs["cs_packed"] = packed_all
+                arrs["cs_steps"] = steps_all
+                W = steps_all.shape[1]
+            raw = ctx["raw"]
+            quals, cq = ctx["quals"], ctx["cq"]
+            p = _PPParams(
+                n_pairs, n, R, wlen, W,
+                (ctypes.c_int64 * 2)(int(re1.delta_g_off_min[0]),
+                                     int(re1.delta_g_off_min[1])),
+                (ctypes.c_int64 * 2)(int(re1.delta_g_off_max[0]),
+                                     int(re1.delta_g_off_max[1])),
+                ro.pass1.min_matches,
+                int(abs_or_pct(ro.pass1.window_overlap, wlen)),
+                float(ro.pass1.threshold),
+                pairing.pass1_num_outputs, float(pairing.pass1_threshold),
+                float(ro.pass2.threshold),
+                float(pairing.pass2_threshold), pairing.pass2_num_outputs,
+                int(pairing.strata), cfg.max_alignments,
+                int(cfg.half_paired), hp.pass1.min_matches,
+                int(abs_or_pct(hp.pass1.window_overlap, wlen)),
+                float(hp.pass1.threshold), hp.pass1.num_outputs,
+                float(hp.pass2.threshold), hp.pass2.num_outputs,
+                int(cfg.compute_mapping_qualities), cal.alpha, cal.beta,
+                sc.match, sc.mismatch,
+                float(m.total_genome_size),
+                float(cfg.insert_size_mean), float(cfg.insert_size_stddev),
+                int(cfg.pair_mode in (C.PAIR_OPP_IN, C.PAIR_COL_FW)),
+                fls.contig_lengths32.ctypes.data,
+                fls.contig_name_off.ctypes.data,
+                fls.contig_names_blob.ctypes.data,
+                ctx["name_off"].ctypes.data, ctx["names"].ctypes.data,
+                None, None, None, None, None,
+                1, abs(sc.crossover),
+                cal.pr_xover, cal.pr_mismatch,
+                cal.pr_del_open, cal.pr_del_extend, cal.pr_ins_open,
+                cal.pr_ins_extend,
+                int(quals is not None),
+                int(quals is not None and not cfg.ignore_qvs),
+                cfg.qual_delta, 1,
+                g_fwd.ctypes.data, g_rc.ctypes.data,
+                ctx["codes0"].ctypes.data, ctx["qr_tab"].ctypes.data,
+                ctx["initbp"].ctypes.data, raw.ctypes.data, raw.shape[1],
+                quals.ctypes.data if quals is not None else None,
+                cq.ctypes.data if cq is not None else None,
+                cq.shape[1] if cq is not None else 0)
+            # the RG bytes stay alive through the native calls
+            rg_bytes = _set_paired_render_flags(p, cfg, raw, n_pairs)
+            wstruct = _PPWin(**{k: _vp(v) for k, v in arrs.items()})
+            cap = max(1 << 20, n_pairs * 6 * (3 * R + 320))
+            ext = None        # p.ext_in points into it through the render
+            if self.zpair_merge_hook is not None:
+                ext = _zpair_collect(
+                    self.lib, p, wstruct, cap, n_pairs,
+                    self.zpair_merge_hook, self.zpair_win_shard,
+                    self.zpair_n_shards, pair_nhits, read_nhits)
+            if tp is None:
+                out, rv, cap = _paired_render(self.lib, p, wstruct, cap,
+                                              pair_nhits, read_nhits)
+            else:
+                out, rv = _select_then_full(
+                    m, self.lib, p, wstruct, pairing, hp, n, n_pairs, cap,
+                    pair_nhits, read_nhits,
+                    lambda rows: self._cs_run_full_rows(tp, rows, fh, R,
+                                                        ctx["G"]),
+                    ("cs_packed", "cs_steps"), "cs paired select (2ph)")
+            del rg_bytes, ext
+        m.tally(reads_mapped=int((pair_nhits > 0).sum()) * 2,
                 alignments=2 * int(pair_nhits.sum())
                 + int(read_nhits.sum()))
         return bytes(out[:rv]), pair_nhits, read_nhits

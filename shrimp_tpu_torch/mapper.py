@@ -65,6 +65,7 @@ from .device import get_device
 from .index.build import GenomeIndex
 from .io.fasta import SeqRecord
 from .native.filter1_py import generate_candidates_native
+from .utils import spans
 from .utils.stats import MapperStats
 
 
@@ -325,10 +326,18 @@ class Mapper:
             if stage is not None:
                 self.stats.add_stage(stage, secs)
 
+    def span(self, name: str, **attrs) -> spans.Span:
+        """`with m.span(stage):` times the block as the stage `name`
+        (`tally` on exit) and, while the span recorder is on, records it
+        with `attrs` (`utils/spans.py`)."""
+        return spans.Span(name, self.tally, attrs)
+
     def _upload(self, a: np.ndarray, dtype=None) -> torch.Tensor:
-        """`a` (cast to `dtype` where given) as a tensor on the device."""
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
-            self.device)
+        """`a` (cast to `dtype` where given) as a tensor on the device,
+        under the stage `device upload`."""
+        a = np.ascontiguousarray(a, dtype)
+        with self.span("device upload", bytes=a.nbytes):
+            return torch.from_numpy(a).to(self.device)
 
     @staticmethod
     def _pad_plane(a: np.ndarray) -> np.ndarray:
@@ -1541,14 +1550,15 @@ class Mapper:
                         drmax[2 * k + st] = e.delta_region_max[st]
                 fh = generate_candidates_native(
                     *args, mp_mode=mp_mode, mp_drmin=drmin,
-                    mp_drmax=drmax, threads=self.f1_threads, **kw)
+                    mp_drmax=drmax, threads=self.f1_threads,
+                    tally=self.tally, **kw)
                 if fh is not None:
                     return fh
             kw.update(self._mp_context(sub, mp_mode))
             return bp.generate_candidates(*args, **kw)
         # the numpy filter 1 takes the shapes the native one refuses
         fh = generate_candidates_native(*args, threads=self.f1_threads,
-                                        **kw)
+                                        tally=self.tally, **kw)
         if fh is None:
             fh = bp.generate_candidates(*args, **kw)
         return fh
@@ -1762,40 +1772,37 @@ class Mapper:
 
     def _stage_candidates(self, records: Sequence[SeqRecord]):
         """Stage A: read prep + filter 1 + async vector-SW dispatch."""
-        t0 = _time.perf_counter()
-        entries = self._prepare_batch_ls(records)
-        if entries is None:
-            entries = []
-            for rec in records:
-                re = self.prepare_read(rec)
-                if re is not None:
-                    entries.append(re)
-        t1 = _time.perf_counter()
-        self.tally("read prep", t1 - t0)
+        with self.span("read prep"):
+            entries = self._prepare_batch_ls(records)
+            if entries is None:
+                entries = []
+                for rec in records:
+                    re = self.prepare_read(rec)
+                    if re is not None:
+                        entries.append(re)
         by_len: Dict[int, List[int]] = {}
         for i, e in enumerate(entries):
             by_len.setdefault(e.read_len, []).append(i)
         opts0 = self._unpaired_opts[0]
         buckets = []
-        for rl, idxs in by_len.items():
-            sub = [entries[i] for i in idxs]
-            fh = self._flat_hits(sub, rl, opts0)
-            thunk = self._score_windows_fh(sub, fh, defer=True)
-            buckets.append((idxs, sub, fh, thunk))
-        self.tally("filter1 + dispatch", _time.perf_counter() - t1)
+        with self.span("filter1 + dispatch"):
+            for rl, idxs in by_len.items():
+                sub = [entries[i] for i in idxs]
+                fh = self._flat_hits(sub, rl, opts0)
+                thunk = self._score_windows_fh(sub, fh, defer=True)
+                buckets.append((idxs, sub, fh, thunk))
         return entries, buckets
 
     def _stage_pass1(self, ctx):
         """Stage B: fetch vector scores, select pass1 hits, dispatch the
         full-SW batches."""
-        t0 = _time.perf_counter()
         entries, buckets = ctx
         pass1: List[List[Hit]] = [[] for _ in entries]
-        for idxs, sub, fh, thunk in buckets:
-            p1 = self._pass1_select_flat(sub, fh, thunk())
-            for k, i in enumerate(idxs):
-                pass1[i] = p1[k]
-        self.tally("pass1 select", _time.perf_counter() - t0)
+        with self.span("pass1 select"):
+            for idxs, sub, fh, thunk in buckets:
+                p1 = self._pass1_select_flat(sub, fh, thunk())
+                for k, i in enumerate(idxs):
+                    pass1[i] = p1[k]
         state = self._pass2_dispatch(entries, pass1)
         return entries, pass1, state
 
@@ -1804,22 +1811,21 @@ class Mapper:
         entries, pass1, state = ctx2
         if state is not None:
             self._pass2_finish(entries, state)
-        t0 = _time.perf_counter()
         results = []
-        for re, hits in zip(entries, pass1):
-            final = self._finalize(re, hits)
-            if final:
-                re.mapped = True
-                if (self.config.pair_mode == C.PAIR_NONE
-                        and self.config.compute_mapping_qualities):
-                    self._compute_mqv(final)
-                    if self.config.single_best_mapping:
-                        best = max(range(len(final)),
-                                   key=lambda i: (final[i].mqv, -i))
-                        final = [final[best]]
-            results.append((re, final))
-        self.tally("finalize + mqv", _time.perf_counter() - t0,
-                   reads=len(entries),
+        with self.span("finalize + mqv"):
+            for re, hits in zip(entries, pass1):
+                final = self._finalize(re, hits)
+                if final:
+                    re.mapped = True
+                    if (self.config.pair_mode == C.PAIR_NONE
+                            and self.config.compute_mapping_qualities):
+                        self._compute_mqv(final)
+                        if self.config.single_best_mapping:
+                            best = max(range(len(final)),
+                                       key=lambda i: (final[i].mqv, -i))
+                            final = [final[best]]
+                results.append((re, final))
+        self.tally(reads=len(entries),
                    reads_mapped=sum(1 for _, f in results if f),
                    alignments=sum(len(f) for _, f in results))
         return results

@@ -17,35 +17,20 @@
 #include <vector>
 #include <algorithm>
 #include <unordered_map>
-#include <atomic>
+#include <chrono>
 #include <x86intrin.h>
 
-// Phase profiling (SHRIMP_TPU_F1_PROF=1): rdtsc accumulators per stage,
-// dumped via filter1_prof_dump(). Zero overhead when disabled.
-static std::atomic<uint64_t> g_prof[10];
-static const char* g_prof_names[10] = {
-    "keys", "csr collect", "sort", "walk+collapse", "window gen", "calls",
-    "postings", "survivors", "backscan", "wsort moves"};
-static inline bool prof_on() {
-    static int v = -1;
-    if (v < 0) v = getenv("SHRIMP_TPU_F1_PROF") ? 1 : 0;
-    return v == 1;
+// The call's time in two parts, for the caller's stage seconds: the k-mer
+// keys and the CSR postings collection (lookup), timed by two TSC reads
+// an owner, and the rest (sort, anchor walk and collapse, window
+// generation); both scaled to the call's CLOCK_MONOTONIC duration
+// (std::chrono::steady_clock) and written to ns_out[0], ns_out[1].
+static inline int64_t mono_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+        std::chrono::steady_clock::now().time_since_epoch()).count();
 }
-struct ProfScope {
-    int ph; uint64_t t0; bool on;
-    ProfScope(int p) : ph(p), on(prof_on()) { if (on) t0 = __rdtsc(); }
-    ~ProfScope() { if (on) g_prof[ph] += __rdtsc() - t0; }
-};
 
 extern "C" {
-
-void filter1_prof_dump() {
-    for (int i = 0; i < 10; i++)
-        fprintf(stderr, "f1 prof %-14s %12llu %s\n", g_prof_names[i],
-                (unsigned long long)(g_prof[i].load()
-                                     / (i < 6 ? 1000000 : 1)),
-                i < 6 ? "Mcycles" : "");
-}
 
 struct SeedSpec {
     int32_t span;
@@ -240,8 +225,12 @@ int64_t filter1_batch(
     const uint8_t* codes,        // [n_owners, read_len] row-major
     int64_t n_owners,
     Filter1Out* out,
+    int64_t* ns_out,             // [2]: lookup, the rest (success only)
     int64_t* seg_start)          // [n_owners + 1]
 {
+    const int64_t ns0 = mono_ns();
+    const uint64_t tsc0 = __rdtsc();
+    uint64_t lookup_tsc = 0;
     static thread_local Scratch sc;
     int64_t out_n = 0;
     const int L = p->read_len;
@@ -290,8 +279,8 @@ int64_t filter1_batch(
     auto collect_owner = [&](const uint8_t* rc,
                              std::vector<uint64_t>& pos_out,
                              std::vector<int64_t>* marks_out) {
+        const uint64_t tsc_owner = __rdtsc();
         {
-            ProfScope _ps(0);
             for (int sn = 0; sn < p->n_seeds; sn++) {
                 const SeedSpec& S = seeds[sn];
                 if (pext_mask[sn]) {
@@ -304,7 +293,6 @@ int64_t filter1_batch(
                         kmer_key(p, S, rc, i);
             }
         }
-        ProfScope _ps1(1);
         const uint32_t gen_tag = sc.region_gen << 2;
         pos_out.clear();
         // prefetch every kmer's CSR offset row before the walk (the
@@ -400,8 +388,7 @@ int64_t filter1_batch(
                     po[pn_out++] = ((uint64_t)plist[k] << 32) | sbase;
             }
         }
-        if (prof_on()) g_prof[6] += pos_out.size();
-        ProfScope _ps2(2);
+        lookup_tsc += __rdtsc() - tsc_owner;
         // tiny lists (the common case: ~2 positions per kmer hit)
         // sort ~2x faster by insertion than via introsort's dispatch;
         // medium/large lists (dense genomes: hundreds-thousands of
@@ -463,8 +450,6 @@ int64_t filter1_batch(
                 memcpy(pos_out.data(), src, pn * sizeof(uint64_t));
         }
     };
-    g_prof[5] += prof_on() ? 1 : 0;
-
     for (int64_t ow = 0; ow < n_owners; ow++) {
         seg_start[ow] = out_n;
         int st = (int)(ow & 1);
@@ -547,9 +532,7 @@ int64_t filter1_batch(
         sc.cache_diag.assign((size_t)L, INT64_MIN);
         sc.cache_cn.assign((size_t)L, -1);
         const uint32_t want_gen = sc.region_gen;
-        uint64_t n_surv = 0;
         {
-        ProfScope _ps3(3);
         // postings stream in pos-ascending order, so the region verdict
         // and the contig lookup cache per RUN (one map load / binary
         // search per region or contig change, not per posting — the
@@ -594,7 +577,6 @@ int64_t filter1_batch(
                 if (!ok) continue;
             }
 
-            n_surv++;
             if (x >= cn_end)
                 while (true) {
                     cur_cn++;
@@ -636,9 +618,7 @@ int64_t filter1_batch(
             }
         }
         }
-        if (prof_on()) g_prof[7] += n_surv;
 
-        ProfScope _ps4(4);
         // per-anchor mate support for match mode 3 (heavy_mp,
         // mapping.c:1083-1094): the mate's opposite strand has a
         // >=2-touch region within the anchor region's delta range
@@ -681,7 +661,6 @@ int64_t filter1_batch(
             if (!p->gapless) {
                 for (int64_t j = i - 1;
                      j >= 0 && A[j].x >= coff + gstart; j--) {
-                    if (prof_on()) g_prof[8]++;
                     if (A[j].y >= ai.y) continue;
                     int64_t dx = ai.x - A[j].x;
                     int64_t dy = ai.y - A[j].y;
@@ -786,7 +765,6 @@ int64_t filter1_batch(
                 int64_t t_ax = out->ax[i2], t_ay = out->ay[i2];
                 int64_t t_al = out->alen[i2], t_aw = out->awid[i2];
                 for (int64_t k2 = i2 - 1; k2 >= j2; k2--) {
-                    if (prof_on()) g_prof[9]++;
                     out->owner[k2 + 1] = out->owner[k2];
                     out->cn[k2 + 1] = out->cn[k2];
                     out->g_off[k2 + 1] = out->g_off[k2];
@@ -815,6 +793,11 @@ int64_t filter1_batch(
         }
     }
     seg_start[n_owners] = out_n;
+    const int64_t ns = mono_ns() - ns0;
+    const uint64_t tsc = __rdtsc() - tsc0;
+    ns_out[0] = tsc ? (int64_t)((double)ns * lookup_tsc / tsc) : 0;
+    ns_out[0] = ns_out[0] < ns ? ns_out[0] : ns;
+    ns_out[1] = ns - ns_out[0];
     return out_n;
 }
 

@@ -3,12 +3,17 @@
 Copied from `shrimp_tpu/native/filter1_py.py`: the same FlatHits
 structure from the same C++ (`filter1.cpp`). The port's library raises
 if it does not build, and the thread count is the caller's or the
-host's core count (no environment override).
+host's core count (no environment override). The C++ splits each
+call's time into its k-mer lookup and the rest, which a caller's
+`tally` receives as the stages `filter1 lookup` and `filter1 windows`;
+a call that overflowed its output cap and ran again is `filter1
+overflow`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -95,9 +100,14 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
                                mp_drmin=None,
                                mp_drmax=None,
                                threads: Optional[int] = None,
+                               tally: Optional[Callable] = None,
                                ) -> Optional[FlatHits]:
     """Filter 1 over `codes` [N, 2, read_len]; None when the native code
-    refuses the shape (the caller rejects the batch)."""
+    refuses the shape (the caller rejects the batch). `tally(stage,
+    secs)` (a Mapper's) receives the lookup, windows and overflow
+    seconds; with the call split over threads, lookup and windows are
+    scaled to the split's wall time, so that they share out what the
+    caller's `filter1` stage sees."""
     lib = get_lib()
     N = codes.shape[0]
     n_owners = N * 2
@@ -149,7 +159,10 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
         # start near the observed density (~1-2 windows per owner) and
         # grow on -1; the old 128/owner guess mmapped ~300MB per call
         cap = max(8 * n_own, 1 << 16)
+        ns = np.zeros(2, np.int64)     # lookup, windows
+        overflow_ns = 0
         while True:
+            t0 = time.perf_counter_ns()
             owner = np.empty(cap, np.int64)
             cn = np.empty(cap, np.int32)
             g_off = np.empty(cap, np.int64)
@@ -172,14 +185,16 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
                 ctypes.c_void_p(flat_codes.ctypes.data
                                 + o_lo * read_len),
                 ctypes.c_int64(n_own), ctypes.byref(out),
+                ctypes.c_void_p(ns.ctypes.data),
                 ctypes.c_void_p(seg.ctypes.data))
             if n >= 0:
                 break
             if n == -2:       # unsupported shape
                 return None
+            overflow_ns += time.perf_counter_ns() - t0
             cap *= 4
         return (n, owner, cn, g_off, w_len, swg, matches, score_max, ax,
-                ay, alen, awid, seg)
+                ay, alen, awid, seg, ns, overflow_ns)
 
     # the OpenMP analogue (launch_scan_threads, gmapper.c:287-645): the C
     # call releases the GIL and its scratch state is thread_local, so
@@ -189,6 +204,7 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
     # fan-out on an oversubscribed host costs ~35% end-to-end throughput
     nthreads = threads if threads is not None else (_os.cpu_count() or 1)
     nthreads = min(nthreads, max(1, N // 512))
+    t0 = time.perf_counter_ns()
     if nthreads <= 1:
         parts = [run_range(0, n_owners)]
     else:
@@ -203,12 +219,21 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
 
     if any(p is None for p in parts):
         return None
+    if tally is not None:
+        wall = time.perf_counter_ns() - t0
+        lookup, windows = (sum(p[13][i] for p in parts) for i in (0, 1))
+        scale = 1e-9 * min(1.0, wall / max(lookup + windows, 1))
+        tally("filter1 lookup", lookup * scale)
+        tally("filter1 windows", windows * scale)
+        over = sum(p[14] for p in parts)
+        if over:
+            tally("filter1 overflow", over * 1e-9)
     total = sum(p[0] for p in parts)
     if total == 0:
         return _empty_flat(n_owners)
     if len(parts) == 1:
         (n, owner, cn, g_off, w_len, swg, matches, score_max, ax, ay,
-         alen, awid, seg) = parts[0]
+         alen, awid, seg) = parts[0][:13]
         return FlatHits(owner=owner[:n], cn=cn[:n], g_off=g_off[:n],
                         w_len=w_len[:n], score_window_gen=swg[:n],
                         matches=matches[:n], score_max=score_max[:n],

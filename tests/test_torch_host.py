@@ -8,6 +8,7 @@ integer array, a float array (the post-SW's, from the same native
 code), a string or a dataclass: tolerance 0 throughout."""
 import dataclasses
 import os
+import re
 from types import SimpleNamespace
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -231,14 +232,50 @@ def test_native_library_is_the_ports_own():
                                  "cs_eval.h"])
 def test_native_sources_are_byte_copies(src):
     """Every C++ source of the port's library is a byte-for-byte copy of
-    the reference's."""
+    the reference's, but for filter1.cpp's timing: there the reference's
+    profiler (`SHRIMP_TPU_F1_PROF`) gave way to the call's two counters,
+    and every other line of code is the reference's, in its order."""
     ref_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "shrimp_tpu", "native")
     with open(os.path.join(ref_dir, src), "rb") as f:
         want = f.read()
     with open(os.path.join(port_native.SRC_DIR, src), "rb") as f:
-        assert f.read() == want
+        got = f.read()
     assert src in port_native.SOURCES + port_native.HEADERS
+    if src != "filter1.cpp":
+        assert got == want
+        return
+    want, got = want.decode(), got.decode()
+    assert "SHRIMP_TPU_F1_PROF" in want
+    for gone in ("SHRIMP_TPU_F1_PROF", "g_prof", "prof_on", "ProfScope",
+                 "filter1_prof_dump", "getenv", "atomic"):
+        assert gone not in got, gone
+    # the reference without its profiler: the declarations up to
+    # ProfScope's, the dump function, and each line that counts
+    want = re.sub(r"static std::atomic<uint64_t> g_prof.*?\n};\n", "",
+                  want, flags=re.S)
+    want = re.sub(r"void filter1_prof_dump\(\) \{.*?\n}\n", "", want,
+                  flags=re.S)
+    got = re.sub(r"static inline int64_t mono_ns\(\) \{.*?\n}\n", "", got,
+                 flags=re.S)
+    prof = re.compile(r"ProfScope|prof_on|g_prof|n_surv|<atomic>")
+    timing = re.compile(r"__rdtsc|mono_ns|ns_out|lookup_tsc|<chrono>|"
+                        r"tsc_owner|const int64_t ns =|const uint64_t tsc =")
+
+    def code(text, drop):
+        lines = []
+        for ln in text.splitlines():
+            s = ln.strip()
+            if s and not s.startswith("//") and not drop.search(ln):
+                lines.append(ln)
+        return lines
+    got_code = code(got, timing)
+    assert got_code == code(want, prof)
+    # what the port adds: the timer, its counters and the output
+    extra = [ln for ln in got.splitlines()
+             if ln.strip() and not ln.strip().startswith("//")
+             and timing.search(ln)]
+    assert len(extra) == 12, extra
 
 
 def test_pair_qname_matches_reference():

@@ -226,6 +226,7 @@ def test_cs_chunker_cap(monkeypatch, G, R, phase, CB, rows):
         return kw["phase"]
     monkeypatch.setattr(fastpath_cs, "sw_vec_cs_full_from_index", step)
     m = SimpleNamespace(device=torch.device("cpu"),
+                        _upload=torch.from_numpy,
                         _dev_cs_planes=lambda: [None] * 4,
                         _dev_cs_cat_words=lambda: None)
     fake = SimpleNamespace(m=m)
