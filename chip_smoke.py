@@ -245,6 +245,16 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
    fastpath.map_unpaired_sam_stream (the unpacked traceback flow). Each
    slice's first launch of the vector SW and the 4-layer DP is held
    against the plain version, with its device time and bound.
+25. Filter 1's front half (csrc/filter1_front.cu: k-mer keys, CSR
+   lookup, posting gather, per-owner sort, region filter) against its
+   plain version on the card at the benchmark's batch (F1_BATCH reads, two
+   owners a read) of 250 bp and 36 bp LS reads and 36-colour CS reads:
+   every owner's survivors and count equal; the device path's FlatHits
+   equal the host path's; the kernel's device time, plain time, launch
+   configuration and bound (offset, posting and survivor bytes over the
+   HBM rate). Then F1_STREAM_READS 250 bp reads through the LS stream
+   with the front half on the card and on the host, in turns: the same
+   SAM bytes, reads/s and stage seconds of each.
 
 A kernel's time ("ms" in the record) is its device time per launch,
 with its wrapper's calls queued behind a sleep kernel between two CUDA
@@ -263,7 +273,7 @@ build always runs) and then prints no result; `--phases 20` runs the
 generic mapper's phase alone, `--phases 21` the mesh tiers',
 `--phases 22` the multi-process tier's (with phase 21 (c) and (d) first,
 for its oracles), `--phases 23` the split-db workflow through the CLI,
-`--phases 24` the wide windows.
+`--phases 24` the wide windows, `--phases 25` filter 1's front half.
 """
 from __future__ import annotations
 
@@ -4391,11 +4401,181 @@ def run_wide_slices(dev, smi):
     launches.update({k + "_wide": v for k, v in ln.items()})
     return launches
 
+# phase 25: the batch of the benchmark's cells (4,096 reads, two owners
+# a read) at 250 and 36 bases, letter space and colour space; the reads
+# of the stream comparison
+F1_BATCH = 4096
+F1_STREAM_READS = 32_768
+
+
+def _f1_batch(idx, reads, cs: bool) -> np.ndarray:
+    """The owner rows [2 * F1_BATCH, L] of the first F1_BATCH reads, as
+    FastLS (forward, reverse complement) or FastCS (colours, reversed)
+    hands them to filter 1."""
+    from shrimp_tpu_torch import constants as C
+    if cs:
+        from shrimp_tpu_torch.config import MapperConfig
+        from shrimp_tpu_torch.fastpath_cs import FastCS
+        from shrimp_tpu_torch.mapper import Mapper
+        fcs = FastCS(Mapper(idx, MapperConfig(mode="cs"), "cpu"))
+        enc = fcs._encode(reads[:F1_BATCH], drop_low_qv=False)
+        return np.ascontiguousarray(np.stack(
+            [enc["codes0"], enc["codes1"]], axis=1).reshape(
+                2 * F1_BATCH, -1))
+    raw = np.frombuffer("".join(r.seq for r in reads[:F1_BATCH]).encode(),
+                        np.uint8).reshape(F1_BATCH, -1)
+    fwd = C.CHAR_TO_INT[raw].astype(np.uint8)
+    codes2 = np.stack([fwd, C.COMPLEMENT[fwd[:, ::-1]]], axis=1)
+    return np.ascontiguousarray(codes2.reshape(2 * F1_BATCH, -1))
+
+
+def check_filter1_front(dev, smi):
+    """Phase 25: filter 1's front half (csrc/filter1_front.cu) against its
+    plain version on the card at the benchmark's batch, 250 bp and 36 bp
+    LS and 36-colour CS: every owner's survivors and count equal
+    (tolerance 0: integer keys); the device path's FlatHits equal the host
+    path's; the kernel's device time, the plain version's time and the
+    bound (the offset, posting and survivor bytes over the HBM rate). Then
+    F1_STREAM_READS 250 bp reads through the LS stream with filter 1's
+    front half on the card and on the host: the same SAM bytes, the
+    reads/s and stage seconds of each."""
+    import dataclasses
+    from shrimp_tpu_torch import fastpath
+    from shrimp_tpu_torch.config import MapperConfig
+    from shrimp_tpu_torch.core import filter1_front as F
+    from shrimp_tpu_torch.mapper import Mapper
+    from shrimp_tpu_torch.native.filter1_py import (
+        generate_candidates_native)
+    rec, launches = {}, {}
+    for title, name, n_all, cs in (
+            ("LS 250 bp", "ecoli_unpaired_ls_long", F1_STREAM_READS, False),
+            ("LS 36 bp", "ecoli_unpaired_ls", N_READS, False),
+            ("CS 36 colours", "ecoli_unpaired_cs", N_READS, True)):
+        idx, reads = _dataset(name, n_all)
+        m = Mapper(idx, MapperConfig(mode="cs") if cs else None,
+                   dev).upload_planes()
+        cfg = m.config
+        flat = _f1_batch(idx, reads, cs)
+        n, L = flat.shape
+        min_pos = 1 if cs else 0
+        tables = m._dev_f1_tables()
+        K = F.n_keys(tables.spans, L, min_pos)
+        cap = F.capacity(K)
+        args = (min_pos, m.cutoff, cfg.region_bits, cfg.region_overlap,
+                True)
+        F.LAUNCHES.reset()
+        keys, base, count = F.front(flat, tables, dev, *args)
+        codes_dev = torch.from_numpy(flat).to(dev)
+        wk, wb, wc = (t.cpu().numpy() for t in F.front_ref(
+            codes_dev, tables, *args, cap))
+
+        def differing(keys, base, count):
+            """Owners whose survivors differ from the plain version's."""
+            bad = int(np.count_nonzero(count != wc))
+            for o in np.nonzero((count >= 0) & (count == wc))[0]:
+                if not np.array_equal(
+                        keys[base[o]:base[o] + count[o]],
+                        wk[wb[o]:wb[o] + wc[o]].view(np.uint64)):
+                    bad += 1
+            return bad
+        bad = differing(keys, base, count)
+        # a survivors' buffer too small for the batch: run again with room
+        n_launch = F.LAUNCHES.n
+        bad_retry = differing(*F.front(flat, tables, dev, *args,
+                                       surv_cap=len(keys) // 3))
+        retry_launches = F.LAUNCHES.n - n_launch
+        print(f"25 {title}: survivors' buffer a third of the batch's: "
+              f"owners differing {bad_retry}, launches {retry_launches}")
+        if bad_retry or retry_launches != 2:
+            raise AssertionError(f"25 {title}: the run again with room "
+                                 "for all differs")
+        launch = lambda: F._launch(codes_dev, tables, min_pos, K, m.cutoff,
+                                   cfg.region_bits, cfg.region_overlap,
+                                   True, cap)
+        ms, ev_ms, plain_ms = _kernel_times(
+            launch, lambda: F.front_ref(codes_dev, tables, *args, cap))
+        # bytes: two offsets a key, each gathered posting, each survivor
+        # written, the codes read; the posting count from the plain
+        # version's unfiltered run
+        allk, _, _ = F.front_ref(codes_dev, tables, min_pos, m.cutoff,
+                                 cfg.region_bits, cfg.region_overlap,
+                                 False, 1 << 30)
+        nbytes = 8 * n * K + 4 * len(allk) + 8 * len(keys) + n * L
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        sectors_ms = 32 * (n * K + len(allk) / 8) / HBM_BYTES_PER_S * 1e3
+        cfg_k = _build_config(K, L, cap)
+        print(f"25 {title}: filter1_front on ({n} owners, L {L}, K {K}, "
+              f"cap {cap}): owners differing from the plain version {bad}; "
+              f"spilled {int((count < 0).sum())}; survivors {len(keys)} of "
+              f"{len(allk)} postings; kernel {ms!r} ms (device), "
+              f"{ev_ms!r} ms (events), plain {plain_ms!r} ms; bound "
+              f"{bound_ms!r} ms ({nbytes} bytes), at 32-byte sectors "
+              f"{sectors_ms!r} ms; launches {F.LAUNCHES.n}; config "
+              f"{cfg_k}; {smi}")
+        if bad:
+            raise AssertionError(f"25 {title}: the kernel differs from its "
+                                 "plain version")
+        codes2 = flat.reshape(F1_BATCH, 2, L)
+        opts = cfg.unpaired_options()[0]
+        fargs = (codes2, L, int(L * 1.4), m.cutoff, opts.hit_list.match_mode,
+                 opts.hit_list.threshold, cfg.scores.match,
+                 cfg.scores.b_gap_open, cfg.scores.b_gap_extend)
+        kw = dict(min_kmer_pos=min_pos, region_bits=cfg.region_bits,
+                  region_overlap=cfg.region_overlap, threads=1)
+        want = generate_candidates_native(idx, *fargs, **kw)
+        got = F.generate_candidates_device(m, *fargs, **kw)
+        for f in dataclasses.fields(want):
+            if not np.array_equal(getattr(want, f.name),
+                                  getattr(got, f.name)):
+                raise AssertionError(f"25 {title}: FlatHits.{f.name} "
+                                     "differs from the host path's")
+        print(f"25 {title}: device path's FlatHits equal the host path's "
+              f"({want.n} windows)")
+        if not cs and L == 250:
+            rec["filter1_front"] = dict(
+                err=bad, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_all_ms=bound_ms, bound_by="bytes")
+            runs = {}
+            engages = F.engages
+            for side in ("device", "host", "device", "host"):
+                mm = _mapper(idx, dev)
+                F.engages = (engages if side == "device"
+                             else lambda *a, **kw: False)
+                F.LAUNCHES.reset()
+                try:
+                    sam, secs = _map(mm, reads[:F1_STREAM_READS])
+                finally:
+                    F.engages = engages
+                print(f"25 {title} stream, filter 1's front half on the "
+                      f"{side}: {F1_STREAM_READS / secs!r} reads/s, launches "
+                      f"{F.LAUNCHES.n}; counters {mm.stats.counts}; stage "
+                      "seconds " + ", ".join(
+                          f"{k} {v!r}" for k, v in
+                          mm.stats.stage_secs.items()))
+                if side == "device":
+                    if (F.LAUNCHES.n <= 0 or mm.stats.counts.get(
+                            "filter1 device owners", 0) <= 0):
+                        raise AssertionError("25: the stream did not "
+                                             "launch filter1_front")
+                    launches["filter1_front"] = F.LAUNCHES.n
+                runs.setdefault(side, sam)
+            if runs["device"] != runs["host"]:
+                raise AssertionError("25: the stream's SAM differs between "
+                                     "the two filter 1 paths")
+        del m, tables, codes_dev
+        torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _build_config(K, L, cap) -> dict:
+    from shrimp_tpu_torch import _build
+    return _build.launch_config("filter1_front_config", K, L, cap)
+
 
 def _phases(argv) -> set:
     """The phases to run: all without arguments, else `--phases 12,13`."""
     if not argv:
-        return set(range(1, 25))
+        return set(range(1, 26))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases N,N,...]")
     return {int(x) for x in argv[1].split(",")}
@@ -4526,8 +4706,14 @@ def main() -> None:
         rec.update(check_wide_kernels(dev))
         launches.update(run_wide_slices(dev, smi))
         print(f"phase 24: {time.perf_counter() - t24!r} s")
+    if 25 in phases:
+        t25 = time.perf_counter()
+        ln, r = check_filter1_front(dev, smi)
+        launches.update(ln)
+        rec.update(r)
+        print(f"phase 25: {time.perf_counter() - t25!r} s")
     print(f"whole run: {time.perf_counter() - t_start!r} s")
-    if phases != set(range(1, 25)):
+    if phases != set(range(1, 26)):
         print(f"phases {sorted(phases)} only: no result")
         return
 
@@ -4652,7 +4838,10 @@ def main() -> None:
             ("sw_full_bp_wide", "sw_full_bp.cu",
              "shrimp_tpu/core/sw_full_pallas.py:298"),
             ("ls_traceback_wide", "ls_traceback.cu",
-             "shrimp_tpu/core/sw_jax.py:785"))]
+             "shrimp_tpu/core/sw_jax.py:785"),
+            ("filter1_front", "filter1_front.cu",
+             "none: shrimp_tpu/native/filter1.cpp collect_owner and the "
+             "anchor walk's region test (host C++)"))]
     for name in rec:
         print(f"{name}: bound {rec[name]['bound_ms']!r} ms "
               f"({rec[name]['bound_by']}), over all R x G cells "

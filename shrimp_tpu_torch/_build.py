@@ -52,6 +52,9 @@ _SIGNATURES = {
     "ls_traceback_launch": [_P] * 9 + [_I] * 3 + [_P, _P],
     "ls_traceback_config": [_I, _I, _I, _P],
     "ls_traceback_scratch": [_I, _I, _I, _P],
+    "filter1_front_launch": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9
+    + [_P],
+    "filter1_front_config": [_I, _I, _I, _P],
 }
 
 

@@ -62,6 +62,7 @@ from .io.fasta import SeqRecord
 from .io.sam import _pair_qname
 from .native import get_lib
 from .native.filter1_py import generate_candidates_native
+from .core import filter1_front
 from .core._args import MAX_G
 from .core.sw import (sw_vec_full_stats_from_index, sw_vec_full_stats_packed,
                       sw_vec_full_tb_from_index, sw_vec_full_tb_packed)
@@ -575,22 +576,28 @@ class FastLS:
                  min_kmer_pos: int = 0, index=None):
         """Candidate window generation over `index` (None: the mapper's;
         colour space starts its k-mers at colour 1: min_kmer_pos=1).
-        The sharded-index tier overrides it."""
+        Where `filter1_front.engages` (the mapper's own index, on a
+        card, with seeds the kernel takes), the front half (k-mer lookup,
+        posting gather, sort, region filter) runs on the card; otherwise
+        all of it runs on the host. Both give the same FlatHits. The
+        sharded-index tier overrides it."""
         m = self.m
         cfg = m.config
         opts = m._unpaired_opts[0]
+        args = (codes2, L, wlen, m.cutoff, opts.hit_list.match_mode,
+                opts.hit_list.threshold, cfg.scores.match,
+                cfg.scores.b_gap_open, cfg.scores.b_gap_extend)
+        kw = dict(min_kmer_pos=min_kmer_pos,
+                  use_region_counts=opts.anchor_list.use_region_counts,
+                  region_bits=cfg.region_bits,
+                  region_overlap=cfg.region_overlap,
+                  collapse=opts.anchor_list.collapse, gapless=False,
+                  search_strands=(True, True), threads=self.f1_threads)
+        if filter1_front.engages(m, L, min_kmer_pos, index):
+            return filter1_front.generate_candidates_device(m, *args, **kw)
         return generate_candidates_native(
-            m.index if index is None else index, codes2, L, wlen, m.cutoff,
-            opts.hit_list.match_mode,
-            opts.hit_list.threshold, cfg.scores.match,
-            cfg.scores.b_gap_open, cfg.scores.b_gap_extend,
-            min_kmer_pos=min_kmer_pos,
-            use_region_counts=opts.anchor_list.use_region_counts,
-            region_bits=cfg.region_bits,
-            region_overlap=cfg.region_overlap,
-            collapse=opts.anchor_list.collapse, gapless=False,
-            search_strands=(True, True), threads=self.f1_threads,
-            tally=m.tally)
+            m.index if index is None else index, *args, tally=m.tally,
+            count=m.count, **kw)
 
     # ---------------------------------------------------------- stage A
     def stage_prepare(self, records: Sequence[SeqRecord],
@@ -1459,7 +1466,7 @@ def _filter1_paired(m, f1_threads, codes2, L: int, wlen: int, ro,
         region_overlap=cfg.region_overlap,
         collapse=ro.anchor_list.collapse, gapless=False,
         search_strands=(True, True), threads=f1_threads, tally=m.tally,
-        **_mp_kw(m, ro, wlen, L, codes2.shape[0]))
+        count=m.count, **_mp_kw(m, ro, wlen, L, codes2.shape[0]))
 
 
 def _paired_render(lib, p, wstruct, cap, pair_nhits, read_nhits):

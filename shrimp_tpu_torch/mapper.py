@@ -26,6 +26,10 @@ Each genome plane goes to `device` on its first use (`_pad_plane`,
 config `_dev_cs_planes`, `_dev_cs_cat_words`), as the reference's do, under
 a lock that the streams' lane threads share; a mapper whose planes are
 never asked for (the mesh tiers' inner mapper) holds none on the device.
+Filter 1's CSR tables go up the same way (`_dev_f1_tables`) where the
+fast streams run its front half on the card (`filter1_front.engages`,
+`core/filter1_front.py`). Counters (`count`) sit beside the stage
+seconds.
 They are built from the numpy arrays of the port's own
 `index.build.GenomeIndex` with the reference's padding and word layout,
 so both packages compute on identical bytes. The fast streams read the
@@ -51,7 +55,7 @@ from . import constants as C
 from .config import (MapperConfig, Pass2Options, ReadMappingOptions,
                      abs_or_pct, is_absolute)
 from .core import batch_pipeline as bp
-from .core import candidates, encode, sw_cs_np
+from .core import candidates, encode, filter1_front, sw_cs_np
 from .core.sw import cat_word_plane
 from .core.sw_cs import sw_full_cs_dispatch, sw_full_cs_finish
 from .core.sw_cs_batch import CSBatchResult, post_sw_forward_backward_batch
@@ -314,6 +318,7 @@ class Mapper:
         self._codes_dev = self._codes_rc_dev = _NOT_UPLOADED
         self._cat_words_dev = _NOT_UPLOADED
         self._cs_planes_dev = self._cs_cat_words_dev = _NOT_UPLOADED
+        self._f1_tables_dev = _NOT_UPLOADED
 
     def tally(self, stage: Optional[str] = None, secs: float = 0.0,
               **counts) -> None:
@@ -325,6 +330,11 @@ class Mapper:
                 setattr(self.stats, name, getattr(self.stats, name) + v)
             if stage is not None:
                 self.stats.add_stage(stage, secs)
+
+    def count(self, name: str, n: int) -> None:
+        """Add `n` to the counter `name` (`stats.counts`)."""
+        with self._stats_lock:
+            self.stats.add_count(name, n)
 
     def span(self, name: str, **attrs) -> spans.Span:
         """`with m.span(stage):` times the block as the stage `name`
@@ -378,13 +388,29 @@ class Mapper:
         self._dev_cat_words()
         self._dev_cs_planes()
         self._dev_cs_cat_words()
+        if (self.config.pair_mode == C.PAIR_NONE
+                and filter1_front.engages(self)):
+            self._dev_f1_tables()
         return self
 
     def device_planes(self) -> List[str]:
         """The names of the planes uploaded so far."""
         return [a for a in ("_codes_dev", "_codes_rc_dev", "_cat_words_dev",
-                            "_cs_planes_dev", "_cs_cat_words_dev")
+                            "_cs_planes_dev", "_cs_cat_words_dev",
+                            "_f1_tables_dev")
                 if getattr(self, a) not in (_NOT_UPLOADED, None)]
+
+    def _dev_f1_tables(self) -> filter1_front.SeedTables:
+        """The index's seeds and CSR tables on the device, for filter 1's
+        front half; synchronised once, since the front half reads them on
+        streams of its own."""
+        def make():
+            t = filter1_front.seed_tables(self.index, self.device,
+                                          self._upload)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return t
+        return self._lazy("_f1_tables_dev", make)
 
     def _dev_codes(self) -> torch.Tensor:
         """Padded forward genome plane on the device."""
@@ -1551,14 +1577,15 @@ class Mapper:
                 fh = generate_candidates_native(
                     *args, mp_mode=mp_mode, mp_drmin=drmin,
                     mp_drmax=drmax, threads=self.f1_threads,
-                    tally=self.tally, **kw)
+                    tally=self.tally, count=self.count, **kw)
                 if fh is not None:
                     return fh
             kw.update(self._mp_context(sub, mp_mode))
             return bp.generate_candidates(*args, **kw)
         # the numpy filter 1 takes the shapes the native one refuses
         fh = generate_candidates_native(*args, threads=self.f1_threads,
-                                        tally=self.tally, **kw)
+                                        tally=self.tally, count=self.count,
+                                        **kw)
         if fh is None:
             fh = bp.generate_candidates(*args, **kw)
         return fh

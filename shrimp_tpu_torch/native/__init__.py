@@ -69,7 +69,8 @@ def get_lib() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         lib = ctypes.CDLL(_build())
-        for name in ("filter1_batch", "pass1_select", "finalize_render",
+        for name in ("filter1_batch", "filter1_survivors", "pass1_select",
+                     "finalize_render",
                      "sw_full_tb_host", "paired_finalize_render",
                      "cs_post_fb_batch",
                      "cs_finalize_render", "csr_counting_sort",

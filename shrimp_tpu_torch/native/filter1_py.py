@@ -7,7 +7,9 @@ host's core count (no environment override). The C++ splits each
 call's time into its k-mer lookup and the rest, which a caller's
 `tally` receives as the stages `filter1 lookup` and `filter1 windows`;
 a call that overflowed its output cap and ran again is `filter1
-overflow`.
+overflow`. `generate_candidates_survivors` runs the back half alone
+(filter1.cpp's filter1_survivors) over postings that the device's front
+half collected, sorted and region-filtered (`core/filter1_front.py`).
 """
 from __future__ import annotations
 
@@ -101,14 +103,15 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
                                mp_drmax=None,
                                threads: Optional[int] = None,
                                tally: Optional[Callable] = None,
+                               count: Optional[Callable] = None,
                                ) -> Optional[FlatHits]:
     """Filter 1 over `codes` [N, 2, read_len]; None when the native code
     refuses the shape (the caller rejects the batch). `tally(stage,
     secs)` (a Mapper's) receives the lookup, windows and overflow
     seconds; with the call split over threads, lookup and windows are
     scaled to the split's wall time, so that they share out what the
-    caller's `filter1` stage sees."""
-    lib = get_lib()
+    caller's `filter1` stage sees. `count(name, n)` (a Mapper's) receives
+    the call's owners as `filter1 host owners`."""
     N = codes.shape[0]
     n_owners = N * 2
     if mp_mode and (N % 2 or not use_region_counts):
@@ -117,6 +120,89 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
                 if mp_mode else None)
     mp_drmax = (np.ascontiguousarray(mp_drmax, np.int64)
                 if mp_mode else None)
+    if count is not None:
+        count("filter1 host owners", n_owners)
+
+    def call(lib, params, seed_specs, flat_codes, o_lo, n_own, out, ns,
+             seg):
+        params.mp_drmin = (mp_drmin.ctypes.data + 8 * o_lo
+                           if mp_mode else None)
+        params.mp_drmax = (mp_drmax.ctypes.data + 8 * o_lo
+                           if mp_mode else None)
+        return lib.filter1_batch(
+            ctypes.byref(params), seed_specs,
+            ctypes.c_void_p(flat_codes.ctypes.data + o_lo * read_len),
+            ctypes.c_int64(n_own), ctypes.byref(out),
+            ctypes.c_void_p(ns.ctypes.data), ctypes.c_void_p(seg.ctypes.data))
+
+    return _run(index, codes, read_len, window_len, cutoff, match_mode,
+                threshold, match_score, b_gap_open, b_gap_extend,
+                min_kmer_pos, use_region_counts, region_bits,
+                region_overlap, collapse, gapless, search_strands, mp_mode,
+                threads, tally, call)
+
+
+def generate_candidates_survivors(index, codes: np.ndarray,
+                                  surv: np.ndarray, surv_base: np.ndarray,
+                                  surv_count: np.ndarray, read_len: int,
+                                  window_len: int, cutoff: int,
+                                  match_mode: int, threshold: float,
+                                  match_score: int, b_gap_open: int,
+                                  b_gap_extend: int, min_kmer_pos: int = 0,
+                                  use_region_counts: bool = True,
+                                  region_bits: int = 11,
+                                  region_overlap: int = 50,
+                                  collapse: bool = True,
+                                  gapless: bool = False,
+                                  search_strands=(True, True),
+                                  threads: Optional[int] = None,
+                                  tally: Optional[Callable] = None,
+                                  ) -> Optional[FlatHits]:
+    """Filter 1's back half (filter1.cpp's filter1_survivors) over the
+    front half's survivors (`core/filter1_front.py`): owner o's sorted,
+    region-filtered packed keys are surv[surv_base[o]:][:surv_count[o]];
+    an owner whose count is -1 runs the host's own front half. The same
+    FlatHits as generate_candidates_native on the same input, or None
+    where it would give None. `tally` receives the back half's seconds as
+    `filter1 windows` and the host front half's, if any owner took it,
+    as `filter1 lookup`."""
+    surv = np.ascontiguousarray(surv, np.uint64)
+    surv_base = np.ascontiguousarray(surv_base, np.int64)
+    surv_count = np.ascontiguousarray(surv_count, np.int64)
+
+    def call(lib, params, seed_specs, flat_codes, o_lo, n_own, out, ns,
+             seg):
+        return lib.filter1_survivors(
+            ctypes.byref(params), seed_specs,
+            ctypes.c_void_p(flat_codes.ctypes.data + o_lo * read_len),
+            ctypes.c_int64(n_own), ctypes.c_void_p(surv.ctypes.data),
+            ctypes.c_void_p(surv_base.ctypes.data + 8 * o_lo),
+            ctypes.c_void_p(surv_count.ctypes.data + 8 * o_lo),
+            ctypes.byref(out), ctypes.c_void_p(ns.ctypes.data),
+            ctypes.c_void_p(seg.ctypes.data))
+
+    # a range's output starts at 8 windows an owner with a small floor:
+    # the back half is quick, so a range that overflows runs again at
+    # little cost, and a batch fanned out over threads does not hold a
+    # floor's worth of output a thread
+    return _run(index, codes, read_len, window_len, cutoff, match_mode,
+                threshold, match_score, b_gap_open, b_gap_extend,
+                min_kmer_pos, use_region_counts, region_bits,
+                region_overlap, collapse, gapless, search_strands, 0,
+                threads, tally, call, min_cap=1 << 12)
+
+
+def _run(index, codes, read_len, window_len, cutoff, match_mode, threshold,
+         match_score, b_gap_open, b_gap_extend, min_kmer_pos,
+         use_region_counts, region_bits, region_overlap, collapse, gapless,
+         search_strands, mp_mode, threads, tally, call, min_cap=1 << 16):
+    """One native entry point (`call`) over the owners of `codes`, in
+    contiguous read ranges on host threads, each with an output of
+    max(8 an owner, `min_cap`) windows, retried larger on overflow; the
+    parts merged into one FlatHits."""
+    lib = get_lib()
+    N = codes.shape[0]
+    n_owners = N * 2
     flat_codes = np.ascontiguousarray(codes.reshape(n_owners, read_len),
                                       dtype=np.uint8)
 
@@ -141,8 +227,8 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
     c_len = np.ascontiguousarray(index.contig_lengths, dtype=np.uint32)
 
     def run_range(o_lo: int, o_hi: int):
-        """One filter1_batch call over owner rows [o_lo, o_hi); owners in
-        the result are call-local (add o_lo to globalize)."""
+        """One native call over owner rows [o_lo, o_hi); owners in the
+        result are call-local (add o_lo to globalize)."""
         n_own = o_hi - o_lo
         params = _Params(
             len(index.seeds), read_len, window_len, cutoff, match_mode,
@@ -153,12 +239,10 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
             int(index.hashed),
             max(si.seed.span for si in index.seeds), index.total_len,
             index.n_contigs, c_off.ctypes.data, c_len.ctypes.data,
-            int(mp_mode),
-            mp_drmin.ctypes.data + 8 * o_lo if mp_mode else None,
-            mp_drmax.ctypes.data + 8 * o_lo if mp_mode else None)
+            int(mp_mode), None, None)
         # start near the observed density (~1-2 windows per owner) and
         # grow on -1; the old 128/owner guess mmapped ~300MB per call
-        cap = max(8 * n_own, 1 << 16)
+        cap = max(8 * n_own, min_cap)
         ns = np.zeros(2, np.int64)     # lookup, windows
         overflow_ns = 0
         while True:
@@ -180,13 +264,8 @@ def generate_candidates_native(index, codes: np.ndarray, read_len: int,
                        swg.ctypes.data, matches.ctypes.data,
                        score_max.ctypes.data, ax.ctypes.data,
                        ay.ctypes.data, alen.ctypes.data, awid.ctypes.data)
-            n = lib.filter1_batch(
-                ctypes.byref(params), seed_specs,
-                ctypes.c_void_p(flat_codes.ctypes.data
-                                + o_lo * read_len),
-                ctypes.c_int64(n_own), ctypes.byref(out),
-                ctypes.c_void_p(ns.ctypes.data),
-                ctypes.c_void_p(seg.ctypes.data))
+            n = call(lib, params, seed_specs, flat_codes, o_lo, n_own, out,
+                     ns, seg)
             if n >= 0:
                 break
             if n == -2:       # unsupported shape

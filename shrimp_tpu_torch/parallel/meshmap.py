@@ -627,8 +627,9 @@ def _range_rows(index, D: int, halo: int) -> Tuple[int, list]:
 class MeshMapper(_MeshTier):
     """Maps reads against a genome range-sharded over a mesh; the SAM
     bytes equal the unsharded fast path's. The index stays on the host
-    once (its CSR, and filter 1 over it, as unsharded); each device holds
-    its 1/D slice of the planes plus the halo. Configs and batches outside
+    once (its CSR, and filter 1 over it, as unsharded: on a card its
+    front half runs on mesh[0], `core/filter1_front.py`); each device
+    holds its 1/D slice of the planes plus the halo. Configs and batches outside
     the fused fast paths go to the generic mapper on mesh[0]."""
 
     def __init__(self, index, config: Optional[MapperConfig] = None,

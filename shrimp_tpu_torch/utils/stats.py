@@ -3,8 +3,9 @@
 Same headline metrics: per-kernel invocations / cells / cells-per-second,
 per-stage wall clock, reads per hour.
 
-Copied from `shrimp_tpu/utils/stats.py` unchanged: the port keeps its
-own copy of the JAX package's host modules and imports none of them.
+Copied from `shrimp_tpu/utils/stats.py`, with named counters beside the
+stage seconds (`counts`, `add_count`; the port's filter 1 counts its
+owners there), which the detailed report prints.
 """
 from __future__ import annotations
 
@@ -28,10 +29,14 @@ class MapperStats:
     full_host_tb: int = 0   # stats-flow jobs re-run by the host DP
     post_invocs: int = 0
     stage_secs: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
     started: float = field(default_factory=time.time)
 
     def add_stage(self, name: str, secs: float) -> None:
         self.stage_secs[name] = self.stage_secs.get(name, 0.0) + secs
+
+    def add_count(self, name: str, n: int) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
 
     def report(self, out: TextIO = sys.stderr, detailed: bool = False
                ) -> None:
@@ -70,3 +75,8 @@ class MapperStats:
             p("    Per-stage wall clock:")
             for name, secs in sorted(self.stage_secs.items()):
                 p(f"        {name + ':':<24}{secs:.2f} seconds")
+        if detailed and self.counts:
+            p("")
+            p("    Counters:")
+            for name, n in sorted(self.counts.items()):
+                p(f"        {name + ':':<24}{n:,}")

@@ -232,9 +232,17 @@ def test_native_library_is_the_ports_own():
                                  "cs_eval.h"])
 def test_native_sources_are_byte_copies(src):
     """Every C++ source of the port's library is a byte-for-byte copy of
-    the reference's, but for filter1.cpp's timing: there the reference's
-    profiler (`SHRIMP_TPU_F1_PROF`) gave way to the call's two counters,
-    and every other line of code is the reference's, in its order."""
+    the reference's, but for filter1.cpp. There the reference's profiler
+    (`SHRIMP_TPU_F1_PROF`) gave way to the call's two counters, and
+    filter1_batch's body was cut into functions that filter1_batch and
+    filter1_survivors (the back half over the device's survivors) share:
+    its set-up (`begin_call`), its front half (`collect_owner`), its back
+    half (`owner_windows`: the anchor walk, window generation, the
+    per-owner sort) and the walk's two region tests (`RegionKeep`, the
+    mate-pair `mp_keep`). Every declaration and helper before
+    filter1_batch is the reference's, line for line; each moved body is
+    the reference's code, in its order, but for the edits listed here
+    (`_moved_bodies`)."""
     ref_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "shrimp_tpu", "native")
     with open(os.path.join(ref_dir, src), "rb") as f:
@@ -269,13 +277,150 @@ def test_native_sources_are_byte_copies(src):
             if s and not s.startswith("//") and not drop.search(ln):
                 lines.append(ln)
         return lines
-    got_code = code(got, timing)
-    assert got_code == code(want, prof)
-    # what the port adds: the timer, its counters and the output
-    extra = [ln for ln in got.splitlines()
-             if ln.strip() and not ln.strip().startswith("//")
-             and timing.search(ln)]
-    assert len(extra) == 12, extra
+    head_want = want[:want.index("int64_t filter1_batch(")]
+    head_got = got[:got.index("}  // extern \"C\"\n\n// One call's state")]
+    assert code(head_got, timing) == code(head_want, prof)
+    _moved_bodies(want, got, prof, timing)
+    # both entry points run the one back half; only it generates windows
+    for entry in ("filter1_batch", "filter1_survivors"):
+        body = got[got.index(f"int64_t {entry}("):]
+        body = body[:body.index("\n}\n")]
+        assert "owner_windows(" in body and "window generation" not in body
+    assert got.count("---- window generation (read_get_hit_list") == 1
+    assert got.count("int64_t owner_windows(") == 1
+
+
+def _swap(text: str, old: str, new: str) -> str:
+    assert text.count(old) == 1, old
+    return text.replace(old, new)
+
+
+def _moved_bodies(want: str, got: str, prof, timing) -> None:
+    """The bodies that the port's filter1.cpp moved out of the reference's
+    filter1_batch, each held against the reference's code in order, with
+    the listed edits: the port's functions take their state from a
+    `Call` (`c.`) and unpack it (`const int L = c.L;`, left out here),
+    the region tests become the walk's `keep` and `heavy`, and the walk
+    reads `keys[0, n_keys)`. Code is compared with its whitespace
+    collapsed (lines stripped and joined), so a rewrapped line reads the
+    same; comments, the reference's profiler and the port's timing are
+    left out."""
+    unpack = re.compile(r"^const [\w:*<> ]+ = c\.\w+;$")
+
+    def body(text, start, drop):
+        """The code inside the block that opens at `start`."""
+        lines, depth = [], 0
+        for ln in text[text.index(start):].splitlines():
+            s = ln.strip()
+            if (not s or s.startswith("//") or drop.search(ln)
+                    or unpack.match(s)):
+                continue
+            opened = depth > 0
+            depth += s.count("{") - s.count("}")
+            if opened and depth > 0:
+                lines.append(s)
+            if opened and depth <= 0:
+                break
+        return " ".join(" ".join(lines).split())
+
+    def port(start, text=got):
+        return body(text, start, timing)
+    ref = body(want, "int64_t filter1_batch(", prof)
+    loop = body(want, "for (int64_t ow = 0; ow < n_owners; ow++) {", prof)
+    head = loop[:loop.index("sc.collapsed.clear();")]
+    walk = loop[len(head):]
+    # the set-up: the reference's, writing the Call
+    setup = ref[:ref.index("auto collect_owner")]
+    mp_check = ("if (p->mp_mode && ((n_owners % 4) || !p->use_region_counts)"
+                ") return -2; // mp filter needs interleaved pair groups + "
+                "regions ")
+    for old, new in (
+            ("static thread_local Scratch sc; int64_t out_n = 0; ", ""),
+            (mp_check, ""),
+            ("const int L = p->read_len;",
+             "c.p = p; c.seeds = seeds; const int L = c.L = p->read_len;"),
+            ("const int64_t region_mask =", "c.region_mask ="),
+            ("const int64_t n_regions =",
+             "const int64_t n_regions = c.n_regions ="),
+            ("int max_kmers = L;", "int max_kmers = c.max_kmers = L;"),
+            ("std::vector<uint64_t> pext_mask(p->n_seeds, 0);",
+             "std::vector<uint64_t>& pext_mask = c.pext_mask; "
+             "pext_mask.assign(p->n_seeds, 0);")):
+        setup = _swap(setup, old, new)
+    assert port("static int64_t begin_call(") == setup + "return 0;"
+    # the front half: the reference's lambda
+    assert port("static void collect_owner(") == body(
+        want, "auto collect_owner = [&]", prof).replace(
+            "pext_mask[", "c.pext_mask[")
+    # the walk's region tests: the mate-pair one and the region counts'
+    region = walk[walk.index("if (p->mp_mode) {"):
+                  walk.index("if (x >= cn_end)")]
+    mp, counts = region.split(" } else if (p->use_region_counts) { ")
+    mp = _swap(mp, "if (p->mp_mode) { ", "")
+    mp_keep = port("auto mp_keep = [&](int64_t x) -> bool {")
+    assert mp_keep == _swap(mp, "if (!ok) continue;", "return ok;")
+    counts = _swap(counts, "bool ok = wr_ok", "return wr_ok")
+    counts = _swap(counts, "(x & region_mask)", "(x & c.region_mask)")
+    assert port("bool operator()(int64_t x) {") == _swap(
+        counts, " if (!ok) continue; } ", "")
+    # the back half: the walk (its region test now `keep`), the heavy
+    # anchors (`heavy`), window generation, the per-owner sort
+    walk = _swap(walk, region, "if (!keep(x)) continue; ")
+    for old, new in (
+            ("const uint32_t want_gen = sc.region_gen; ", ""),
+            ("int64_t wr_r = -2; bool wr_ok = false, wr_okm1 = false; ", ""),
+            ("for (uint64_t pk : sc.pos_keys) {",
+             "for (size_t kk = 0; kk < n_keys; kk++) { "
+             "const uint64_t pk = keys[kk];"),
+            ("bool hv = mp2_near(hr);", "bool hv = heavy(hr);"),
+            ("hv = mp2_near(hr - 1);", "hv = heavy(hr - 1);")):
+        walk = _swap(walk, old, new)
+    assert port("static int64_t owner_windows(") == walk + " return out_n;"
+    # the owner loop: the reference's up to the walk, the mate-pair
+    # pointers declared where they are set, the region map's next
+    # generation a function, then a call of the back half per branch
+    i_decl = head.index("const std::vector<int64_t>* own_m2 = nullptr;")
+    i_if = head.index("if (p->mp_mode) { own_m2")
+    i_else = head.index("} else { if (p->use_region_counts) {")
+    i_lam = head.index("auto mp_pass")
+    gen = port("static void next_region_gen(")
+    assert head[i_else:i_lam] == ("} else { if (p->use_region_counts) { "
+                                  + gen + " } collect_owner(rc, "
+                                  "sc.pos_keys, nullptr); } ")
+    assert head[i_decl:i_if] == (
+        "const std::vector<int64_t>* own_m2 = nullptr; "
+        "const std::vector<int64_t>* mate_m1 = nullptr; "
+        "const std::vector<int64_t>* mate_m2 = nullptr; "
+        "int64_t drmin = 0, drmax = 0; ")
+    assigns = head[i_if:i_else]
+    for name in ("own_m2", "mate_m1", "mate_m2"):
+        assigns = _swap(assigns, f" {name} = ",
+                        f" const std::vector<int64_t>* {name} = ")
+    for name in ("drmin", "drmax"):
+        assigns = _swap(assigns, f" {name} = ", f" int64_t {name} = ")
+    f1 = got[got.index("int64_t filter1_batch("):]
+    port_loop = _swap(head[:i_decl], "collect_owner(codes + (ow + g) * L,",
+                      "collect_owner(c, sc, codes + (ow + g) * L,")
+    port_loop += assigns + head[i_lam:] + (
+        "auto mp_keep = [&](int64_t x) -> bool { " + mp_keep + " }; "
+        "out_n = owner_windows(c, sc, ow, sc.pos_keys.data(), "
+        "sc.pos_keys.size(), mp_keep, mp2_near, out, out_n); "
+        "} else if (p->use_region_counts) { next_region_gen(sc); "
+        "collect_owner(c, sc, rc, sc.pos_keys, nullptr); "
+        "out_n = owner_windows(c, sc, ow, sc.pos_keys.data(), "
+        "sc.pos_keys.size(), RegionKeep{c, sc, sc.region_gen}, keep_all, "
+        "out, out_n); } else { "
+        "collect_owner(c, sc, rc, sc.pos_keys, nullptr); "
+        "out_n = owner_windows(c, sc, ow, sc.pos_keys.data(), "
+        "sc.pos_keys.size(), keep_all, keep_all, out, out_n); } "
+        "if (out_n < 0) return -1;")
+    assert port("for (int64_t ow = 0; ow < n_owners; ow++) {",
+                f1) == port_loop
+    assert port("int64_t filter1_batch(") == (
+        "static thread_local Scratch sc; Call c; "
+        "int64_t out_n = begin_call(c, p, seeds, sc); if (out_n) return "
+        "out_n; " + mp_check + "for (int64_t ow = 0; ow < n_owners; ow++) "
+        "{ " + port_loop + " } seg_start[n_owners] = out_n; return out_n;")
 
 
 def test_pair_qname_matches_reference():
