@@ -8,9 +8,9 @@ It imports `shrimp_tpu_torch.cli` and calls `main(["map", ...])`; the
 reads come on standard input (`-`) and the SAM goes to standard output.
 A control thread reads the harness's commands from the pipe FD, one a
 line: `open` snapshots the port's counters (the mapper's stage seconds,
-its read and window counts, and the kernels' launch counts); with
-`--trace`, `trace` snapshots them again (`host_close`), starts the
-profiler and the launch recorder, snapshots the launch counts
+its read and window counts, its event counters and the kernels' launch
+counts); with `--trace`, `trace` snapshots them again (`host_close`),
+starts the profiler and the launch recorder, snapshots the launch counts
 (`trace_open`) and writes PATH.traced; `close` snapshots them at the
 end, stops the profiler and writes the report (JSON) to PATH. The
 harness then ends the process.
@@ -147,9 +147,20 @@ class Probe:
                     tot[k] += getattr(m.stats, k)
         return tot
 
+    def counts(self) -> dict:
+        """The mappers' event counters (`MapperStats.counts`: filter 1's
+        owners sent to the card and kept on the host), summed."""
+        tot = {}
+        for m in self.mappers:
+            with m._stats_lock:
+                for k, v in m.stats.counts.items():
+                    tot[k] = tot.get(k, 0) + v
+        return tot
+
     def snapshot(self) -> dict:
         return {"t_ns": time.time_ns(), "counters": self.counters(),
-                "stage_secs": self.stage_secs(), "stats": self.stats()}
+                "stage_secs": self.stage_secs(), "stats": self.stats(),
+                "counts": self.counts()}
 
     # ---- the window
     def open(self) -> dict:

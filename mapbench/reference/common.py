@@ -247,11 +247,24 @@ def pass2(hits: List[Hit], fresh=None) -> List[Hit]:
     return survivors
 
 
+def plain_sum(values) -> float:
+    """A double accumulated left to right from 0.0, as gmapper adds the
+    posteriors into a MAPQ's normaliser (compute_unpaired_mqv,
+    output.c:777-793; compute_paired_mqv, output.c:811-942). Not `sum()`:
+    since CPython 3.12 it compensates a float sum (Neumaier), which can
+    differ from the C loop in the last bit, and one ulp of z1 moves a
+    MAPQ near 150."""
+    z = 0.0
+    for v in values:
+        z += v
+    return z
+
+
 def finalize(hits: List[Hit]) -> List[Hit]:
     """Pass 2 and compute_unpaired_mqv (output.c:777-793)."""
     survivors = pass2(hits)
     if survivors:
-        z1 = sum(h.posterior for h in survivors)
+        z1 = plain_sum(h.posterior for h in survivors)
         for h in survivors:
             h.z0 = h.posterior
             h.z1 = z1

@@ -223,7 +223,7 @@ def pair_pass2(ph_sel: List[PairHit], L: int) -> List[PairHit]:
 def paired_mqv(r: List[K.Read], pairs: List[PairHit], genome_len: int):
     """compute_paired_mqv (output.c:811-942)."""
     for nip in (0, 1):
-        z1 = sum(h.posterior for h in r[nip].final_unpaired_hits)
+        z1 = K.plain_sum(h.posterior for h in r[nip].final_unpaired_hits)
         for h in r[nip].final_unpaired_hits:
             h.z0, h.z1 = h.posterior, z1
     ins_denom = 0.0

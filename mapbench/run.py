@@ -23,7 +23,9 @@ CLI windows of reads). Then the window opens for `--seconds`:
 `reads_per_s` is the reads of the CLI windows that ended inside the
 window after the first one that did, over the time between the ends of
 the first and the last of them; `host_memory_peak_mib` is the largest
-resident memory of the CLI sampled in the window. With `--trace 1` the
+resident memory of the CLI sampled in the window (an end-to-end metric
+`<quantity>.<suffix>` reads `<quantity>`: the same number under a bound
+of its own, for cells that spread differently). With `--trace 1` the
 line carries the per-layer metrics (`mapbench/metrics/<metric>.py`)
 instead: the host stages are read over the window, untraced; then the
 child starts the profiler and the benchmark's launch recorder, and the
@@ -61,6 +63,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI_WINDOW_READS = 32768   # cli.py: max(8 * B, 32768) records, -B 4096
 SETUP_LIMIT_S = 900
 PIPE_BYTES = 1 << 20
+SAMPLE_S = 0.1           # the host sampler's period in the window
 FEED_BYTES = 1 << 18
 NAME_DIGITS = 10          # read n is named by n, zero-padded to this width
 JAX_NAMES = ("jax", "jaxlib", "flax", "shrimp_tpu")
@@ -268,13 +271,15 @@ def window_ends(pieces, per_window: int, t0: float, t1: float):
 
 class HostSampler:
     """Samples, while the window runs, what the host gives the map CLI:
-    its CPU seconds and resident memory (/proc/<pid>), and the machine's
-    CPU time stolen by the hypervisor and left idle (/proc/stat)."""
+    its CPU seconds and resident memory (/proc/<pid>), the machine's CPU
+    time stolen by the hypervisor and left idle (/proc/stat), and the
+    harness's own CPU seconds (its feed and SAM reading)."""
 
     def __init__(self, pid: int):
         self.pid = pid
         self.tick = os.sysconf("SC_CLK_TCK")
-        self.rows = []        # (t, child cpu s, rss MB, steal, idle, all)
+        # (t, child cpu s, rss MiB, steal, idle, all, harness cpu s)
+        self.rows = []
 
     def sample(self) -> None:
         try:
@@ -289,17 +294,17 @@ class HostSampler:
         self.rows.append((time.perf_counter(),
                           (int(st[11]) + int(st[12])) / self.tick,
                           rss / 2**20, cpu[7] if len(cpu) > 7 else 0,
-                          cpu[3], sum(cpu[:8])))
+                          cpu[3], sum(cpu[:8]), time.process_time()))
 
     def memory_peak_mib(self) -> "float | None":
         """The CLI's largest resident memory sampled in the window, in
-        MiB (`/proc/<pid>/statm`, every half second; not every kernel
-        gives a process's VmHWM)."""
+        MiB (`/proc/<pid>/statm`, every `SAMPLE_S`; not every kernel
+        gives a process's VmHWM, and it would hold the set-up's peak)."""
         return max((r[2] for r in self.rows), default=None)
 
     def quarters(self) -> list:
         """Per quarter of the window: (the CLI's CPUs busy, steal %,
-        idle %, resident MB at its end)."""
+        idle %, resident MiB at its end, the harness's CPUs busy)."""
         r = self.rows
         if len(r) < 5:
             return []
@@ -307,9 +312,11 @@ class HostSampler:
         out = []
         for a, b in zip(cut, cut[1:]):
             tot = max(b[5] - a[5], 1)
-            out.append((round((b[1] - a[1]) / (b[0] - a[0]), 3),
+            dt = b[0] - a[0]
+            out.append((round((b[1] - a[1]) / dt, 3),
                         round(100 * (b[3] - a[3]) / tot, 2),
-                        round(100 * (b[4] - a[4]) / tot, 2), round(b[2])))
+                        round(100 * (b[4] - a[4]) / tot, 2), round(b[2]),
+                        round((b[6] - a[6]) / dt, 3)))
         return out
 
 
@@ -415,7 +422,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         host = HostSampler(child.pid)
         while time.perf_counter() < t_open + seconds:
             alive()
-            if not host.rows or time.perf_counter() > host.rows[-1][0] + 0.5:
+            if not host.rows or \
+                    time.perf_counter() > host.rows[-1][0] + SAMPLE_S:
                 host.sample()
             time.sleep(0.02)
         host.sample()
@@ -588,7 +596,8 @@ def finish(run: dict) -> int:
     log("mapbench: CLI window ends, s after the first: "
         + " ".join(f"{t:.3f}" for t in run["window_ends"][1:]))
     log("mapbench: host by quarter of the window (the CLI's CPUs busy, "
-        f"steal %, idle %, the CLI's resident MB): {run['host']}")
+        "steal %, idle %, the CLI's resident MiB, the harness's CPUs "
+        f"busy): {run['host']}")
     log(f"mapbench: windows per read {d_win / max(d_reads, 1):.3f} "
         f"({d_win} vector-SW windows, {d_reads} reads in the window)")
     log(f"mapbench: peak device memory {rep['device']['memory_peak_bytes']}"
@@ -606,7 +615,8 @@ def finish(run: dict) -> int:
         shutil.rmtree(run["work"], ignore_errors=True)
     else:
         for m in run["spec"]["end_to_end"]:
-            metrics[m["name"]] = {"value": run[m["name"]], "unit": m["unit"]}
+            metrics[m["name"]] = {"value": run[m["name"].split(".")[0]],
+                                  "unit": m["unit"]}
     jax_here = sorted({m.split(".")[0] for m in list(sys.modules)
                        if m.split(".")[0] in JAX_NAMES})
     jax_child = rep.get("jax_modules", [])

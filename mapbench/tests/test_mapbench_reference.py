@@ -3,11 +3,13 @@ genomes (letter space, long reads, colour space and colour-space pairs
 at hg-like repeats), and
 its control: the same reference with 8-bit saturating vector scores has
 to come out different."""
+import sys
+
 import numpy as np
 import pytest
 
 from mapbench.gen import hg_bin, iid_genome, reads as greads
-from mapbench.reference import expected_records
+from mapbench.reference import common as K, expected_records, pairs
 
 
 @pytest.fixture(autouse=True)
@@ -85,3 +87,55 @@ def test_control_fails(name):
     ctl = expected_records(cfg, tr, g, pool, control=True)
     differ = sum(a != b for a, b in zip(want, ctl))
     assert differ >= len(pool) // 2
+
+
+# The ten survivors' posteriors, in survivor order, of one `hg-cs.se36`
+# read (seed 2147483812, pool entry 32,075), whose top hit gmapper-cs
+# writes with MAPQ 149.
+POSTERIORS = [0.3199838903658211, 1.9557332412263268e-16,
+              5.859604009481391e-17, 5.858076871674328e-17,
+              4.939159397600908e-17, 1.2393302757683203e-17,
+              1.2393302757683203e-17, 1.2393302757683115e-17,
+              1.239330275768338e-17, 1.2393302757683115e-17]
+
+
+# gmapper's z1 for them: a C double added left to right.
+Z1 = 0.3199838903658215
+
+
+def _hits():
+    out = []
+    for i, p in enumerate(POSTERIORS):
+        h = K.Hit(st=0, gen_st=0, cn=0, g_off=1000 * i, w_len=50,
+                  score_window_gen=0, kmer_matches=0, score_vector=200,
+                  score_max=360)
+        h.score_full, h.pct_score_full = 200, 100 - i
+        h.genome_start, h.posterior = 1000 * i, p
+        out.append(h)
+    return out
+
+
+def test_mapq_normaliser_is_gmappers_plain_sum():
+    """z1 is a double added left to right, as gmapper's C adds it, and not
+    Python's `sum()`, which compensates since 3.12: on these posteriors the
+    two differ in the last bit and the top hit's MAPQ with them (149, as
+    gmapper, the port's CS stream and the port's plain CPU path write; 148
+    with `sum()`). With this sum the reference still equals the port's
+    CPU path in `test_reference_equals_port_cpu[cs36_hg]` and
+    `[cs36_hg_pairs]`, and its control still differs in
+    `test_control_fails` on all four cases."""
+    want = Z1
+    assert K.plain_sum(POSTERIORS) == want
+    if sys.version_info >= (3, 12):
+        assert want != sum(POSTERIORS)
+    survivors = K.finalize(_hits())
+    assert [h.posterior for h in survivors] == POSTERIORS
+    assert all(h.z1 == want for h in survivors)
+    assert survivors[0].mqv == 149
+    mates = [K.Read("r/1", "T" + "0" * 35, 35, (), 49),
+             K.Read("r/2", "T" + "0" * 35, 35, (), 49)]
+    mates[0].final_unpaired_hits = _hits()
+    pairs.paired_mqv(mates, [], 100_000_000)
+    top = mates[0].final_unpaired_hits
+    assert all(h.z1 == want for h in top)
+    assert top[0].mqv == 149

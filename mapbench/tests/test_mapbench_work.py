@@ -2,6 +2,7 @@
 the union of device intervals behind the idle share."""
 import json
 
+import numpy as np
 import torch
 
 from mapbench import peaks, trace, work
@@ -92,3 +93,15 @@ def test_union_and_idle_share(tmp_path):
     # filter1 ran over host [50, 450] us -> trace [1050, 1450]: idle
     # [1050, 1100] and [1250, 1450]
     assert abs(idle["filter1"] - 250e-6) < 1e-12
+
+
+def test_overlap_sum_matches_interval_by_interval():
+    rng = np.random.default_rng(7)
+    for _ in range(100):
+        s = rng.uniform(0, 100, rng.integers(0, 30))
+        merged = trace.union(zip(s, s + rng.uniform(0, 10, len(s))))
+        a = rng.uniform(-10, 110, rng.integers(0, 20))
+        ivs = list(zip(a, a + rng.uniform(-2, 20, len(a))))
+        want = sum(max(0.0, min(a1, e) - max(a0, b))
+                   for a0, a1 in ivs for b, e in merged)
+        assert abs(trace.overlap_sum(ivs, merged) - want) < 1e-9

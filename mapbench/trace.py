@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
+
 # kernel family -> algorithm stage
 FAMILIES = {"sw_vector": "filter2", "sw_full_stats": "filter3",
             "sw_full_bp": "filter3", "ls_traceback": "filter3",
@@ -33,8 +35,26 @@ def union(intervals):
     return out
 
 
-def overlap(a0, a1, merged) -> float:
-    return sum(max(0.0, min(a1, e) - max(a0, s)) for s, e in merged)
+def overlap_sum(intervals, merged) -> float:
+    """The total length of the (start, end) `intervals` that lies inside
+    `merged` (sorted and disjoint, as `union` gives): each interval's
+    share is the difference of the length `merged` covers up to its two
+    ends, so a traced window of many device gaps and host stages costs
+    a sort, not a product of the two counts."""
+    if not len(intervals) or not len(merged):
+        return 0.0
+    m = np.asarray(merged, np.float64)
+    iv = np.asarray(intervals, np.float64)
+    lens = m[:, 1] - m[:, 0]
+    before = np.concatenate(([0.0], np.cumsum(lens)))
+
+    def covered(t):
+        k = np.searchsorted(m[:, 0], t, side="right") - 1
+        kk = np.maximum(k, 0)
+        inside = np.clip(t - m[kk, 0], 0.0, lens[kk])
+        return np.where(k >= 0, before[kk] + inside, 0.0)
+    return float(np.maximum(covered(iv[:, 1]) - covered(iv[:, 0]),
+                            0.0).sum())
 
 
 def summarize(rep: dict) -> dict:
@@ -103,10 +123,9 @@ def summarize(rep: dict) -> dict:
             spans.setdefault(stage, []).append((e - secs * 1e6, e))
     under = {}
     for stage, iv in spans.items():
-        under[stage] = sum(overlap(a, b, idle) for a, b in union(iv)) * 1e-6
+        under[stage] = overlap_sum(union(iv), idle) * 1e-6
     covered = union([iv for ivs in spans.values() for iv in ivs])
-    under["no host stage"] = idle_s - sum(
-        overlap(a, b, idle) for a, b in covered) * 1e-6
+    under["no host stage"] = idle_s - overlap_sum(covered, idle) * 1e-6
     top = lambda d: [[k, v] for k, v in sorted(d.items(),
                                                key=lambda kv: -kv[1])[:10]]
     host_s = (rep["close_ns"] - rep["marker_ns"]) * 1e-9
